@@ -1,0 +1,1 @@
+"""Flash attention: CUDA kernel (csrc/), wrapper (ops.py), plain version (ref.py)."""

@@ -1,0 +1,75 @@
+"""Kernel registry — the seam between RCB kernel opcodes and hand kernels.
+
+The port's counterpart of ``repro.kernels.registry``, with the ``attention``
+spec only. Each spec holds the hand-kernel wrapper, its plain PyTorch
+version and the shape contract. The op attr ``impl`` keeps its meaning for
+programs written by the JAX package: ``"ref"`` runs the plain version,
+``"pallas"`` (or no ``impl``) runs the hand kernel. The hand kernel's
+wrapper computes the plain version itself for CPU tensors; on CUDA tensors
+it launches the kernel or raises. Block sizes in an op's ``params`` attr
+were tuned for the TPU's VMEM and are not read: the CUDA kernel fixes its
+own tiles. Autotuning is not ported yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Optional
+
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention.ref import attention_ref_bshd
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelSpec:
+    """One kernel: hand-kernel wrapper + plain version + contract."""
+    name: str
+    kernel: Callable                    # (*args, **kw) -> out
+    ref: Callable                       # (*args, **kw) -> out
+    contract: Callable                  # (*args) -> None or ValueError
+
+
+SPECS: dict[str, KernelSpec] = {
+    "attention": KernelSpec("attention", fa_ops.flash_attention,
+                            attention_ref_bshd, fa_ops.check_contract),
+}
+
+
+def get(name: str) -> KernelSpec:
+    spec = SPECS.get(name)
+    if spec is None:
+        raise NotImplementedError(
+            f"kernel {name!r} is not ported to PyTorch yet; ported: "
+            f"{sorted(SPECS)}")
+    return spec
+
+
+def call(name: str, *args, impl: Optional[str] = None, **kwargs):
+    """Dispatch one kernel: ``impl="ref"`` -> plain version, else the hand
+    kernel."""
+    spec = get(name)
+    spec.contract(*args)
+    if impl == "ref":
+        return spec.ref(*args, **kwargs)
+    if impl not in (None, "pallas"):
+        raise ValueError(f"kernel {name!r}: unknown impl {impl!r} "
+                         f"(expected 'pallas' or 'ref')")
+    return spec.kernel(*args, **kwargs)
+
+
+def call_op(name: str, srcs, attrs) -> Any:
+    """Kernel-op entry used by core/oplib: RCB attrs -> keyword signature."""
+    attrs = attrs or {}
+    if name == "attention":
+        return call("attention", *srcs, impl=attrs.get("impl"),
+                    causal=bool(attrs.get("causal", True)))
+    return call(name, *srcs, impl=attrs.get("impl"))
+
+
+def linked_handler(name: str, attrs) -> Callable:
+    """The positional handler ``fn(*srcs)`` the RHAL ``link_compute`` slot
+    hands to the linker for a kernel opcode."""
+    get(name)                          # unported kernels fail at link time
+
+    def handler(*srcs):
+        return call_op(name, srcs, attrs)
+    return handler

@@ -1,0 +1,114 @@
+"""Dense-family parameter layout, initialization and input embedding.
+
+The port's counterpart of the parts of ``repro.models.transformer`` and
+``repro.models.common`` that the per-layer RCB lowering needs: the stacked
+parameter specs (leading ``num_layers`` dim on block entries), their
+initialization from a seed on a device, ``split_params``, ``embed_inputs``,
+and ``params_from_jax`` to carry the JAX package's parameters across.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch import device as device_mod
+from repro_torch.configs.base import ModelConfig
+from repro_torch.dtypes import as_tensor, torch_dtype
+
+
+class ParamSpec(NamedTuple):
+    shape: tuple
+    dtype: str
+    init: str = "normal"      # normal | zeros | ones | embed
+    scale: float = 1.0
+
+
+def model_specs(cfg: ModelConfig) -> dict:
+    """Stacked parameter specs of the dense family (names and shapes as in
+    ``repro.models.transformer.model_specs``)."""
+    if cfg.family != "dense" or cfg.num_experts:
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported to PyTorch yet (dense only)")
+    L, d, V = cfg.num_layers, cfg.d_model, cfg.vocab_size
+    H, Hkv, D, F = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.d_ff
+    dt = cfg.dtype
+    specs = {
+        "ln1": ParamSpec((L, d), dt, "ones"),
+        "ln2": ParamSpec((L, d), dt, "ones"),
+        "final_norm": ParamSpec((d,), dt, "ones"),
+        "wq": ParamSpec((L, d, H, D), dt),
+        "wk": ParamSpec((L, d, Hkv, D), dt),
+        "wv": ParamSpec((L, d, Hkv, D), dt),
+        "wo": ParamSpec((L, H, D, d), dt),
+        "mlp_wi_gate": ParamSpec((L, d, F), dt),
+        "mlp_wi_up": ParamSpec((L, d, F), dt),
+        "mlp_wo": ParamSpec((L, F, d), dt),
+    }
+    if cfg.input_kind == "tokens":
+        specs["embed"] = ParamSpec((V, d), dt, "embed")
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = ParamSpec((d, V), dt)
+    if cfg.qkv_bias:
+        specs["bq"] = ParamSpec((L, H, D), dt, "zeros")
+        specs["bk"] = ParamSpec((L, Hkv, D), dt, "zeros")
+        specs["bv"] = ParamSpec((L, Hkv, D), dt, "zeros")
+    if cfg.qk_norm:
+        specs["q_norm"] = ParamSpec((L, D), dt, "ones")
+        specs["k_norm"] = ParamSpec((L, D), dt, "ones")
+    return specs
+
+
+def init_params(cfg: ModelConfig, seed: int, device="cuda") -> dict:
+    """Draw parameters from ``seed`` with a ``torch.Generator`` on
+    ``device``, following the JAX package's init kinds: ones, zeros,
+    embed (normal, std d^-1/2) and normal (normal truncated at +-3, std
+    scale / sqrt(fan_in)). The values differ from the JAX package's
+    (another generator); parity tests carry weights across instead."""
+    dev = device_mod.resolve(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(seed))
+    specs = model_specs(cfg)
+    out = {}
+    for name in sorted(specs):
+        s = specs[name]
+        dt = torch_dtype(s.dtype)
+        if s.init == "zeros":
+            v = torch.zeros(s.shape, dtype=dt, device=dev)
+        elif s.init == "ones":
+            v = torch.ones(s.shape, dtype=dt, device=dev)
+        elif s.init == "embed":
+            v = torch.randn(s.shape, generator=gen, device=dev)
+            v = (v * s.shape[-1] ** -0.5).to(dt)
+        else:
+            fan_in = s.shape[-2] if len(s.shape) >= 2 else s.shape[-1]
+            v = torch.empty(s.shape, device=dev)
+            torch.nn.init.trunc_normal_(v, 0.0, 1.0, -3.0, 3.0,
+                                        generator=gen)
+            v = (v * (s.scale / math.sqrt(max(1, fan_in)))).to(dt)
+        out[name] = v
+    return out
+
+
+def params_from_jax(np_params: dict, device="cuda") -> dict:
+    """The JAX package's stacked parameter dict (as numpy arrays, bf16 as
+    ml_dtypes arrays) as the port's tensors on ``device``, bit for bit."""
+    dev = device_mod.resolve(device)
+    return {k: as_tensor(np.asarray(v), dev) for k, v in np_params.items()}
+
+
+_BLOCK_KEYS_GLOBAL = ("embed", "lm_head", "final_norm")
+
+
+def split_params(params: dict):
+    blocks = {k: v for k, v in params.items() if k not in _BLOCK_KEYS_GLOBAL}
+    glob = {k: v for k, v in params.items() if k in _BLOCK_KEYS_GLOBAL}
+    return glob, blocks
+
+
+def embed_inputs(cfg: ModelConfig, glob: dict, tokens) -> torch.Tensor:
+    """tokens (B,S) -> hidden (B,S,d) on the embedding's device."""
+    emb = glob["embed"]
+    return emb[as_tensor(tokens, emb.device).long()]

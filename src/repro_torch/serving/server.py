@@ -1,0 +1,684 @@
+"""Network-attached inference service (RTPM host-connectivity role).
+
+The port's counterpart of ``repro.serving.server``: a socket server speaking
+the CRC-framed protocol (v1 + v2), serving a provisioned RCB program through
+the plain-RCB route. The v2 frame extension (per-frame ``request_id`` +
+flags) lets one connection pipeline many INFER_REQUESTs and receive the
+responses out of order.
+
+Concurrency model — **all device state behind one thread**: connection
+handler threads only parse frames and enqueue work; a single dispatcher
+thread (an ``rtpm.ServiceLoop`` worker, heartbeat-monitored) owns the
+``Platform``, the ``Executor`` and the bound program.
+
+Flow per request:
+
+  handler thread:  recv_frame -> parse npz + admission metadata
+                   -> INFER: ScheduledRequest into the DeadlineScheduler
+                      (deadline anchored HERE, so queue wait counts against
+                      it) + a dispatcher kick; admission-cap overflow ->
+                      immediate ERROR/F_BUSY
+                   -> everything else: ServiceLoop.submit
+                      (queue full -> immediate ERROR/F_BUSY)
+  dispatcher:      drains the scheduler through admit(1) in priority/EDF
+                   order -> shed? ERROR/F_SHED with the verdict, before any
+                   compute -> else the linked Executor path on the device;
+                   results return to the host for the reply
+  SHUTDOWN:        graceful drain — queued work is answered, then stop.
+
+PROVISION binds with the executor's driver, so the weight image is pinned
+on the device once and every request reuses it.
+"""
+from __future__ import annotations
+
+import dataclasses
+import itertools
+import random
+import select
+import socket
+import struct
+import threading
+import time
+from typing import Any, Optional
+
+import numpy as np
+
+from repro_torch.core.executor import Executor
+from repro_torch.core.integrity import IntegrityError
+from repro_torch.core.rhal import TileFailure
+from repro_torch.core.rtpm import Platform, ServiceLoop
+from repro_torch.dtypes import to_host
+from repro_torch.serving import protocol as proto
+from repro_torch.serving.scheduler import (RETRYABLE_KINDS, DeadlineScheduler,
+                                           ScheduledRequest)
+
+
+class ServerBusy(RuntimeError):
+    """Reply carried F_BUSY/F_DRAINING: backpressure, retry later.
+
+    ``kind`` / ``retry_after_ms`` mirror the reply payload when the
+    server sent a structured refusal (v2 typed verdicts)."""
+    kind: str = "busy"
+    retry_after_ms: Optional[float] = None
+    retryable: bool = True
+
+
+class RequestShed(RuntimeError):
+    """Reply carried F_SHED: admission policy shed the request.
+
+    ``kind`` is the machine-readable verdict class (busy / shed /
+    infeasible / out_of_blocks / brownout); ``retryable`` is False for
+    terminal verdicts (an infeasible deadline, or an LM request that
+    already sampled tokens and is no longer idempotent)."""
+    kind: str = "shed"
+    retry_after_ms: Optional[float] = None
+    retryable: bool = True
+
+
+class _Route:
+    """Reply path to one connection: socket + send lock (the dispatcher
+    and the connection's handler thread may both write to it).
+
+    ``SO_SNDTIMEO`` bounds how long a non-reading client can stall the
+    dispatcher — on timeout the route dies and the peer is on its own,
+    instead of head-of-line blocking every other connection. The kernel
+    option only affects sends, so the handler's blocking recv on the same
+    socket is untouched (``settimeout`` would flip the shared file
+    description to non-blocking and break it)."""
+
+    def __init__(self, conn: socket.socket, send_timeout: float = 30.0):
+        self.conn = conn
+        if send_timeout:
+            sec = int(send_timeout)
+            usec = int((send_timeout - sec) * 1e6)
+            conn.setsockopt(socket.SOL_SOCKET, socket.SO_SNDTIMEO,
+                            struct.pack("ll", sec, usec))
+        self.lock = threading.Lock()
+        self.alive = True
+        self._finals: dict = {}            # id(token) -> token (reply-once)
+        self._finals_lock = threading.Lock()
+
+    def send_final(self, token: Any, kind: proto.Msg, payload: bytes,
+                   rid: int = 0, version: int = 1, flags: int = 0) -> bool:
+        """Exactly-once terminal reply for ``token`` (the request object).
+
+        A watchdog preemption racing ``close(timeout=)`` can leave two
+        parties believing they own the reply — the unwedged dispatcher
+        finishing late and the drop path refusing the in-flight item.
+        Whichever calls first wins; the loser's send is a silent no-op,
+        so a request id is NEVER answered twice. Tokens are held by
+        strong reference (id() reuse after gc would break the guard)."""
+        with self._finals_lock:
+            if id(token) in self._finals:
+                return False
+            self._finals[id(token)] = token
+        return self.send(kind, payload, rid=rid, version=version,
+                         flags=flags)
+
+    def send(self, kind: proto.Msg, payload: bytes, rid: int = 0,
+             version: int = 1, flags: int = 0) -> bool:
+        if not self.alive:
+            return False
+        try:
+            with self.lock:
+                if version >= 2:
+                    proto.send_frame(self.conn, kind, payload,
+                                     request_id=rid, flags=flags)
+                else:
+                    proto.send_frame(self.conn, kind, payload)
+            return True
+        except (OSError, ValueError):
+            self.alive = False
+            # tear the connection down rather than leaving the peer
+            # blocked on a truncated frame (and the handler feeding more
+            # work to a route that can no longer answer)
+            try:
+                self.conn.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
+            return False
+
+    def close(self) -> None:
+        """Retire the route (the handler's ``with conn`` owns the socket)."""
+        self.alive = False
+
+
+@dataclasses.dataclass
+class _Work:
+    frame: Optional[proto.Frame]        # None == dispatcher kick
+    route: Optional[_Route]
+
+
+_KICK = _Work(frame=None, route=None)   # wake the dispatcher to drain
+
+
+class InferenceServer:
+    def __init__(self, host: str = "127.0.0.1", port: int = 0,
+                 device="cuda",
+                 scheduler: Optional[DeadlineScheduler] = None,
+                 max_queue: int = 128, max_frame: int = proto.MAX_FRAME,
+                 send_timeout: float = 30.0,
+                 watchdog: bool = True, watchdog_slack: float = 16.0,
+                 watchdog_floor: float = 2.0, watchdog_poll: float = 0.02):
+        self.platform = Platform(device=device)
+        self.executor = Executor(driver=self.platform.driver,
+                                 rtpm=self.platform)
+        self.scheduler = scheduler or DeadlineScheduler()
+        self.max_frame = max_frame
+        self.max_queue = max_queue
+        self.send_timeout = send_timeout
+        self._sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        self._sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        self._sock.bind((host, port))
+        self._sock.listen(16)
+        self.address = self._sock.getsockname()
+        self._bound = None
+        self._stop = threading.Event()
+        self._stop_lock = threading.Lock()
+        self._thread: Optional[threading.Thread] = None
+        # Execution watchdog policy: per-dispatch budget = scheduler EWMA
+        # x slack (floored — cold caches and kernel builds must not read as
+        # hangs), with a boot grace until the first EWMA observation.
+        self.watchdog_slack = watchdog_slack
+        self.watchdog_floor = watchdog_floor
+        self._executing: Any = None     # in-flight ScheduledRequest
+        # the dispatcher: the ONE thread that touches device state
+        self._loop = ServiceLoop(
+            self.platform, self._dispatch_one,
+            name="dispatcher", max_queue=max_queue,
+            on_idle=self._drain_plain, on_drop=self._drop_work,
+            watchdog_budget=self._watchdog_budget if watchdog else None,
+            on_hang=self._preempt_hung if watchdog else None,
+            watchdog_poll=watchdog_poll)
+
+    # ----------------------------------------------------------- lifecycle
+    def start(self) -> tuple:
+        self._thread = threading.Thread(target=self._serve, daemon=True)
+        self._thread.start()
+        return self.address
+
+    def stop(self, drain: bool = True) -> None:
+        with self._stop_lock:
+            if not self._stop.is_set():
+                self._stop.set()
+                try:
+                    # unblock accept()
+                    socket.create_connection(self.address, timeout=1).close()
+                except OSError:
+                    pass
+                self._loop.close(drain=drain)
+                # every accepted request still gets an explicit refusal
+                payload = proto.pack_json({"error": "draining"})
+                for s in self.scheduler.drain_pending():
+                    r, srid, sver, _ = s.payload
+                    r.send(proto.Msg.ERROR, payload, rid=srid,
+                           flags=proto.F_DRAINING, version=sver)
+                self._sock.close()
+        if self._thread and self._thread is not threading.current_thread():
+            self._thread.join(timeout=5)
+
+    # ------------------------------------------------------------- serving
+    def _serve(self) -> None:
+        while not self._stop.is_set():
+            try:
+                conn, _ = self._sock.accept()
+            except OSError:
+                return
+            if self._stop.is_set():
+                conn.close()
+                return
+            t = threading.Thread(target=self._handle, args=(conn,),
+                                 daemon=True)
+            t.start()
+
+    def _handle(self, conn: socket.socket) -> None:
+        """Per-connection frame pump: parse + enqueue ONLY."""
+        route = _Route(conn, send_timeout=self.send_timeout)
+        with conn:
+            try:
+                self._pump_frames(conn, route)
+            finally:
+                route.close()
+
+    def _pump_frames(self, conn: socket.socket, route: _Route) -> None:
+        while not self._stop.is_set():
+            try:
+                frame = proto.recv_frame_ex(conn, max_frame=self.max_frame)
+            except (ConnectionError, OSError):
+                return
+            except proto.ProtocolError as e:
+                # malformed frame mid-stream: report with the reserved id 0
+                # and close cleanly
+                route.send(proto.Msg.ERROR,
+                           proto.pack_json({"error": f"protocol: {e}"}),
+                           rid=0, version=2)
+                return
+            try:
+                if frame.kind == proto.Msg.HEARTBEAT:
+                    self.platform.heartbeats.beat(
+                        proto.unpack_json(frame.payload).get("worker", "?"))
+                elif frame.kind == proto.Msg.SHUTDOWN:
+                    route.send(proto.Msg.TELEMETRY,
+                               proto.pack_json({"status": "draining"}),
+                               rid=frame.request_id, version=frame.version)
+                    self.stop(drain=True)       # graceful: queued work runs
+                    return
+                elif frame.kind == proto.Msg.INFER_REQUEST:
+                    self._enqueue_infer(frame, route)
+                elif not self._loop.submit(_Work(frame, route)):
+                    flags = proto.F_DRAINING if self._stop.is_set() \
+                        else proto.F_BUSY
+                    route.send(
+                        proto.Msg.ERROR,
+                        self._busy_payload("busy: dispatch queue full",
+                                           pending=self._loop.depth()),
+                        rid=frame.request_id, flags=flags,
+                        version=frame.version)
+            except Exception as e:              # report, keep serving
+                route.send(proto.Msg.ERROR,
+                           proto.pack_json({"error": str(e)}),
+                           rid=frame.request_id, version=frame.version)
+
+    def _enqueue_infer(self, frame: proto.Frame, route: _Route) -> None:
+        """Handler-thread half of an INFER_REQUEST: parse the npz and the
+        admission metadata, then enqueue a ScheduledRequest (deadline
+        anchored NOW). No device state is touched here."""
+        tensors = proto.unpack_tensors(frame.payload)
+        meta = {k: tensors.pop(k) for k in list(tensors)
+                if k.startswith("__")}
+        priority = int(meta["__priority"]) if "__priority" in meta else 1
+        deadline = None
+        if "__deadline_ms" in meta:
+            deadline = time.monotonic() + float(meta["__deadline_ms"]) / 1e3
+        rid, ver = frame.request_id, frame.version
+        if self.scheduler.pending() >= self.max_queue:
+            self._loop.reject()
+            route.send(proto.Msg.ERROR,
+                       self._busy_payload("busy: admission queue full",
+                                          pending=self.scheduler.pending()),
+                       rid=rid, flags=proto.F_BUSY, version=ver)
+            return
+        # the kick IS the admission ticket: an accepted kick guarantees a
+        # live dispatcher will drain this request; a refused kick means the
+        # dispatcher is full or draining, so the request is refused too
+        if not self._loop.submit(_KICK):
+            flags = proto.F_DRAINING if self._stop.is_set() \
+                else proto.F_BUSY
+            route.send(proto.Msg.ERROR,
+                       self._busy_payload("busy: dispatch queue full"),
+                       rid=rid, flags=flags, version=ver)
+            return
+        self.scheduler.submit(ScheduledRequest(
+            rid=rid, tokens_needed=1, priority=priority, deadline=deadline,
+            payload=(route, rid, ver, tensors)))
+
+    # ------------------------------------------------------------ watchdog
+    def _watchdog_budget(self, token: Any) -> Optional[float]:
+        """Deadline for one armed dispatch; None == unwatched. ``_Work``
+        items (PROVISION, kicks) are never watched at the loop level; the
+        server arms the request itself around its execution."""
+        if isinstance(token, _Work):
+            return None
+        if self.scheduler.observations == 0:
+            return None                 # boot grace: no EWMA evidence yet
+        return max(self.watchdog_floor,
+                   self.scheduler.est * self.watchdog_slack)
+
+    def _preempt_hung(self, token: Any) -> None:
+        """Watchdog hook (on the watchdog thread): a dispatch blew its
+        deadline. One card has no tile group to kill, so the preemption is
+        recorded for the TELEMETRY counters."""
+        self.platform.post("watchdog_preempt", {"group": None})
+
+    # ------------------------------------------------------ typed refusals
+    def _retry_after_ms(self) -> int:
+        """Backpressure hint: roughly how long the current backlog takes to
+        drain at the admission EWMA's pace."""
+        est = self.scheduler.est if self.scheduler.observations else 0.01
+        depth = self._loop.depth() + self.scheduler.pending()
+        return int(min(2000.0, max(1.0, est * (depth + 1) * 1000.0)))
+
+    def _shed_payload(self, kind: str, verdict: str) -> bytes:
+        kind = kind or "shed"
+        retryable = kind in RETRYABLE_KINDS
+        return proto.pack_json(
+            {"error": "shed", "kind": kind, "verdict": verdict,
+             "retryable": retryable,
+             "retry_after_ms": self._retry_after_ms() if retryable else 0})
+
+    def _busy_payload(self, msg: str, **extra) -> bytes:
+        return proto.pack_json(
+            {"error": msg, "kind": "busy", "retryable": True,
+             "retry_after_ms": self._retry_after_ms(), **extra})
+
+    # ---------------------------------------------------------- dispatcher
+    def _dispatch_one(self, work: _Work) -> None:
+        """Runs ONLY on the ServiceLoop worker thread."""
+        if work.frame is None:                  # kick: drain the admission q
+            self._drain_plain()
+            return
+        frame, route = work.frame, work.route
+        rid, ver = frame.request_id, frame.version
+        try:
+            if frame.kind == proto.Msg.PROVISION:
+                self._provision(frame.payload)
+                route.send(proto.Msg.TELEMETRY,
+                           proto.pack_json({"status": "ready"}),
+                           rid=rid, version=ver)
+            elif frame.kind == proto.Msg.TELEMETRY:
+                route.send(proto.Msg.TELEMETRY,
+                           proto.pack_json(self._telemetry_summary()),
+                           rid=rid, version=ver)
+            else:
+                raise RuntimeError(f"unexpected message {frame.kind!r}")
+        except Exception as e:                  # report, keep serving
+            route.send(proto.Msg.ERROR, proto.pack_json({"error": str(e)}),
+                       rid=rid, version=ver)
+
+    def _drain_plain(self) -> bool:
+        """Drain the admission queue in priority/EDF order: shed infeasible
+        requests with their verdicts, execute the rest one by one."""
+        progressed = False
+        while True:
+            admitted = self.scheduler.admit(1)
+            for s in self.scheduler.drain_shed():
+                r, srid, sver, _ = s.payload
+                r.send(proto.Msg.ERROR,
+                       self._shed_payload(s.verdict_kind, s.verdict),
+                       rid=srid, flags=proto.F_SHED, version=sver)
+                progressed = True
+            if not admitted:
+                return progressed
+            for s in admitted:
+                self._dispatch_single(s)
+            progressed = True
+
+    def _dispatch_single(self, s) -> None:
+        r, srid, sver, sts = s.payload
+        wd = self._loop.watchdog
+        self._executing = s
+        t0 = time.perf_counter()
+        try:
+            if wd is not None:
+                wd.arm(s)
+            try:
+                out = self._infer(sts)
+            except (TileFailure, IntegrityError) as e:
+                # recoverable fault taxonomy: one re-run (a corrupted
+                # transfer re-issues from its retained source)
+                kind = "integrity_error" if isinstance(e, IntegrityError) \
+                    else "tile_failure"
+                self.platform.post(kind, {"stage": "dispatch",
+                                          "error": str(e)})
+                if wd is not None:
+                    wd.arm(s)           # fresh budget for the re-run
+                out = self._infer(sts)
+        except Exception as e:                  # report, keep draining
+            r.send_final(s, proto.Msg.ERROR,
+                         proto.pack_json({"error": str(e)}),
+                         rid=srid, version=sver)
+            return
+        finally:
+            if wd is not None:
+                wd.disarm()
+            self._executing = None
+        dt = time.perf_counter() - t0
+        self.platform.telemetry.record_latency(dt)
+        self.scheduler.observe_step_latency(dt)
+        r.send_final(s, proto.Msg.INFER_RESPONSE, proto.pack_tensors(out),
+                     rid=srid, version=sver)
+
+    def _drop_work(self, work: _Work) -> None:
+        """close(drain=False) hand-back: refuse explicitly, never drop a
+        request whose submit was already acknowledged."""
+        if work.frame is not None:
+            work.route.send(proto.Msg.ERROR,
+                            proto.pack_json({"error": "draining"}),
+                            rid=work.frame.request_id,
+                            flags=proto.F_DRAINING,
+                            version=work.frame.version)
+            return
+        # a dropped KICK may stand for the dispatch a wedged worker is still
+        # executing: refuse it (send_final keeps the reply exactly-once)
+        s = self._executing
+        if s is None:
+            return
+        r, srid, sver, _ = s.payload
+        r.send_final(s, proto.Msg.ERROR,
+                     proto.pack_json({"error": "preempted: dispatcher "
+                                      "closing"}),
+                     rid=srid, flags=proto.F_DRAINING, version=sver)
+
+    def _telemetry_summary(self) -> dict:
+        s = dict(self.platform.telemetry.summary(warmup=1))
+        s["serving"] = {**self._loop.summary(),
+                        "shed": self.scheduler.shed_count}
+        s["counters"] = self.platform.telemetry.counters()
+        s["device"] = str(self.platform.driver.device)
+        return s
+
+    def _provision(self, payload) -> None:
+        # payload = frame-in-frame: [image_frame][program_frame]; sliced as
+        # memoryviews so the image is not copied again
+        view = memoryview(payload)
+        _, image = proto.decode_frame(view, max_frame=self.max_frame)
+        rest = view[proto.HEADER.size + len(image) + 4:]
+        _, prog = proto.decode_frame(rest, max_frame=self.max_frame)
+        self.platform.provision(image=image, program_bytes=prog)
+        self._bound = self.platform.bind(driver=self.executor.driver)
+
+    def _infer(self, tensors: dict) -> dict:
+        """Run on the device; results come back as host values."""
+        if self._bound is None:
+            raise RuntimeError("not provisioned")
+        out = self.executor.run(self._bound, inputs=tensors,
+                                rimfs=self.platform.rimfs)
+        return {k: to_host(v) for k, v in out.items()}
+
+
+# ------------------------------------------------------------------ client
+class Client:
+    """Protocol v2 client with request pipelining.
+
+    ``infer`` is the synchronous one-shot; ``infer_async``/``result`` pipe
+    many requests down one connection and collect responses out of order
+    (frames for other request ids are parked for their waiters, so one
+    ``Client`` may be shared across threads). ``version=1`` speaks the
+    legacy rid-less protocol for back-compat testing.
+
+    Backpressure retry: ``retries > 0`` makes ``infer`` re-send a request
+    refused with F_BUSY/F_SHED up to that many times, sleeping a jittered
+    exponential backoff (``backoff * 2**attempt``, capped, ×[0.5, 1.0)
+    jitter so a refused burst doesn't re-arrive in lockstep). Scale
+    events and drain windows then read as added latency instead of hard
+    failures. Off by default — zero-retry callers see refusals
+    immediately, exactly as before.
+    """
+
+    def __init__(self, address: tuple, version: int = 2,
+                 max_frame: int = proto.MAX_FRAME, retries: int = 0,
+                 backoff: float = 0.05, backoff_cap: float = 2.0,
+                 retry_seed: Optional[int] = None):
+        self.sock = socket.create_connection(address)
+        self.version = version
+        self.max_frame = max_frame
+        self.retries = int(retries)
+        self.backoff = backoff
+        self.backoff_cap = backoff_cap
+        self._retry_rng = random.Random(retry_seed)
+        self.retry_stats = {"retries": 0, "busy": 0, "shed": 0,
+                            "hinted": 0}
+        self._send_lock = threading.Lock()
+        self._cond = threading.Condition()
+        self._parked: dict = {}           # rid -> Frame (out-of-order)
+        self._receiving = False
+        self._dead: Optional[BaseException] = None
+        self._rids = itertools.count(1)
+
+    # -------------------------------------------------------------- frames
+    def _send(self, kind: proto.Msg, payload: bytes, rid: int = 0) -> None:
+        with self._send_lock:
+            if self.version >= 2:
+                proto.send_frame(self.sock, kind, payload, request_id=rid)
+            else:
+                proto.send_frame(self.sock, kind, payload)
+
+    def _await(self, rid: int,
+               timeout: Optional[float] = None) -> proto.Frame:
+        """Block until the reply for ``rid`` arrives. Exactly one thread
+        receives at a time; frames for other ids are parked and their
+        waiters notified. A receive failure marks the connection dead so
+        every parked waiter errors out instead of waiting forever.
+
+        ``timeout`` bounds the whole wait: a request id orphaned by a
+        server that never replies raises ``TimeoutError`` instead of
+        parking forever. The receive slot polls the socket with
+        ``select`` slices (``settimeout`` would flip the shared file
+        description and break concurrent senders) so a timed waiter
+        holding the slot still hands it back promptly on expiry."""
+        deadline = None if timeout is None \
+            else time.monotonic() + timeout
+
+        def _expired() -> float:
+            remaining = deadline - time.monotonic()
+            if remaining <= 0:
+                raise TimeoutError(
+                    f"no reply for request {rid} within {timeout}s")
+            return remaining
+
+        with self._cond:
+            while True:
+                if rid in self._parked:
+                    return self._parked.pop(rid)
+                if self._dead is not None:
+                    raise ConnectionError(
+                        f"connection failed: {self._dead!r}")
+                if not self._receiving:
+                    self._receiving = True
+                    break
+                self._cond.wait(None if deadline is None
+                                else min(_expired(), 0.1))
+        try:
+            while True:
+                if deadline is not None:
+                    ready, _, _ = select.select(
+                        [self.sock], [], [], min(_expired(), 0.1))
+                    if not ready:
+                        continue
+                try:
+                    f = proto.recv_frame_ex(self.sock,
+                                            max_frame=self.max_frame)
+                except Exception as e:
+                    with self._cond:
+                        self._dead = e
+                    raise
+                # v1 frames carry no id: deliver to the active waiter
+                if f.version == 1 or f.request_id == rid:
+                    return f
+                with self._cond:
+                    self._parked[f.request_id] = f
+                    self._cond.notify_all()
+        finally:
+            with self._cond:
+                self._receiving = False
+                self._cond.notify_all()
+
+    @staticmethod
+    def _raise_error(f: proto.Frame) -> None:
+        info = proto.unpack_json(f.payload)
+        msg = info.get("error", str(info))
+        if f.flags & proto.F_SHED:
+            exc: Any = RequestShed(info.get("verdict", msg))
+            exc.kind = info.get("kind", "shed")
+        elif f.flags & (proto.F_BUSY | proto.F_DRAINING):
+            exc = ServerBusy(msg)
+            exc.kind = info.get("kind", "busy")
+        else:
+            raise RuntimeError(msg)
+        exc.retry_after_ms = info.get("retry_after_ms")
+        exc.retryable = bool(info.get("retryable", True))
+        raise exc
+
+    def _rpc(self, kind: proto.Msg, payload: bytes) -> proto.Frame:
+        rid = next(self._rids)
+        self._send(kind, payload, rid=rid)
+        f = self._await(rid)
+        if f.kind == proto.Msg.ERROR:
+            self._raise_error(f)
+        return f
+
+    # ----------------------------------------------------------------- api
+    def provision(self, image: bytes, program_bytes: bytes) -> dict:
+        # frame-in-frame, sent part by part: the image is never copied
+        inner = proto.frame_parts(proto.Msg.PROVISION, image) + \
+            proto.frame_parts(proto.Msg.PROVISION, program_bytes)
+        return proto.unpack_json(
+            self._rpc(proto.Msg.PROVISION, inner).payload)
+
+    def infer_async(self, deadline_ms: Optional[float] = None,
+                    priority: Optional[int] = None, **tensors) -> int:
+        """Send one pipelined INFER_REQUEST; returns its request id.
+        Admission metadata rides as reserved ``__``-prefixed npz entries."""
+        rid = next(self._rids)
+        meta: dict = {}
+        if deadline_ms is not None:
+            meta["__deadline_ms"] = np.float64(deadline_ms)
+        if priority is not None:
+            meta["__priority"] = np.int32(priority)
+        self._send(proto.Msg.INFER_REQUEST,
+                   proto.pack_tensors({**tensors, **meta}), rid=rid)
+        return rid
+
+    def result(self, rid: int, timeout: Optional[float] = None) -> dict:
+        """Collect the response for a pipelined request id (any order).
+        ``timeout`` raises ``TimeoutError`` for an orphaned id (e.g. a
+        dead server that will never answer) instead of parking forever."""
+        f = self._await(rid, timeout=timeout)
+        if f.kind == proto.Msg.ERROR:
+            self._raise_error(f)
+        return proto.unpack_tensors(f.payload)
+
+    def infer(self, deadline_ms: Optional[float] = None,
+              priority: Optional[int] = None,
+              timeout: Optional[float] = None, **tensors) -> dict:
+        """One-shot inference; with ``retries`` set, bounded re-send on
+        backpressure refusals (a refused request was never executed, so
+        re-sending cannot double-run it)."""
+        attempt = 0
+        while True:
+            try:
+                return self.result(self.infer_async(
+                    deadline_ms=deadline_ms, priority=priority, **tensors),
+                    timeout=timeout)
+            except (ServerBusy, RequestShed) as e:
+                kind = "busy" if isinstance(e, ServerBusy) else "shed"
+                self.retry_stats[kind] += 1
+                if not getattr(e, "retryable", True):
+                    # terminal verdict (infeasible deadline, or a non-
+                    # idempotent mid-sampling shed): retrying is either
+                    # futile or unsafe — fail fast regardless of budget
+                    raise
+                if attempt >= self.retries:
+                    raise
+                delay = min(self.backoff_cap, self.backoff * (2 ** attempt))
+                delay *= 0.5 + self._retry_rng.random() / 2
+                hint = getattr(e, "retry_after_ms", None)
+                if hint:
+                    # the server told us when capacity plausibly exists;
+                    # arriving earlier only burns a retry on the same wall
+                    self.retry_stats["hinted"] += 1
+                    delay = max(delay, float(hint) / 1e3)
+                time.sleep(delay)
+                attempt += 1
+                self.retry_stats["retries"] += 1
+
+    def telemetry(self) -> dict:
+        return proto.unpack_json(self._rpc(proto.Msg.TELEMETRY, b"").payload)
+
+    def shutdown(self) -> dict:
+        """Graceful server drain; returns the server's drain ack."""
+        return proto.unpack_json(
+            self._rpc(proto.Msg.SHUTDOWN, b"").payload)
+
+    def close(self) -> None:
+        self.sock.close()

@@ -1,0 +1,90 @@
+"""The PyTorch port stands alone: it imports neither JAX, ml_dtypes nor the
+JAX package, and its entry points default to CUDA without falling back."""
+import os
+import pathlib
+import pkgutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
+
+
+def _port_modules() -> list:
+    import repro_torch
+    names = ["repro_torch"]
+    for info in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
+        names.append(info.name)
+    return names
+
+
+def test_port_imports_no_jax_no_ml_dtypes_no_reference_package():
+    modules = _port_modules()
+    assert "repro_torch.kernels.flash_attention.ops" in modules
+    code = (
+        "import importlib, sys\n"
+        f"for m in {modules!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'ml_dtypes', "
+        "'repro') or m.startswith(('jax.', 'jaxlib', 'ml_dtypes.', "
+        "'repro.')))\n"
+        "print(len(bad), bad)\n"
+        "import torch\n"
+        "print(torch.backends.cuda.matmul.allow_tf32, "
+        "torch.backends.cudnn.allow_tf32)\n")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.splitlines()
+    assert lines[0] == "0 []", lines[0]
+    assert lines[1] == "False False"        # TF32 off at import
+
+
+def test_chip_smoke_imports_nothing_of_jax():
+    src = (SRC.parent / "chip_smoke.py").read_text()
+    for bad in ("import jax", "from jax", "ml_dtypes", "from repro.",
+                "import repro.", "from repro import"):
+        assert bad not in src, bad
+
+
+def _entry_points():
+    from repro_torch.configs import get_config
+    from repro_torch.core.executor import Executor
+    from repro_torch.core.rhal import make_eager_driver
+    from repro_torch.core.rtpm import Platform
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving.server import InferenceServer
+    cfg = get_config("qwen2-1.5b-smoke")
+    return {
+        "make_eager_driver": make_eager_driver,
+        "Executor": Executor,
+        "Platform": Platform,
+        "InferenceServer": InferenceServer,
+        "init_params": lambda: init_params(cfg, 0),
+    }
+
+
+@pytest.mark.parametrize("name", ["make_eager_driver", "Executor",
+                                  "Platform", "InferenceServer",
+                                  "init_params"])
+def test_default_device_is_cuda_and_raises_without_it(name):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default does not raise")
+    with pytest.raises(RuntimeError, match="CUDA requested"):
+        _entry_points()[name]()
+
+
+@pytest.mark.parametrize("name", ["make_eager_driver", "Executor",
+                                  "Platform"])
+def test_entry_points_run_on_cpu_when_asked(name):
+    from repro_torch.core.executor import Executor
+    from repro_torch.core.rhal import make_eager_driver
+    from repro_torch.core.rtpm import Platform
+    made = {"make_eager_driver": make_eager_driver, "Executor": Executor,
+            "Platform": Platform}[name](device="cpu")
+    driver = made if name == "make_eager_driver" else made.driver
+    assert driver.device == torch.device("cpu")
+    assert driver.arena.capacity == 1 << 30
