@@ -8,20 +8,24 @@ Phases, each printing one JSON line with its times:
   1. device and build: the card, ``nvidia-smi``'s name and power limit, and
      the nvcc build of every kernel from this checkout's sources;
   2. every kernel against its plain PyTorch version on the card, at the
-     main path's shapes and at the other shapes it takes, with the kernel's,
-     the plain version's and the PyTorch library call's times;
-  3. a two-layer full-width fp32 qwen2-1.5B program: the linked run with
-     the kernel against the same program with the plain attention;
-  4. the slice: qwen2-1.5B at full width and depth (bf16, 28 layers, random
-     weights from ``--seed``) compiled to RCB bytes and a RIMFS image,
-     provisioned over protocol v2 into the port's InferenceServer, answering
-     4 requests of B=1, S=512 (two of them pipelined on one connection),
-     with the server's peak device memory; each response checked bit for
-     bit against a local linked run and an interpreted run; then where a
-     request's time goes: one local linked run by the host clock and under
-     ``torch.profiler`` (device busy time, the top kernels), and the wire's
-     packing and unpacking of one response;
-  5. one ``kernels`` line: per kernel its launches on the main path, its
+     served paths' shapes and at the other shapes it takes, with the
+     kernel's, the plain version's and the PyTorch library call's times
+     (``flash_attention``, then ``ssm_scan``);
+  3. a two-layer full-width fp32 program of each served model (qwen2-1.5B,
+     then hymba-1.5B): the linked run with the kernels against the same
+     program with ``impl="ref"`` on every kernel op;
+  4. the served paths, qwen2-1.5B (``slice``) then hymba-1.5B
+     (``slice_hybrid``), each at full width and depth (bf16, random weights
+     from ``--seed``) compiled to RCB bytes and a RIMFS image, provisioned
+     over protocol v2 into the port's InferenceServer, answering 4 requests
+     of B=1, S=512 (two of them pipelined on one connection), with the
+     server's peak device memory and each kernel's launches while it
+     answered; each response checked bit for bit against a local linked run
+     and an interpreted run; then where a request's time goes: one local
+     linked run by the host clock and under ``torch.profiler`` (device busy
+     time, the top kernels), and the wire's packing and unpacking of one
+     response;
+  5. one ``kernels`` line: per kernel its launches on the served paths, its
      error against its plain version, its time, its bound and the library's.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure raises and
@@ -43,6 +47,7 @@ HBM_BYTES_PER_S = 3.35e12            # H100 SXM device memory
 PEAK_OPS_PER_S = {"bfloat16": 989e12, "float16": 989e12,   # tensor cores
                   "float32": 67e12}                        # no TF32: CUDA cores
 TOLERANCE = {"float32": 2e-6, "bfloat16": 2e-2}            # test_kernels.py:35
+SSM_TOLERANCE = {"float32": 2e-5, "bfloat16": 2e-2}        # test_kernels.py:88
 PROGRAM_ATOL = 5e-4                                        # test_conformance.py:700
 SEQ = 512                  # tokens per request (B=1)
 N_REQUESTS = 4             # the last two pipelined on one connection
@@ -90,8 +95,10 @@ def attention_bound(b, s, sk, h, hkv, d, dtype: str, causal: bool):
 
 def device_breakdown(torch, fn, top: int = 8) -> dict:
     """One call of ``fn`` under ``torch.profiler``: its host time, the device
-    time summed over its kernels (the busy share is their ratio), and the
-    kernels that took the most device time, by name."""
+    time summed over its kernels (the busy share is their ratio), the
+    kernels that took the most device time, by name, and the host-side
+    events (torch ops, CUDA runtime calls) that took the most host time of
+    their own."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -106,18 +113,29 @@ def device_breakdown(torch, fn, top: int = 8) -> dict:
         if e.device_type == DeviceType.CUDA:
             n, us = by_name.get(e.name, (0, 0.0))
             by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    host = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)
+    host_top = [{"name": a.key[:90], "calls": a.count,
+                 "self_s": a.self_cpu_time_total / 1e6} for a in host[:top]]
     busy_us = sum(us for _, us in by_name.values())
     if not busy_us:
-        return {"wall_s": wall_us / 1e6, "device": "not measured"}
+        return {"wall_s": wall_us / 1e6, "device": "not measured",
+                "host_top": host_top}
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]
     return {"wall_s": wall_us / 1e6, "device_busy_s": busy_us / 1e6,
             "device_busy_share": busy_us / wall_us,
             "kernels": [{"name": name[:90], "launches": n, "s": us / 1e6}
-                        for name, (n, us) in ranked]}
+                        for name, (n, us) in ranked],
+            "host_top": host_top}
 
 
-def phase_kernels(torch, seed: int) -> dict:
-    """Phase 2: flash_attention against its plain version on the card."""
+# the served paths: model name -> (B, S, H, Hkv, D) of its attention
+ATTENTION_SHAPES = {"qwen2-1.5b": (1, SEQ, 12, 2, 128),
+                    "hymba-1.5b": (1, SEQ, 25, 5, 64)}
+SSM_SHAPE = (1, SEQ, 1600, 16)          # hymba-1.5B's SSM_SCAN, fp32
+
+
+def phase_attention(torch, seed: int) -> dict:
+    """Phase 2a: flash_attention against its plain version on the card."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import attention_ref_bshd
@@ -132,6 +150,7 @@ def phase_kernels(torch, seed: int) -> dict:
     cases = []                     # (b, s, sk, h, hkv, d, dtype, causal)
     for dtype in ("bfloat16", "float32"):
         cases += [(1, 512, 512, 12, 2, 128, dtype, True),   # the slice
+                  (1, 512, 512, 25, 5, 64, dtype, True),    # the hybrid one
                   (2, 128, 128, 4, 2, 16, dtype, True),     # smoke head_dim
                   (1, 256, 256, 8, 2, 64, dtype, True),
                   (1, 200, 200, 12, 2, 128, dtype, True),   # ragged
@@ -158,42 +177,125 @@ def phase_kernels(torch, seed: int) -> dict:
         results.append({"shape": [b, s, sk, h, hkv, d], "dtype": dtype,
                         "causal": causal, "max_abs_err": err})
 
-    # times at the main path's shape: bf16 (1, 512, 12/2, 128), causal
-    b, s, sk, h, hkv, d = 1, 512, 512, 12, 2, 128
-    q, k, v = inputs(b, s, sk, h, hkv, d, "bfloat16")
-    kernel_ms = cuda_ms(torch, lambda: flash_attention(q, k, v))
-    plain_ms = cuda_ms(torch, lambda: attention_ref_bshd(q, k, v))
+    # times at each served path's shape: bf16, causal, Sk = S
+    timed = {}
+    for model, (b, s, h, hkv, d) in ATTENTION_SHAPES.items():
+        q, k, v = inputs(b, s, s, h, hkv, d, "bfloat16")
 
-    def library():
-        return F.scaled_dot_product_attention(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            is_causal=True, enable_gqa=True)
-    library_ms = cuda_ms(torch, library)
-    lib_err = (library().transpose(1, 2).float()
-               - attention_ref_bshd(q, k, v).float()).abs().max().item()
-    bound_ms, bound_by = attention_bound(b, s, sk, h, hkv, d, "bfloat16",
-                                         True)
-    emit("kernels_vs_plain", cases=results, kernel_ms=kernel_ms,
-         plain_ms=plain_ms, library_ms=library_ms,
-         library_max_abs_err=lib_err, bound_ms=bound_ms, bound_by=bound_by,
-         timed_shape=[b, s, sk, h, hkv, d], timed_dtype="bfloat16")
+        def library():
+            return F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                is_causal=True, enable_gqa=True)
+        bound_ms, bound_by = attention_bound(b, s, s, h, hkv, d, "bfloat16",
+                                             True)
+        timed[model] = {
+            "shape": [b, s, s, h, hkv, d], "dtype": "bfloat16",
+            "ms": cuda_ms(torch, lambda: flash_attention(q, k, v)),
+            "plain_ms": cuda_ms(torch, lambda: attention_ref_bshd(q, k, v)),
+            "library_ms": cuda_ms(torch, library),
+            "library_max_abs_err": (
+                library().transpose(1, 2).float()
+                - attention_ref_bshd(q, k, v).float()).abs().max().item(),
+            "bound_ms": bound_ms, "bound_by": bound_by}
+    emit("kernels_vs_plain", kernel="flash_attention", cases=results,
+         timed=timed)
+    first = timed["qwen2-1.5b"]          # the row's numbers: slice 1's shape
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/flash_attention/csrc/"
                       "flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention/kernel.py:69",
+            "max_abs_err": worst, "ms": first["ms"],
+            "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
+            "bound_by": first["bound_by"], "library_ms": first["library_ms"],
+            "timed_shape": first["shape"], "by_path": timed}
+
+
+def ssm_scan_bound(b, t, di, n, dtype: str):
+    """Least time (ms) for one selective scan: da, bx and c read once and y
+    written once over the memory rate, against about 5 operations per
+    (t, d, n) (exp, the recurrence's multiply-add, the product with c and
+    its share of the sum over n) over the peak rate of the dtype."""
+    esize = 4 if dtype == "float32" else 2
+    nbytes = (2 * b * t * di * n + b * t * n + b * t * di) * esize
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 5 * b * t * di * n / PEAK_OPS_PER_S[dtype]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations"), nbytes
+
+
+def phase_ssm_scan(torch, seed: int) -> dict:
+    """Phase 2b: ssm_scan against its plain version on the card."""
+    from repro_torch.kernels.ssm_scan.ops import ssm_scan
+    from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 3)
+
+    def inputs(b, t, di, n, dtype, da_value=None):
+        def rand(*shape):
+            return torch.randn(shape, generator=gen, device="cuda")
+        dt = getattr(torch, dtype)
+        da = (-torch.exp(rand(b, t, di, n)) if da_value is None else
+              torch.full((b, t, di, n), da_value, device="cuda"))
+        return [a.to(dt) for a in (da, rand(b, t, di, n), rand(b, t, n))]
+
+    cases = [(*SSM_SHAPE, "float32", None),        # the hybrid slice
+             (*SSM_SHAPE, "bfloat16", None),
+             (1, 37, 100, 16, "float32", None),    # ragged T, di % 32 != 0
+             (1, 37, 100, 16, "bfloat16", None),
+             (2, 64, 32, 4, "float32", None),      # N=4 (smoke), B=2
+             (2, 128, 64, 8, "float32", None),
+             (1, 64, 96, 32, "float32", None),
+             (1, 64, 100, 16, "float32", 0.0),     # identity decay
+             (1, 64, 100, 16, "float32", -80.0)]   # extreme decay
+    worst = 0.0
+    results = []
+    for case in cases:
+        b, t, di, n, dtype, da_value = case
+        da, bx, c = inputs(b, t, di, n, dtype, da_value)
+        out = ssm_scan(da, bx, c).float()
+        ref = ssm_scan_ref(da, bx, c).float()
+        torch.cuda.synchronize()
+        tol = SSM_TOLERANCE[dtype]
+        err = (out - ref).abs().max().item()
+        if not (torch.isfinite(out).all()
+                and torch.allclose(out, ref, atol=tol, rtol=tol)):
+            raise AssertionError(f"ssm_scan {case}: max |err| {err} beyond "
+                                 f"atol=rtol={tol}")
+        worst = max(worst, err)
+        results.append({"shape": [b, t, di, n], "dtype": dtype,
+                        "da": "-exp(normal)" if da_value is None
+                        else da_value, "max_abs_err": err})
+
+    da, bx, c = inputs(*SSM_SHAPE, "float32")
+    kernel_ms = cuda_ms(torch, lambda: ssm_scan(da, bx, c))
+    plain_ms = cuda_ms(torch, lambda: ssm_scan_ref(da, bx, c), iters=5,
+                       warmup=1)
+    bound_ms, bound_by, nbytes = ssm_scan_bound(*SSM_SHAPE, "float32")
+    note = "no single PyTorch call computes a selective scan"
+    emit("kernels_vs_plain", kernel="ssm_scan", cases=results,
+         kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=None,
+         library_note=note, bound_ms=bound_ms, bound_by=bound_by,
+         bound_bytes=nbytes, timed_shape=list(SSM_SHAPE),
+         timed_dtype="float32")
+    return {"name": "ssm_scan", "route": "cuda",
+            "source": "src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu",
+            "replaces": "src/repro/kernels/ssm_scan/kernel.py:42",
             "max_abs_err": worst, "ms": kernel_ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms}
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "library_note": note, "timed_shape": list(SSM_SHAPE)}
 
 
-def with_plain_attention(prog):
-    """The same program with ``impl="ref"`` on every ATTENTION op."""
-    from repro_torch.core.rcb import RCB, Op, RCBOp, RCBProgram
+def with_plain_kernels(prog):
+    """The same program with ``impl="ref"`` on every kernel op (ATTENTION,
+    SSM_SCAN), its GRAPH_EXEC artifacts attached."""
+    from repro_torch.core.oplib import OP_KERNELS
+    from repro_torch.core.rcb import RCB, RCBOp, RCBProgram
     blocks = [RCB(blk.block_id, blk.block_type, blk.deps, tuple(
         RCBOp(op.op, op.dsts, op.srcs, {**op.attrs, "impl": "ref"})
-        if op.op is Op.ATTENTION else op for op in blk.ops))
+        if op.op in OP_KERNELS else op for op in blk.ops))
         for blk in prog.blocks]
-    return RCBProgram(prog.name + "_plain_attention", prog.tensors, blocks)
+    return RCBProgram(prog.name + "_plain_kernels", prog.tensors, blocks,
+                      dict(prog.artifacts))
 
 
 def request_inputs(torch, cfg, glob, gen):
@@ -207,7 +309,7 @@ def request_inputs(torch, cfg, glob, gen):
 
 
 def phase_two_layer_fp32(torch, cfg, seed: int) -> None:
-    """Phase 3: full-width fp32 program, kernel vs plain attention."""
+    """Phase 3: full-width fp32 program, kernels vs their plain versions."""
     from repro_torch.core import rbl
     from repro_torch.core.executor import Executor
     from repro_torch.core.rctc import compile_transformer_block
@@ -226,26 +328,34 @@ def phase_two_layer_fp32(torch, cfg, seed: int) -> None:
     plat.provision(image=image, program_bytes=prog.encode())
     ex = Executor(driver=plat.driver)
     t1 = time.perf_counter()
-    out = ex.run(plat.bind(), inputs=ins)["logits"]
-    plain = ex.run(rbl.bind(with_plain_attention(prog), rimfs=plat.rimfs,
+    out = ex.run(plat.bind(artifacts=prog.artifacts), inputs=ins)["logits"]
+    plain = ex.run(rbl.bind(with_plain_kernels(prog), rimfs=plat.rimfs,
                             driver=plat.driver), inputs=ins)["logits"]
     torch.cuda.synchronize()
     err = (out - plain).abs().max().item()
     if not (torch.isfinite(out).all() and err <= PROGRAM_ATOL):
-        raise AssertionError(f"two-layer fp32 program: kernel vs plain "
-                             f"attention max |err| {err} > {PROGRAM_ATOL}")
-    emit("two_layer_fp32", layers=2, seq=SEQ, image_bytes=len(image),
+        raise AssertionError(f"two-layer fp32 {cfg.name} program: kernels "
+                             f"vs plain versions max |err| {err} > "
+                             f"{PROGRAM_ATOL}")
+    emit("two_layer_fp32", model=cfg.name, layers=2, seq=SEQ,
+         image_bytes=len(image),
          setup_s=t1 - t0, run_s=time.perf_counter() - t1,
          logits_max_abs_err=err, atol=PROGRAM_ATOL)
 
 
-def phase_slice(torch, cfg, seed: int) -> int:
-    """Phase 4: the served slice. Returns flash_attention's launches while
-    the server answered the requests (the main path's run)."""
+def kernel_counters() -> dict:
+    """Every kernel wrapper of the port, by the name of its row."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.ssm_scan.ops import ssm_scan
+    return {"flash_attention": flash_attention, "ssm_scan": ssm_scan}
+
+
+def phase_slice(torch, cfg, seed: int, phase: str) -> dict:
+    """Phase 4: one served path. Returns each kernel's launches while the
+    server answered the requests (the main path's run)."""
     from repro_torch.core.executor import Executor
     from repro_torch.core.rctc import compile_transformer_block
     from repro_torch.core.rtpm import Platform
-    from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.models.transformer import init_params, split_params
     from repro_torch.serving import protocol as proto
     from repro_torch.serving.server import Client, InferenceServer
@@ -274,8 +384,10 @@ def phase_slice(torch, cfg, seed: int) -> int:
     torch.cuda.reset_peak_memory_stats()
     serve_base = torch.cuda.memory_allocated()
 
-    flash_attention.launches = 0         # the main path starts here
-    server = InferenceServer(max_frame=big)
+    counters = kernel_counters()
+    for wrapper in counters.values():    # the main path starts here
+        wrapper.launches = 0
+    server = InferenceServer(max_frame=big, artifacts=prog.artifacts)
     server.start()
     client = Client(server.address, max_frame=big)
     try:
@@ -297,18 +409,21 @@ def phase_slice(torch, cfg, seed: int) -> int:
             responses.append(client.result(rid)["logits"])
             latencies.append(time.perf_counter() - ts)
         t_serve = time.perf_counter() - t_start
-        launches = flash_attention.launches
+        launches = {name: w.launches for name, w in counters.items()}
         serve_peak = torch.cuda.max_memory_allocated()
         telemetry = client.telemetry()
         client.shutdown()
     finally:
         client.close()
         server.stop()
-    per_request = launches / N_REQUESTS
-    if launches != cfg.num_layers * N_REQUESTS:
-        raise AssertionError(f"flash_attention launched {launches} times "
-                             f"for {N_REQUESTS} requests of "
-                             f"{cfg.num_layers} layers")
+    per_layer = {"flash_attention": 1,
+                 "ssm_scan": int(cfg.family == "hybrid")}
+    for name, n in launches.items():
+        want = per_layer[name] * cfg.num_layers * N_REQUESTS
+        if n != want:
+            raise AssertionError(f"{name} launched {n} times for "
+                                 f"{N_REQUESTS} requests of {cfg.num_layers} "
+                                 f"{cfg.family} layers, not {want}")
 
     # the same bytes, run locally: linked and interpreted, bit for bit
     t2 = time.perf_counter()
@@ -316,7 +431,7 @@ def phase_slice(torch, cfg, seed: int) -> int:
     plat.provision(image=image, program_bytes=prog_bytes)
     t_fsck = time.perf_counter() - t2
     t3 = time.perf_counter()
-    bound = plat.bind()
+    bound = plat.bind(artifacts=prog.artifacts)
     torch.cuda.synchronize()
     t_bind = time.perf_counter() - t3
     resident = plat.rimfs.resident(plat.driver)
@@ -351,7 +466,7 @@ def phase_slice(torch, cfg, seed: int) -> int:
     proto.unpack_tensors(payload)
     t_unpack = time.perf_counter() - t6
     lat = sorted(latencies)
-    emit("slice", model=cfg.name, layers=cfg.num_layers, dtype=cfg.dtype,
+    emit(phase, model=cfg.name, layers=cfg.num_layers, dtype=cfg.dtype,
          seq=SEQ, requests=N_REQUESTS, image_bytes=len(image),
          program_bytes=len(prog_bytes), init_s=t_init, compile_s=t_compile,
          provision_s=t_provision, local_fsck_s=t_fsck,
@@ -360,7 +475,8 @@ def phase_slice(torch, cfg, seed: int) -> int:
          latencies_s=latencies, serve_s=t_serve,
          tokens_per_s=N_REQUESTS * SEQ / t_serve,
          server_exec=telemetry.get("p50"),
-         launches=launches, launches_per_request=per_request,
+         launches=launches,
+         launches_per_request={k: n / N_REQUESTS for k, n in launches.items()},
          serve_peak_memory_allocated=serve_peak,
          serve_base_memory_allocated=serve_base,
          compile_peak_memory_allocated=compile_peak,
@@ -397,17 +513,25 @@ def main() -> int:
                 if "registers" in ln or "Compiling" in ln])
 
     # 2. kernels against their plain versions
-    fa = phase_kernels(torch, args.seed)
+    rows = [phase_attention(torch, args.seed),
+            phase_ssm_scan(torch, args.seed)]
 
-    # 3. two-layer full-width fp32 program
-    cfg = get_config("qwen2-1.5b")
-    phase_two_layer_fp32(torch, cfg, args.seed)
+    # 3. two-layer full-width fp32 programs
+    models = {"slice": get_config("qwen2-1.5b"),
+              "slice_hybrid": get_config("hymba-1.5b")}
+    for cfg in models.values():
+        phase_two_layer_fp32(torch, cfg, args.seed)
 
-    # 4. the slice, served at full depth
-    fa["launches"] = phase_slice(torch, cfg, args.seed)
+    # 4. the served paths, at full depth; each kernel's launches on each
+    by_path = {cfg.name: phase_slice(torch, cfg, args.seed, phase)
+               for phase, cfg in models.items()}
 
     # 5. the kernels line, then the card, then the contract line
-    print(json.dumps({"kernels": [fa]}))
+    for row in rows:
+        row["launches_by_path"] = {model: n[row["name"]]
+                                   for model, n in by_path.items()}
+        row["launches"] = sum(row["launches_by_path"].values())
+    print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -4,7 +4,8 @@ The port's counterpart of ``repro.core.oplib``: one function per opcode,
 shared by the interpreted path (``dispatch_compute``) and the linked path
 (``link_compute``), so the two are equivalent by construction. This slice
 covers the opcodes ``rctc.compile_transformer_block`` emits for the dense
-family; any other opcode raises ``NotImplementedError`` naming it.
+and hybrid families; any other opcode raises ``NotImplementedError`` naming
+it.
 """
 from __future__ import annotations
 
@@ -79,10 +80,15 @@ def silu_mul(gate, x, attrs=None):
     return F.silu(gate) * x
 
 
+def scale_shift(x, scale, shift, attrs=None):
+    return x * scale + shift
+
+
 # Kernel opcodes dispatch through the registry (kernels/registry.py), so the
 # interpreted and linked paths share one implementation per kernel.
 OP_KERNELS: dict[Op, str] = {
     Op.ATTENTION: "attention",
+    Op.SSM_SCAN: "ssm_scan",
 }
 
 
@@ -101,7 +107,9 @@ _TABLE: dict[Op, Callable] = {
     Op.RMSNORM: lambda srcs, attrs: rmsnorm(srcs[0], srcs[1], attrs),
     Op.ROPE: lambda srcs, attrs: rope(srcs[0], srcs[1], attrs),
     Op.SILU_MUL: lambda srcs, attrs: silu_mul(srcs[0], srcs[1], attrs),
+    Op.SCALE_SHIFT: lambda srcs, attrs: scale_shift(*srcs, attrs),
     Op.ATTENTION: _kernel_fn("attention"),
+    Op.SSM_SCAN: _kernel_fn("ssm_scan"),
 }
 
 

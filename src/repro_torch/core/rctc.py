@@ -1,10 +1,12 @@
 """RCTC — the offline toolchain (forward translation / data packaging).
 
 The port's counterpart of ``repro.core.rctc`` for the per-layer LM lowering
-of the dense family: every attention, projection, norm and residual of the
-layer stack becomes its own RCB op — ``Op.ATTENTION`` dispatches through
-the kernel registry, the glue (RMSNORM / ROPE / SILU_MUL / GEMM / ADD /
-RESHAPE) through the generic vtable — and the weights flatten into a RIMFS
+of the dense and hybrid families: every attention, projection, norm and
+residual of the layer stack becomes its own RCB op — ``Op.ATTENTION`` and
+``Op.SSM_SCAN`` dispatch through the kernel registry, the glue (RMSNORM /
+ROPE / SILU_MUL / SCALE_SHIFT / GEMM / ADD / RESHAPE) through the generic
+vtable, and the Mamba branch's projections run as ``GRAPH_EXEC``
+artifacts (plain torch callables) — and the weights flatten into a RIMFS
 image. From the same parameters it emits the same program bytes and the
 same image bytes as the JAX package. Other families raise
 ``NotImplementedError``.
@@ -18,7 +20,8 @@ import torch
 from repro_torch.core import opt as opt_mod
 from repro_torch.core import rimfs as rimfs_mod
 from repro_torch.core.rcb import Op, RCB, RCBOp, RCBProgram, TensorDesc
-from repro_torch.dtypes import name_of
+from repro_torch.dtypes import name_of, torch_dtype
+from repro_torch.models import mamba
 
 
 class _Builder:
@@ -62,20 +65,32 @@ class _Builder:
         return prog
 
 
+def _ssm_pre_artifact(cfg, keys):
+    def fn(h, *ws):
+        return mamba.ssm_kernel_inputs(cfg, dict(zip(keys, ws)), h)
+    return fn
+
+
+def _ssm_post_artifact(cfg, keys, x_dtype):
+    def fn(y, u, z, *ws):
+        return mamba.ssm_output(cfg, dict(zip(keys, ws)), y, u, z, x_dtype)
+    return fn
+
+
 def compile_transformer_block(cfg, params: dict, batch: int, seq_len: int,
                               optimize: bool = True):
-    """Translate a dense LM's layer stack into a per-layer RCB program.
+    """Translate an LM's layer stack into a per-layer RCB program.
 
     ``params``: stacked model params (models/transformer.model_specs layout,
     leading num_layers dim on block entries) as torch tensors on any
     device. Inputs: ``hidden`` (B,S,d) pre-embedded states and, with RoPE,
     ``positions`` (B,S) int32. Output: ``logits`` (B,S,V). Returns
-    (RCBProgram, RIMFS image bytes)."""
-    from repro_torch.models.transformer import split_params
+    (RCBProgram, RIMFS image bytes); the hybrid family's glue artifacts
+    ride on the program under the JAX package's ids
+    (``L{li}.ssm_pre``, ``L{li}.ssm_post``)."""
+    from repro_torch.models.transformer import check_ported, split_params
 
-    if cfg.family != "dense" or cfg.num_experts:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported to PyTorch yet (dense only)")
+    check_ported(cfg)
     if cfg.attention == "sliding" and seq_len > cfg.sliding_window:
         raise NotImplementedError(
             f"Op.ATTENTION lowers full causal attention; sliding window "
@@ -86,12 +101,16 @@ def compile_transformer_block(cfg, params: dict, batch: int, seq_len: int,
     eps = float(cfg.norm_eps)
     b = _Builder(f"lm_blocks_{cfg.name}")
     files: dict[str, torch.Tensor] = {}
+    artifacts: dict = {}
 
     def weight(name, t: torch.Tensor):
         t = t.detach().cpu().contiguous()
         files[name] = t
         b.tensor(name, t.shape, name_of(t.dtype), "weight")
         return name
+
+    def layer_weights(li, pl, keys):
+        return [weight(f"L{li}.{k}", pl[k]) for k in keys]
 
     glob, blocks = split_params(params)
     layers = [{k: v[li] for k, v in blocks.items()}
@@ -163,10 +182,45 @@ def compile_transformer_block(cfg, params: dict, batch: int, seq_len: int,
         b.emit(Op.GEMM, [o], [m, wo])
         return o
 
+    def emit_mamba(h, li, pl):
+        di, N = cfg.d_model, cfg.ssm_state
+        pre_keys = ["m_in", "m_x", "m_dt", "m_dt_b", "m_alog"]
+        srcs = [h] + layer_weights(li, pl, pre_keys)
+        da = b.scratch((B, S, di, N), "float32", "da")
+        bx = b.scratch((B, S, di, N), "float32", "bx")
+        c = b.scratch((B, S, N), "float32", "ssc")
+        u = b.scratch((B, S, di), "float32", "ssu")
+        z = b.scratch((B, S, di), dt, "ssz")
+        name = f"L{li}.ssm_pre"
+        artifacts[name] = _ssm_pre_artifact(cfg, pre_keys)
+        b.emit(Op.GRAPH_EXEC, [da, bx, c, u, z], srcs, artifact=name)
+        ys = b.scratch((B, S, di), "float32", "ssy")
+        b.emit(Op.SSM_SCAN, [ys], [da, bx, c])
+        post_keys = ["m_d", "m_out"]
+        srcs2 = [ys, u, z] + layer_weights(li, pl, post_keys)
+        ym = b.scratch((B, S, d), dt, "ssm")
+        name2 = f"L{li}.ssm_post"
+        artifacts[name2] = _ssm_post_artifact(cfg, post_keys,
+                                              torch_dtype(dt))
+        b.emit(Op.GRAPH_EXEC, [ym], srcs2, artifact=name2)
+        return ym
+
+    hybrid = cfg.family == "hybrid"
+    if hybrid:
+        half = weight("c.half", torch.full((1,), 0.5, dtype=torch_dtype(dt)))
+        zero = weight("c.zero", torch.zeros((1,), dtype=torch_dtype(dt)))
+
     x = "hidden"
     for li, pl in enumerate(layers):
         h = emit_rmsnorm(x, f"L{li}.ln1", pl["ln1"])
-        x = emit_add(x, emit_attention(h, li, pl))
+        ya = emit_attention(h, li, pl)
+        if hybrid:
+            s1 = emit_add(ya, emit_mamba(h, li, pl))
+            s2 = b.scratch((B, S, d), dt)
+            b.emit(Op.SCALE_SHIFT, [s2], [s1, half, zero])
+            x = emit_add(x, s2)
+        else:
+            x = emit_add(x, ya)
         h2 = emit_rmsnorm(x, f"L{li}.ln2", pl["ln2"])
         x = emit_add(x, emit_swiglu(h2, li, pl))
         b.close_block("layer")
@@ -182,7 +236,7 @@ def compile_transformer_block(cfg, params: dict, batch: int, seq_len: int,
     b.emit(Op.FENCE)
     b.close_block("head")
 
-    prog = b.build()
+    prog = b.build(artifacts)
     if optimize:
         prog = opt_mod.optimize(prog)
     image = rimfs_mod.pack(files)

@@ -568,12 +568,16 @@ class Platform:
         self.events.post("provisioned",
                          {"files": self.rimfs.files() if self.rimfs else []})
 
-    def bind(self, inputs: Optional[dict] = None,
-             driver=None) -> rbl_mod.BoundProgram:
+    def bind(self, inputs: Optional[dict] = None, driver=None,
+             artifacts: Optional[dict] = None) -> rbl_mod.BoundProgram:
         """Paper phase 2: symbolic -> physical resolution, with the weights
-        pinned on ``driver`` (the platform's own by default)."""
+        pinned on ``driver`` (the platform's own by default). ``artifacts``
+        attaches the program's GRAPH_EXEC callables by id: they are not
+        part of its bytes."""
         if self.program is None:
             raise RuntimeError("provision() first")
+        if artifacts:
+            self.program.artifacts.update(artifacts)
         return rbl_mod.bind(self.program, rimfs=self.rimfs, inputs=inputs,
                             driver=driver or self.driver)
 

@@ -26,7 +26,10 @@ _PKG = pathlib.Path(__file__).resolve().parent
 REPO_ROOT = _PKG.parents[2]
 BUILD_DIR = REPO_ROOT / "build" / "kernels"
 LIB_NAME = "libaeg_kernels.so"
-SOURCES = (_PKG / "flash_attention" / "csrc" / "flash_attention.cu",)
+SOURCES = (_PKG / "common" / "csrc" / "common.cu",
+           _PKG / "flash_attention" / "csrc" / "flash_attention.cu",
+           _PKG / "ssm_scan" / "csrc" / "ssm_scan.cu")
+HEADERS = (_PKG / "common" / "csrc" / "common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -44,7 +47,7 @@ def nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         h.update(src.read_bytes())
     return h.hexdigest()
 
@@ -112,6 +115,8 @@ def library() -> ctypes.CDLL:
                                         i32, i32, i32, ctypes.c_float, i32,
                                         vp]
     lib.aeg_flash_attention.restype = i32
+    lib.aeg_ssm_scan.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, i32, vp]
+    lib.aeg_ssm_scan.restype = i32
     lib.aeg_cuda_error_string.argtypes = [i32]
     lib.aeg_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -32,28 +32,18 @@
 //   output  O += P V  : thread t owns head-dim column t % D and
 //                       BQ*D/NT rows, accumulated in registers
 #include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
+
+#include "../../common/csrc/common.cuh"
 
 namespace {
+
+using aeg::from_f;
+using aeg::to_f;
 
 constexpr int BQ = 32;            // query rows per block
 constexpr int BK = 64;            // keys per shared-memory tile
 constexpr int NT = 128;           // threads per block (4 warps)
 constexpr float kNegInf = -1e30f;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-template <> __device__ __forceinline__ __half from_f<__half>(float x) {
-  return __float2half_rn(x);
-}
 
 __device__ __forceinline__ float warp_max(float x) {
   for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
@@ -256,8 +246,4 @@ extern "C" int aeg_flash_attention(const void* q, const void* k, const void* v,
     case 2: return (int)launch_d<__half>(q, k, v, o, B, S, Sk, H, Hkv, D, scale, causal, st);
     default: return (int)cudaErrorInvalidValue;
   }
-}
-
-extern "C" const char* aeg_cuda_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

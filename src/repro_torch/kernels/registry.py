@@ -1,14 +1,15 @@
 """Kernel registry — the seam between RCB kernel opcodes and hand kernels.
 
-The port's counterpart of ``repro.kernels.registry``, with the ``attention``
-spec only. Each spec holds the hand-kernel wrapper, its plain PyTorch
-version and the shape contract. The op attr ``impl`` keeps its meaning for
-programs written by the JAX package: ``"ref"`` runs the plain version,
-``"pallas"`` (or no ``impl``) runs the hand kernel. The hand kernel's
-wrapper computes the plain version itself for CPU tensors; on CUDA tensors
-it launches the kernel or raises. Block sizes in an op's ``params`` attr
-were tuned for the TPU's VMEM and are not read: the CUDA kernel fixes its
-own tiles. Autotuning is not ported yet.
+The port's counterpart of ``repro.kernels.registry``, with the
+``attention`` and ``ssm_scan`` specs. Each spec holds the hand-kernel
+wrapper, its plain PyTorch version and the shape contract. The op attr
+``impl`` keeps its meaning for programs written by the JAX package:
+``"ref"`` runs the plain version, ``"pallas"`` (or no ``impl``) runs the
+hand kernel. The hand kernel's wrapper computes the plain version itself
+for CPU tensors; on CUDA tensors it launches the kernel or raises. Block
+sizes in an op's ``params`` attr were tuned for the TPU's VMEM and are not
+read: each CUDA kernel fixes its own tiles and loops over any sequence
+length, so unlike the JAX registry nothing pads a ragged T. Autotuning is not ported yet.
 """
 from __future__ import annotations
 
@@ -17,6 +18,8 @@ from typing import Any, Callable, Optional
 
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ref import attention_ref_bshd
+from repro_torch.kernels.ssm_scan import ops as ss_ops
+from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,6 +34,8 @@ class KernelSpec:
 SPECS: dict[str, KernelSpec] = {
     "attention": KernelSpec("attention", fa_ops.flash_attention,
                             attention_ref_bshd, fa_ops.check_contract),
+    "ssm_scan": KernelSpec("ssm_scan", ss_ops.ssm_scan, ssm_scan_ref,
+                           ss_ops.check_contract),
 }
 
 

@@ -1,0 +1,2 @@
+"""Selective scan: CUDA kernel (csrc/), wrapper (ops.py), plain version
+(ref.py)."""

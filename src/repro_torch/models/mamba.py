@@ -1,0 +1,96 @@
+"""Selective SSM (Mamba-style) branch of the Hymba hybrid architecture.
+
+The port's counterpart of ``repro.models.mamba`` for the full-sequence
+kernel route: the projections into the ``ssm_scan`` operand layout
+(``ssm_kernel_inputs``), the shared output stage (``ssm_output``), and
+``ssm_core``/``mamba_mix`` over the kernel registry. The RCTC per-layer
+lowering runs the first two as its ``ssm_pre``/``ssm_post`` glue around
+``Op.SSM_SCAN``. The port always takes the registry route; the JAX
+package's associative-scan route and single-token decode wait for the
+paged engine.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.common import ParamSpec
+
+DT_RANK = 32
+
+
+def mamba_specs(cfg: ModelConfig) -> dict:
+    L, d = cfg.num_layers, cfg.d_model
+    di, N = cfg.d_model, cfg.ssm_state          # d_inner == d_model (Hymba)
+    dt = cfg.dtype
+    return {
+        "m_in": ParamSpec((L, d, 2 * di), dt),
+        "m_x": ParamSpec((L, di, DT_RANK + 2 * N), dt),
+        "m_dt": ParamSpec((L, DT_RANK, di), dt),
+        "m_dt_b": ParamSpec((L, di), "float32", "zeros"),
+        "m_alog": ParamSpec((L, di, N), "float32", "uniform", 1.0),
+        "m_d": ParamSpec((L, di), "float32", "ones"),
+        "m_out": ParamSpec((L, di, d), dt),
+    }
+
+
+def _ssm_inputs(cfg: ModelConfig, p: dict, x: torch.Tensor):
+    """Project x -> (u, z, dt, B, C). u/z (B,T,di); dt (B,T,di) fp32;
+    B/C (B,T,N) fp32."""
+    N = cfg.ssm_state
+    uz = torch.matmul(x, p["m_in"])
+    u, z = torch.chunk(uz, 2, dim=-1)
+    proj = torch.matmul(u, p["m_x"]).float()
+    dtr, B_, C_ = torch.split(proj, [DT_RANK, N, N], dim=-1)
+    dt = F.softplus(torch.matmul(dtr, p["m_dt"].float()) + p["m_dt_b"])
+    return u, z, dt, B_, C_
+
+
+def ssm_kernel_inputs(cfg: ModelConfig, p: dict, x: torch.Tensor):
+    """Project x into the kernel-registry ``ssm_scan`` operand layout.
+
+    Returns (da_log (B,T,di,N) fp32 <= 0, bx (B,T,di,N) fp32, c (B,T,N)
+    fp32, u (B,T,di) fp32, z (B,T,di)): the first three are the operands of
+    ``Op.SSM_SCAN``; u/z feed the output stage (skip + gate)."""
+    u, z, dt, B_, C_ = _ssm_inputs(cfg, p, x)
+    A = -torch.exp(p["m_alog"])
+    u32 = u.float()
+    da_log = dt[..., None] * A[None, None]            # (B,T,di,N)  <= 0
+    bx = (dt * u32)[..., None] * B_[:, :, None, :]    # (B,T,di,N)
+    return da_log, bx, C_, u32, z
+
+
+def ssm_output(cfg: ModelConfig, p: dict, y: torch.Tensor, u: torch.Tensor,
+               z: torch.Tensor, x_dtype: torch.dtype) -> torch.Tensor:
+    """Skip connection + silu gate + output projection (shared tail)."""
+    y = y + u * p["m_d"][None, None]
+    y = y.to(x_dtype) * F.silu(z.float()).to(x_dtype)
+    return torch.matmul(y, p["m_out"])
+
+
+def ssm_core(u, dt, B_, C_, A, D, h0):
+    """Full-sequence selective scan through the registry ``ssm_scan``.
+    Returns (y, h_final), y already carrying the ``u * D`` skip term.
+
+    The kernel computes the zero-state scan: h0 is folded in by seeding step
+    0's input with ``exp(da_0) * h0``, and the final state comes in closed
+    form from the inclusive cumsum P of da, as ``sum_t exp(P_T - P_t) bx_t``
+    (every exponent <= 0, so nothing overflows)."""
+    from repro_torch.kernels import registry
+    da_log = dt[..., None] * A[None, None]
+    bx = (dt * u)[..., None] * B_[:, :, None, :]
+    bx[:, 0] += torch.exp(da_log[:, 0]) * h0      # bx is this call's own
+    y = registry.call("ssm_scan", da_log, bx, C_)
+    P = torch.cumsum(da_log, dim=1)
+    h_final = torch.sum(torch.exp(P[:, -1:] - P) * bx, dim=1)
+    return y + u * D[None, None], h_final
+
+
+def mamba_mix(cfg: ModelConfig, p: dict, x: torch.Tensor, h0: torch.Tensor):
+    """Full-sequence Mamba branch. Returns (y, h_final)."""
+    u, z, dt, B_, C_ = _ssm_inputs(cfg, p, x)
+    A = -torch.exp(p["m_alog"])
+    y, h1 = ssm_core(u.float(), dt, B_, C_, A, p["m_d"], h0)
+    y = y.to(x.dtype) * F.silu(z.float()).to(x.dtype)
+    return torch.matmul(y, p["m_out"]), h1

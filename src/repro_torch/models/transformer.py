@@ -1,4 +1,5 @@
-"""Dense-family parameter layout, initialization and input embedding.
+"""Parameter layout, initialization and input embedding of the LM families
+ported so far (dense, and hybrid: attention + Mamba + SwiGLU).
 
 The port's counterpart of the parts of ``repro.models.transformer`` and
 ``repro.models.common`` that the per-layer RCB lowering needs: the stacked
@@ -9,7 +10,6 @@ and ``params_from_jax`` to carry the JAX package's parameters across.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -17,21 +17,24 @@ import torch
 from repro_torch import device as device_mod
 from repro_torch.configs.base import ModelConfig
 from repro_torch.dtypes import as_tensor, torch_dtype
+from repro_torch.models.common import ParamSpec
+from repro_torch.models.mamba import mamba_specs
+
+PORTED_FAMILIES = ("dense", "hybrid")
 
 
-class ParamSpec(NamedTuple):
-    shape: tuple
-    dtype: str
-    init: str = "normal"      # normal | zeros | ones | embed
-    scale: float = 1.0
+def check_ported(cfg: ModelConfig) -> None:
+    if cfg.family not in PORTED_FAMILIES or cfg.num_experts:
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported to PyTorch yet (dense and "
+            f"hybrid only, no experts)")
 
 
 def model_specs(cfg: ModelConfig) -> dict:
-    """Stacked parameter specs of the dense family (names and shapes as in
-    ``repro.models.transformer.model_specs``)."""
-    if cfg.family != "dense" or cfg.num_experts:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported to PyTorch yet (dense only)")
+    """Stacked parameter specs (names and shapes as in
+    ``repro.models.transformer.model_specs``): attention and the SwiGLU MLP,
+    plus the Mamba branch in the hybrid family."""
+    check_ported(cfg)
     L, d, V = cfg.num_layers, cfg.d_model, cfg.vocab_size
     H, Hkv, D, F = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.d_ff
     dt = cfg.dtype
@@ -58,15 +61,18 @@ def model_specs(cfg: ModelConfig) -> dict:
     if cfg.qk_norm:
         specs["q_norm"] = ParamSpec((L, D), dt, "ones")
         specs["k_norm"] = ParamSpec((L, D), dt, "ones")
+    if cfg.family == "hybrid":
+        specs.update(mamba_specs(cfg))
     return specs
 
 
 def init_params(cfg: ModelConfig, seed: int, device="cuda") -> dict:
     """Draw parameters from ``seed`` with a ``torch.Generator`` on
     ``device``, following the JAX package's init kinds: ones, zeros,
-    embed (normal, std d^-1/2) and normal (normal truncated at +-3, std
-    scale / sqrt(fan_in)). The values differ from the JAX package's
-    (another generator); parity tests carry weights across instead."""
+    uniform (U(-1, 1) * scale), embed (normal, std d^-1/2) and normal
+    (normal truncated at +-3, std scale / sqrt(fan_in)). The values differ
+    from the JAX package's (another generator); parity tests carry weights
+    across instead."""
     dev = device_mod.resolve(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
@@ -79,6 +85,9 @@ def init_params(cfg: ModelConfig, seed: int, device="cuda") -> dict:
             v = torch.zeros(s.shape, dtype=dt, device=dev)
         elif s.init == "ones":
             v = torch.ones(s.shape, dtype=dt, device=dev)
+        elif s.init == "uniform":
+            v = torch.rand(s.shape, generator=gen, device=dev) * 2.0 - 1.0
+            v = (v * s.scale).to(dt)
         elif s.init == "embed":
             v = torch.randn(s.shape, generator=gen, device=dev)
             v = (v * s.shape[-1] ** -0.5).to(dt)

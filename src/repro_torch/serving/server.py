@@ -154,7 +154,7 @@ _KICK = _Work(frame=None, route=None)   # wake the dispatcher to drain
 
 class InferenceServer:
     def __init__(self, host: str = "127.0.0.1", port: int = 0,
-                 device="cuda",
+                 device="cuda", artifacts: Optional[dict] = None,
                  scheduler: Optional[DeadlineScheduler] = None,
                  max_queue: int = 128, max_frame: int = proto.MAX_FRAME,
                  send_timeout: float = 30.0,
@@ -163,6 +163,8 @@ class InferenceServer:
         self.platform = Platform(device=device)
         self.executor = Executor(driver=self.platform.driver,
                                  rtpm=self.platform)
+        # GRAPH_EXEC callables, attached to every provisioned program by id
+        self.artifacts = artifacts or {}
         self.scheduler = scheduler or DeadlineScheduler()
         self.max_frame = max_frame
         self.max_queue = max_queue
@@ -465,7 +467,8 @@ class InferenceServer:
         rest = view[proto.HEADER.size + len(image) + 4:]
         _, prog = proto.decode_frame(rest, max_frame=self.max_frame)
         self.platform.provision(image=image, program_bytes=prog)
-        self._bound = self.platform.bind(driver=self.executor.driver)
+        self._bound = self.platform.bind(driver=self.executor.driver,
+                                         artifacts=self.artifacts)
 
     def _infer(self, tensors: dict) -> dict:
         """Run on the device; results come back as host values."""

@@ -23,6 +23,8 @@ def _port_modules() -> list:
 def test_port_imports_no_jax_no_ml_dtypes_no_reference_package():
     modules = _port_modules()
     assert "repro_torch.kernels.flash_attention.ops" in modules
+    assert "repro_torch.kernels.ssm_scan.ops" in modules
+    assert "repro_torch.models.mamba" in modules
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}:\n"

@@ -13,8 +13,11 @@ import torch
 
 from repro_torch.kernels.flash_attention import ops
 from repro_torch.kernels.flash_attention.ref import attention_ref_bshd
+from repro_torch.kernels.ssm_scan import ops as ss_ops
+from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
 
 TOL = {"float32": 2e-6, "bfloat16": 2e-2, "float16": 2e-2}
+SSM_TOL = {"float32": 2e-5, "bfloat16": 2e-2, "float16": 2e-2}
 
 
 @pytest.fixture
@@ -30,6 +33,7 @@ def cuda():
 @pytest.mark.parametrize("shape", [
     (1, 512, 512, 12, 2, 128), (2, 128, 128, 4, 2, 16),
     (1, 200, 200, 8, 2, 64), (2, 33, 33, 4, 4, 16),
+    (1, 512, 512, 25, 5, 64),               # the hybrid slice (hymba-1.5B)
     # keys longer / shorter than the queries: the top-left causal limit
     # kpos <= qpos depends on both lengths
     (1, 100, 300, 12, 2, 128), (1, 300, 100, 12, 2, 128)])
@@ -55,3 +59,54 @@ def test_flash_attention_kernel_refuses_mixed_dtypes(cuda):
     kv = torch.zeros(1, 8, 2, 16, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="one dtype"):
         ops.flash_attention(q, kv, kv)
+
+
+def _ssm_inputs(rng, shape, dtype, da_value, cuda):
+    b, t, di, n = shape
+    da = (-np.exp(rng.randn(b, t, di, n)) if da_value is None
+          else np.full((b, t, di, n), da_value))
+    return [torch.from_numpy(a.astype(np.float32)).to(cuda,
+                                                      getattr(torch, dtype))
+            for a in (da, rng.randn(b, t, di, n), rng.randn(b, t, n))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("shape", [
+    (1, 512, 1600, 16),                     # the hybrid slice (hymba-1.5B)
+    (1, 37, 100, 16),                       # ragged T, di not a multiple of 32
+    (2, 64, 32, 4), (2, 24, 12, 4),         # N=4 (smoke configs), B=2
+    (1, 128, 64, 8), (1, 64, 96, 32)])
+def test_ssm_scan_kernel_matches_plain_version(shape, dtype, cuda, rng):
+    da, bx, c = _ssm_inputs(rng, shape, dtype, None, cuda)
+    before = ss_ops.ssm_scan.launches
+    got = ss_ops.ssm_scan(da, bx, c)
+    torch.cuda.synchronize()
+    assert ss_ops.ssm_scan.launches == before + 1
+    assert got.dtype == da.dtype and tuple(got.shape) == shape[:3]
+    tol = SSM_TOL[dtype]
+    torch.testing.assert_close(got.float(), ssm_scan_ref(da, bx, c).float(),
+                               atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("da_value", [0.0, -80.0])
+def test_ssm_scan_kernel_at_identity_and_extreme_decay(da_value, cuda, rng):
+    da, bx, c = _ssm_inputs(rng, (1, 64, 100, 16), "float32", da_value, cuda)
+    got = ss_ops.ssm_scan(da, bx, c)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, ssm_scan_ref(da, bx, c), atol=2e-5,
+                               rtol=2e-5)
+
+
+@pytest.mark.gpu
+def test_ssm_scan_kernel_refuses_unsupported_state_size_and_mixed_dtypes(
+        cuda):
+    z = torch.zeros(1, 8, 4, 6, device=cuda)
+    with pytest.raises(ValueError, match=r"N=6 not supported"):
+        ss_ops.ssm_scan(z, z, torch.zeros(1, 8, 6, device=cuda))
+    z = torch.zeros(1, 8, 4, 16, device=cuda)
+    with pytest.raises(ValueError, match="one dtype"):
+        ss_ops.ssm_scan(z, z, torch.zeros(1, 8, 16, device=cuda,
+                                          dtype=torch.bfloat16))

@@ -1,6 +1,8 @@
-"""Every opcode of the dense LM program: the port's ``oplib.compute`` against
-the JAX package's on the same numpy inputs (fp32, atol 1e-5; RESHAPE and
-PASSTHROUGH exact). RMSNORM and ROPE run at the qwen2-1.5B smoke shapes."""
+"""Every opcode of the dense and hybrid LM programs but the GRAPH_EXEC glue
+(tests/test_torch_hybrid.py): the port's ``oplib.compute`` against the JAX
+package's on the same numpy inputs (fp32, atol 1e-5; RESHAPE and
+PASSTHROUGH exact). RMSNORM and ROPE run at the qwen2-1.5B smoke shapes,
+SSM_SCAN at hymba-1.5B smoke's state size (N=4)."""
 import numpy as np
 import pytest
 import torch
@@ -23,6 +25,11 @@ D, H, HKV, HD, F = (CFG.d_model, CFG.num_heads, CFG.num_kv_heads,
 
 def _f32(rng, *shape):
     return rng.randn(*shape).astype(np.float32)
+
+
+def _ssm_operands(rng, n=4):
+    return [-np.exp(_f32(rng, B, S, D, n)), _f32(rng, B, S, D, n),
+            _f32(rng, B, S, n)]
 
 
 def _positions():
@@ -61,8 +68,19 @@ CASES = {
         Op.ROPE, lambda r: [_f32(r, B, S, HKV, HD),
                             r.randint(0, 4096, (B, S)).astype(np.int32)],
         {"theta": 10000.0}, False),
+    "scale_shift_hybrid_half": (
+        Op.SCALE_SHIFT, lambda r: [_f32(r, B, S, D),
+                                   np.full((1,), 0.5, np.float32),
+                                   np.zeros((1,), np.float32)], {}, False),
+    "scale_shift_channels": (Op.SCALE_SHIFT, lambda r: [_f32(r, B, S, D),
+                                                        _f32(r, D),
+                                                        _f32(r, D)],
+                             {}, False),
     "silu_mul": (Op.SILU_MUL, lambda r: [_f32(r, B, S, F), _f32(r, B, S, F)],
                  {}, False),
+    "ssm_scan": (Op.SSM_SCAN, lambda r: _ssm_operands(r), {}, False),
+    "ssm_scan_plain": (Op.SSM_SCAN, lambda r: _ssm_operands(r),
+                       {"impl": "ref"}, False),
     "attention": (Op.ATTENTION, lambda r: [_f32(r, B, S, H, HD),
                                            _f32(r, B, S, HKV, HD),
                                            _f32(r, B, S, HKV, HD)],
@@ -116,7 +134,7 @@ def test_rmsnorm_and_rope_cast_back_to_input_dtype(dtype, rng):
 
 
 @pytest.mark.parametrize("op", [Op.CONV2D, Op.SOFTMAX, Op.MATMUL_INT8,
-                                Op.SSM_SCAN, Op.WKV6])
+                                Op.MAXPOOL, Op.WKV6])
 def test_unported_opcode_raises_naming_it(op):
     with pytest.raises(NotImplementedError, match=op.name):
         oplib.compute(op, [torch.zeros(1)], {})
@@ -124,10 +142,11 @@ def test_unported_opcode_raises_naming_it(op):
         make_eager_driver("cpu").link_compute(op, {})
 
 
-@pytest.mark.parametrize("name", ["matmul_int8", "ssm_scan", "wkv6"])
+@pytest.mark.parametrize("name", ["matmul_int8", "wkv6", "conv2d"])
 def test_unported_kernel_raises(name):
-    with pytest.raises(NotImplementedError, match=name):
+    with pytest.raises(NotImplementedError, match=name) as err:
         registry.get(name)
+    assert "ported: ['attention', 'ssm_scan']" in str(err.value)
 
 
 def test_unknown_impl_is_rejected(rng):
