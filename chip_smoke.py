@@ -10,12 +10,13 @@ Phases, each printing one JSON line with its times:
   2. every kernel against its plain PyTorch version on the card, at the
      served paths' shapes and at the other shapes it takes, with the
      kernel's, the plain version's and the PyTorch library call's times
-     (``flash_attention``, then ``ssm_scan``);
+     (``flash_attention``, ``ssm_scan``, then ``wkv6``);
   3. a two-layer full-width fp32 program of each served model (qwen2-1.5B,
-     then hymba-1.5B): the linked run with the kernels against the same
-     program with ``impl="ref"`` on every kernel op;
-  4. the served paths, qwen2-1.5B (``slice``) then hymba-1.5B
-     (``slice_hybrid``), each at full width and depth (bf16, random weights
+     hymba-1.5B, then rwkv6-1.6B): the linked run with the kernels against
+     the same program with ``impl="ref"`` on every kernel op;
+  4. the served paths, qwen2-1.5B (``slice``), hymba-1.5B
+     (``slice_hybrid``) then rwkv6-1.6B (``slice_ssm``), each at full width
+     and depth (bf16, random weights
      from ``--seed``) compiled to RCB bytes and a RIMFS image, provisioned
      over protocol v2 into the port's InferenceServer, answering 4 requests
      of B=1, S=512 (two of them pipelined on one connection), with the
@@ -48,6 +49,8 @@ PEAK_OPS_PER_S = {"bfloat16": 989e12, "float16": 989e12,   # tensor cores
                   "float32": 67e12}                        # no TF32: CUDA cores
 TOLERANCE = {"float32": 2e-6, "bfloat16": 2e-2}            # test_kernels.py:35
 SSM_TOLERANCE = {"float32": 2e-5, "bfloat16": 2e-2}        # test_kernels.py:88
+WKV_TOLERANCE = {"float32": 5e-4,                          # test_kernels.py:60
+                 "bfloat16": 3e-2}     # of max |y|: test_conformance.py:572
 PROGRAM_ATOL = 5e-4                                        # test_conformance.py:700
 SEQ = 512                  # tokens per request (B=1)
 N_REQUESTS = 4             # the last two pipelined on one connection
@@ -93,7 +96,7 @@ def attention_bound(b, s, sk, h, hkv, d, dtype: str, causal: bool):
                                        else "operations")
 
 
-def device_breakdown(torch, fn, top: int = 8) -> dict:
+def device_breakdown(torch, fn, top: int = 12) -> dict:
     """One call of ``fn`` under ``torch.profiler``: its host time, the device
     time summed over its kernels (the busy share is their ratio), the
     kernels that took the most device time, by name, and the host-side
@@ -132,6 +135,7 @@ def device_breakdown(torch, fn, top: int = 8) -> dict:
 ATTENTION_SHAPES = {"qwen2-1.5b": (1, SEQ, 12, 2, 128),
                     "hymba-1.5b": (1, SEQ, 25, 5, 64)}
 SSM_SHAPE = (1, SEQ, 1600, 16)          # hymba-1.5B's SSM_SCAN, fp32
+WKV_SHAPE = (1, SEQ, 32, 64)            # rwkv6-1.6B's WKV6 (B, T, H, K), fp32
 
 
 def phase_attention(torch, seed: int) -> dict:
@@ -285,9 +289,92 @@ def phase_ssm_scan(torch, seed: int) -> dict:
             "library_note": note, "timed_shape": list(SSM_SHAPE)}
 
 
+def wkv6_bound(b, t, h, kk, dtype: str):
+    """Least time (ms) for one WKV6 call: r, k, v, lw read once, u (fp32)
+    read once and y written once over the memory rate, against the kernel's
+    operations (k*v and two multiply-adds per (b, t, h, i, o); the exp and
+    the bonus term, about 4, per (b, t, h, i)) over the peak rate of the
+    dtype."""
+    esize = 4 if dtype == "float32" else 2
+    nbytes = 5 * b * t * h * kk * esize + h * kk * 4
+    ops = 5 * b * t * h * kk * kk + 4 * b * t * h * kk
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / PEAK_OPS_PER_S[dtype]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations"), nbytes, ops
+
+
+def phase_wkv6(torch, seed: int) -> dict:
+    """Phase 2c: wkv6 against its plain version on the card."""
+    from repro_torch.kernels.wkv6.ops import wkv6
+    from repro_torch.kernels.wkv6.ref import wkv6_ref_bthk
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 4)
+
+    def inputs(b, t, h, kk, dtype, lw_value=None, u_scale=0.5):
+        def rand(*shape):
+            return torch.randn(shape, generator=gen, device="cuda")
+        dt = getattr(torch, dtype)
+        lw = (-torch.exp(rand(b, t, h, kk)) if lw_value is None else
+              torch.full((b, t, h, kk), lw_value, device="cuda"))
+        return ([a.to(dt) for a in (rand(b, t, h, kk),
+                                    0.3 * rand(b, t, h, kk),
+                                    rand(b, t, h, kk), lw)]
+                + [u_scale * rand(h, kk)])
+
+    cases = [(*WKV_SHAPE, "float32", None, 0.5),       # the ssm slice
+             (*WKV_SHAPE, "bfloat16", None, 0.5),
+             (2, 37, 3, 16, "float32", None, 0.5),     # ragged T, smoke K
+             (2, 37, 3, 16, "bfloat16", None, 0.5),
+             (1, 64, 4, 8, "float32", None, 0.5),      # K = 8
+             (1, 64, 4, 32, "float32", None, 0.5),     # K = 32
+             (1, 64, 4, 16, "float32", 0.0, 0.5),      # no decay
+             (1, 64, 4, 16, "float32", -80.0, 0.5),    # extreme decay
+             (1, 64, 4, 64, "float32", None, 0.0)]     # u = 0
+    worst = 0.0
+    results = []
+    for case in cases:
+        b, t, h, kk, dtype, lw_value, u_scale = case
+        args = inputs(b, t, h, kk, dtype, lw_value, u_scale)
+        out = wkv6(*args).float()
+        ref = wkv6_ref_bthk(*args).float()
+        torch.cuda.synchronize()
+        tol = WKV_TOLERANCE[dtype]
+        err = (out - ref).abs().max().item()
+        scale = ref.abs().max().item()
+        ok = (torch.allclose(out, ref, atol=tol, rtol=tol)
+              if dtype == "float32" else err <= tol * scale)
+        if not (torch.isfinite(out).all() and ok):
+            raise AssertionError(f"wkv6 {case}: max |err| {err} (max |y| "
+                                 f"{scale}) beyond tolerance {tol}")
+        worst = max(worst, err)
+        results.append({"shape": [b, t, h, kk], "dtype": dtype,
+                        "lw": "-exp(normal)" if lw_value is None
+                        else lw_value, "u_scale": u_scale,
+                        "max_abs_err": err, "max_abs_y": scale})
+
+    args = inputs(*WKV_SHAPE, "float32")
+    kernel_ms = cuda_ms(torch, lambda: wkv6(*args))
+    plain_ms = cuda_ms(torch, lambda: wkv6_ref_bthk(*args), iters=5,
+                       warmup=1)
+    bound_ms, bound_by, nbytes, ops = wkv6_bound(*WKV_SHAPE, "float32")
+    note = "no single PyTorch call computes the WKV recurrence"
+    emit("kernels_vs_plain", kernel="wkv6", cases=results,
+         kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=None,
+         library_note=note, bound_ms=bound_ms, bound_by=bound_by,
+         bound_bytes=nbytes, bound_operations=ops,
+         timed_shape=list(WKV_SHAPE), timed_dtype="float32")
+    return {"name": "wkv6", "route": "cuda",
+            "source": "src/repro_torch/kernels/wkv6/csrc/wkv6.cu",
+            "replaces": "src/repro/kernels/wkv6/kernel.py:68",
+            "max_abs_err": worst, "ms": kernel_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "library_note": note, "timed_shape": list(WKV_SHAPE)}
+
+
 def with_plain_kernels(prog):
     """The same program with ``impl="ref"`` on every kernel op (ATTENTION,
-    SSM_SCAN), its GRAPH_EXEC artifacts attached."""
+    SSM_SCAN, WKV6), its GRAPH_EXEC artifacts attached."""
     from repro_torch.core.oplib import OP_KERNELS
     from repro_torch.core.rcb import RCB, RCBOp, RCBProgram
     blocks = [RCB(blk.block_id, blk.block_type, blk.deps, tuple(
@@ -303,9 +390,10 @@ def request_inputs(torch, cfg, glob, gen):
     from repro_torch.models.transformer import embed_inputs
     tokens = torch.randint(0, cfg.vocab_size, (1, SEQ), generator=gen,
                            device=gen.device)
-    hidden = embed_inputs(cfg, glob, tokens).cpu()
-    positions = np.arange(SEQ, dtype=np.int32)[None].copy()
-    return {"hidden": hidden, "positions": positions}
+    ins = {"hidden": embed_inputs(cfg, glob, tokens).cpu()}
+    if cfg.family != "ssm" and cfg.use_rope:
+        ins["positions"] = np.arange(SEQ, dtype=np.int32)[None].copy()
+    return ins
 
 
 def phase_two_layer_fp32(torch, cfg, seed: int) -> None:
@@ -347,7 +435,9 @@ def kernel_counters() -> dict:
     """Every kernel wrapper of the port, by the name of its row."""
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.ssm_scan.ops import ssm_scan
-    return {"flash_attention": flash_attention, "ssm_scan": ssm_scan}
+    from repro_torch.kernels.wkv6.ops import wkv6
+    return {"flash_attention": flash_attention, "ssm_scan": ssm_scan,
+            "wkv6": wkv6}
 
 
 def phase_slice(torch, cfg, seed: int, phase: str) -> dict:
@@ -416,8 +506,9 @@ def phase_slice(torch, cfg, seed: int, phase: str) -> dict:
     finally:
         client.close()
         server.stop()
-    per_layer = {"flash_attention": 1,
-                 "ssm_scan": int(cfg.family == "hybrid")}
+    per_layer = {"flash_attention": int(cfg.family != "ssm"),
+                 "ssm_scan": int(cfg.family == "hybrid"),
+                 "wkv6": int(cfg.family == "ssm")}
     for name, n in launches.items():
         want = per_layer[name] * cfg.num_layers * N_REQUESTS
         if n != want:
@@ -514,11 +605,13 @@ def main() -> int:
 
     # 2. kernels against their plain versions
     rows = [phase_attention(torch, args.seed),
-            phase_ssm_scan(torch, args.seed)]
+            phase_ssm_scan(torch, args.seed),
+            phase_wkv6(torch, args.seed)]
 
     # 3. two-layer full-width fp32 programs
     models = {"slice": get_config("qwen2-1.5b"),
-              "slice_hybrid": get_config("hymba-1.5b")}
+              "slice_hybrid": get_config("hymba-1.5b"),
+              "slice_ssm": get_config("rwkv6-1.6b")}
     for cfg in models.values():
         phase_two_layer_fp32(torch, cfg, args.seed)
 
@@ -531,6 +624,7 @@ def main() -> int:
         row["launches_by_path"] = {model: n[row["name"]]
                                    for model, n in by_path.items()}
         row["launches"] = sum(row["launches_by_path"].values())
+        row["kernel_ms"] = row["ms"]
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -10,7 +10,7 @@ from repro_torch.configs.base import (  # noqa: F401
     register,
 )
 
-_ARCH_MODULES = ["qwen2_1p5b", "hymba_1p5b"]
+_ARCH_MODULES = ["qwen2_1p5b", "hymba_1p5b", "rwkv6_1p6b"]
 
 _loaded = False
 

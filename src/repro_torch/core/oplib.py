@@ -2,10 +2,10 @@
 
 The port's counterpart of ``repro.core.oplib``: one function per opcode,
 shared by the interpreted path (``dispatch_compute``) and the linked path
-(``link_compute``), so the two are equivalent by construction. This slice
-covers the opcodes ``rctc.compile_transformer_block`` emits for the dense
-and hybrid families; any other opcode raises ``NotImplementedError`` naming
-it.
+(``link_compute``), so the two are equivalent by construction. The port
+covers the opcodes ``rctc.compile_transformer_block`` emits for the dense,
+hybrid and ssm families; any other opcode raises ``NotImplementedError``
+naming it.
 """
 from __future__ import annotations
 
@@ -89,6 +89,7 @@ def scale_shift(x, scale, shift, attrs=None):
 OP_KERNELS: dict[Op, str] = {
     Op.ATTENTION: "attention",
     Op.SSM_SCAN: "ssm_scan",
+    Op.WKV6: "wkv6",
 }
 
 
@@ -110,6 +111,7 @@ _TABLE: dict[Op, Callable] = {
     Op.SCALE_SHIFT: lambda srcs, attrs: scale_shift(*srcs, attrs),
     Op.ATTENTION: _kernel_fn("attention"),
     Op.SSM_SCAN: _kernel_fn("ssm_scan"),
+    Op.WKV6: _kernel_fn("wkv6"),
 }
 
 

@@ -1,14 +1,15 @@
 """RCTC — the offline toolchain (forward translation / data packaging).
 
 The port's counterpart of ``repro.core.rctc`` for the per-layer LM lowering
-of the dense and hybrid families: every attention, projection, norm and
-residual of the layer stack becomes its own RCB op — ``Op.ATTENTION`` and
-``Op.SSM_SCAN`` dispatch through the kernel registry, the glue (RMSNORM /
-ROPE / SILU_MUL / SCALE_SHIFT / GEMM / ADD / RESHAPE) through the generic
-vtable, and the Mamba branch's projections run as ``GRAPH_EXEC``
-artifacts (plain torch callables) — and the weights flatten into a RIMFS
-image. From the same parameters it emits the same program bytes and the
-same image bytes as the JAX package. Other families raise
+of the dense, hybrid and ssm families: every attention, projection, norm and
+residual of the layer stack becomes its own RCB op — ``Op.ATTENTION``,
+``Op.SSM_SCAN`` and ``Op.WKV6`` dispatch through the kernel registry, the
+glue (RMSNORM / ROPE / SILU_MUL / SCALE_SHIFT / GEMM / ADD / RESHAPE)
+through the generic vtable, and the Mamba branch's projections and the
+RWKV-6 token-shift mixes run as ``GRAPH_EXEC`` artifacts (plain torch
+callables) — and the weights flatten into a RIMFS image. From the same
+parameters it emits the same program bytes and the same image bytes as the
+JAX package. Other families (experts, vision, audio) raise
 ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -21,7 +22,7 @@ from repro_torch.core import opt as opt_mod
 from repro_torch.core import rimfs as rimfs_mod
 from repro_torch.core.rcb import Op, RCB, RCBOp, RCBProgram, TensorDesc
 from repro_torch.dtypes import name_of, torch_dtype
-from repro_torch.models import mamba
+from repro_torch.models import mamba, rwkv6
 
 
 class _Builder:
@@ -77,17 +78,40 @@ def _ssm_post_artifact(cfg, keys, x_dtype):
     return fn
 
 
+def _rwkv_pre_artifact(cfg, keys):
+    def fn(h, *ws):
+        ts0 = torch.zeros((h.shape[0], h.shape[2]), dtype=h.dtype,
+                          device=h.device)
+        return rwkv6.time_mix_pre(cfg, dict(zip(keys, ws)), h, ts0)
+    return fn
+
+
+def _rwkv_post_artifact(cfg, keys, x_dtype):
+    def fn(y, g, *ws):
+        return rwkv6.time_mix_post(cfg, dict(zip(keys, ws)), y, g, x_dtype)
+    return fn
+
+
+def _rwkv_cm_artifact(cfg, keys):
+    def fn(h, *ws):
+        ts0 = torch.zeros((h.shape[0], h.shape[2]), dtype=h.dtype,
+                          device=h.device)
+        return rwkv6.channel_mix(cfg, dict(zip(keys, ws)), h, ts0)[0]
+    return fn
+
+
 def compile_transformer_block(cfg, params: dict, batch: int, seq_len: int,
                               optimize: bool = True):
     """Translate an LM's layer stack into a per-layer RCB program.
 
     ``params``: stacked model params (models/transformer.model_specs layout,
     leading num_layers dim on block entries) as torch tensors on any
-    device. Inputs: ``hidden`` (B,S,d) pre-embedded states and, with RoPE,
-    ``positions`` (B,S) int32. Output: ``logits`` (B,S,V). Returns
-    (RCBProgram, RIMFS image bytes); the hybrid family's glue artifacts
-    ride on the program under the JAX package's ids
-    (``L{li}.ssm_pre``, ``L{li}.ssm_post``)."""
+    device. Inputs: ``hidden`` (B,S,d) pre-embedded states and, with RoPE
+    outside the ssm family, ``positions`` (B,S) int32. Output: ``logits``
+    (B,S,V). Returns (RCBProgram, RIMFS image bytes); the glue artifacts
+    ride on the program under the JAX package's ids (hybrid:
+    ``L{li}.ssm_pre``, ``L{li}.ssm_post``; ssm: ``L{li}.tm_pre``,
+    ``L{li}.tm_post``, ``L{li}.cm``)."""
     from repro_torch.models.transformer import check_ported, split_params
 
     check_ported(cfg)
@@ -117,7 +141,7 @@ def compile_transformer_block(cfg, params: dict, batch: int, seq_len: int,
               for li in range(cfg.num_layers)]
 
     b.tensor("hidden", (B, S, d), dt, "input", ("batch", None, None))
-    if cfg.use_rope:
+    if cfg.family != "ssm" and cfg.use_rope:
         b.tensor("positions", (B, S), "int32", "input", ("batch", None))
 
     def emit_rmsnorm(x, wname, warr):
@@ -205,6 +229,41 @@ def compile_transformer_block(cfg, params: dict, batch: int, seq_len: int,
         b.emit(Op.GRAPH_EXEC, [ym], srcs2, artifact=name2)
         return ym
 
+    def emit_rwkv_layer(x, li, pl):
+        K = cfg.rwkv_head_dim
+        H = d // K
+        h = emit_rmsnorm(x, f"L{li}.ln1", pl["ln1"])
+        pre_keys = ["tm_mix", "tm_wr", "tm_wk", "tm_wv", "tm_wg",
+                    "tm_w0", "tm_wa", "tm_wb"]
+        srcs = [h] + layer_weights(li, pl, pre_keys)
+        r = b.scratch((B, S, H, K), "float32", "wr")
+        k = b.scratch((B, S, H, K), "float32", "wk")
+        v = b.scratch((B, S, H, K), "float32", "wv")
+        lw = b.scratch((B, S, H, K), "float32", "wlw")
+        g = b.scratch((B, S, d), dt, "wg")
+        name = f"L{li}.tm_pre"
+        artifacts[name] = _rwkv_pre_artifact(cfg, pre_keys)
+        b.emit(Op.GRAPH_EXEC, [r, k, v, lw, g], srcs, artifact=name)
+        uw = weight(f"L{li}.tm_u", pl["tm_u"].float())
+        y = b.scratch((B, S, H, K), "float32", "wy")
+        b.emit(Op.WKV6, [y], [r, k, v, lw, uw])
+        post_keys = ["tm_ln_w", "tm_ln_b", "tm_wo"]
+        srcs2 = [y, g] + layer_weights(li, pl, post_keys)
+        to = b.scratch((B, S, d), dt, "tm")
+        name2 = f"L{li}.tm_post"
+        artifacts[name2] = _rwkv_post_artifact(cfg, post_keys,
+                                               torch_dtype(dt))
+        b.emit(Op.GRAPH_EXEC, [to], srcs2, artifact=name2)
+        x = emit_add(x, to)
+        h2 = emit_rmsnorm(x, f"L{li}.ln2", pl["ln2"])
+        cm_keys = ["cm_mix", "cm_wk", "cm_wv", "cm_wr"]
+        srcs3 = [h2] + layer_weights(li, pl, cm_keys)
+        y2 = b.scratch((B, S, d), dt, "cm")
+        name3 = f"L{li}.cm"
+        artifacts[name3] = _rwkv_cm_artifact(cfg, cm_keys)
+        b.emit(Op.GRAPH_EXEC, [y2], srcs3, artifact=name3)
+        return emit_add(x, y2)
+
     hybrid = cfg.family == "hybrid"
     if hybrid:
         half = weight("c.half", torch.full((1,), 0.5, dtype=torch_dtype(dt)))
@@ -212,6 +271,10 @@ def compile_transformer_block(cfg, params: dict, batch: int, seq_len: int,
 
     x = "hidden"
     for li, pl in enumerate(layers):
+        if cfg.family == "ssm":
+            x = emit_rwkv_layer(x, li, pl)
+            b.close_block("layer")
+            continue
         h = emit_rmsnorm(x, f"L{li}.ln1", pl["ln1"])
         ya = emit_attention(h, li, pl)
         if hybrid:

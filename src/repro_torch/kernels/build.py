@@ -28,7 +28,8 @@ BUILD_DIR = REPO_ROOT / "build" / "kernels"
 LIB_NAME = "libaeg_kernels.so"
 SOURCES = (_PKG / "common" / "csrc" / "common.cu",
            _PKG / "flash_attention" / "csrc" / "flash_attention.cu",
-           _PKG / "ssm_scan" / "csrc" / "ssm_scan.cu")
+           _PKG / "ssm_scan" / "csrc" / "ssm_scan.cu",
+           _PKG / "wkv6" / "csrc" / "wkv6.cu")
 HEADERS = (_PKG / "common" / "csrc" / "common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -117,6 +118,9 @@ def library() -> ctypes.CDLL:
     lib.aeg_flash_attention.restype = i32
     lib.aeg_ssm_scan.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, i32, vp]
     lib.aeg_ssm_scan.restype = i32
+    lib.aeg_wkv6.argtypes = [vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32,
+                             vp]
+    lib.aeg_wkv6.restype = i32
     lib.aeg_cuda_error_string.argtypes = [i32]
     lib.aeg_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,0 +1,23 @@
+"""Shared by the kernel wrappers (the port's counterpart of
+``repro.kernels.common``): the floating dtypes every CUDA kernel takes,
+their codes at the C interface, and the shape/dtype checks whose
+``ValueError`` text matches the JAX package's. ``csrc/`` holds the CUDA
+side (element conversions and the error-string entry point)."""
+from __future__ import annotations
+
+import torch
+
+FLOAT_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
+def check_float_dtype(kernel: str, name: str, a: torch.Tensor) -> None:
+    if a.dtype not in FLOAT_DTYPES:
+        raise ValueError(f"{kernel}: operand {name!r} has unsupported dtype "
+                         f"{a.dtype}; supported: float32, bfloat16, float16")
+
+
+def check_rank(kernel: str, name: str, a: torch.Tensor, rank: int) -> None:
+    if a.ndim != rank:
+        raise ValueError(f"{kernel}: operand {name!r} must be rank-{rank}, "
+                         f"got shape {tuple(a.shape)}")

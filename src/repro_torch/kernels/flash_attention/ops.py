@@ -10,24 +10,18 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.common import (DTYPE_CODE, check_float_dtype,
+                                        check_rank)
 from repro_torch.kernels.flash_attention.ref import attention_ref_bshd
 
-FLOAT_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 HEAD_DIMS = (16, 64, 128)         # the CUDA kernel's template instances
 
 
 def check_contract(q, k, v) -> None:
     """The JAX package's shape/dtype contract, same ``ValueError``s."""
     for name, a in (("q", q), ("k", k), ("v", v)):
-        if a.ndim != 4:
-            raise ValueError(
-                f"flash_attention: operand {name!r} must be rank-4, got "
-                f"shape {tuple(a.shape)}")
-        if a.dtype not in FLOAT_DTYPES:
-            raise ValueError(
-                f"flash_attention: operand {name!r} has unsupported dtype "
-                f"{a.dtype}; supported: float32, bfloat16, float16")
+        check_rank("flash_attention", name, a, 4)
+        check_float_dtype("flash_attention", name, a)
     b, s, h, d = q.shape
     bk, sk, hkv, dk = k.shape
     if tuple(k.shape) != tuple(v.shape):
@@ -76,7 +70,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     with torch.cuda.device(q.device):        # launch on the operands' card
         err = lib.aeg_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, s, sk,
-            h, hkv, d, _DTYPE_CODE[q.dtype], 1.0 / d ** 0.5,
+            h, hkv, d, DTYPE_CODE[q.dtype], 1.0 / d ** 0.5,
             int(bool(causal)), torch.cuda.current_stream(q.device).cuda_stream)
     build.check(lib, err, "flash_attention")
     flash_attention.launches += 1

@@ -1,7 +1,7 @@
 """Kernel registry — the seam between RCB kernel opcodes and hand kernels.
 
 The port's counterpart of ``repro.kernels.registry``, with the
-``attention`` and ``ssm_scan`` specs. Each spec holds the hand-kernel
+``attention``, ``ssm_scan`` and ``wkv6`` specs. Each spec holds the hand-kernel
 wrapper, its plain PyTorch version and the shape contract. The op attr
 ``impl`` keeps its meaning for programs written by the JAX package:
 ``"ref"`` runs the plain version, ``"pallas"`` (or no ``impl``) runs the
@@ -20,6 +20,8 @@ from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ref import attention_ref_bshd
 from repro_torch.kernels.ssm_scan import ops as ss_ops
 from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
+from repro_torch.kernels.wkv6 import ops as wk_ops
+from repro_torch.kernels.wkv6.ref import wkv6_ref_bthk
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,6 +38,8 @@ SPECS: dict[str, KernelSpec] = {
                             attention_ref_bshd, fa_ops.check_contract),
     "ssm_scan": KernelSpec("ssm_scan", ss_ops.ssm_scan, ssm_scan_ref,
                            ss_ops.check_contract),
+    "wkv6": KernelSpec("wkv6", wk_ops.wkv6, wkv6_ref_bthk,
+                       wk_ops.check_contract),
 }
 
 

@@ -10,10 +10,10 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.common import (DTYPE_CODE, check_float_dtype,
+                                        check_rank)
 from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
 
-FLOAT_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 STATE_SIZES = (4, 8, 16, 32)      # the CUDA kernel's template instances
 
 
@@ -21,15 +21,9 @@ def check_contract(da, bx, c) -> None:
     """The JAX package's shape/dtype contract as its registry applies it
     (chunk=1, d_block=1: any T and di tile), with the same ``ValueError``s."""
     for name, a, rank in (("da", da, 4), ("bx", bx, 4), ("c", c, 3)):
-        if a.ndim != rank:
-            raise ValueError(
-                f"ssm_scan: operand {name!r} must be rank-{rank}, got shape "
-                f"{tuple(a.shape)}")
+        check_rank("ssm_scan", name, a, rank)
     for name, a in (("da", da), ("bx", bx), ("c", c)):
-        if a.dtype not in FLOAT_DTYPES:
-            raise ValueError(
-                f"ssm_scan: operand {name!r} has unsupported dtype "
-                f"{a.dtype}; supported: float32, bfloat16, float16")
+        check_float_dtype("ssm_scan", name, a)
     b, t, di, n = da.shape
     if tuple(bx.shape) != tuple(da.shape):
         raise ValueError(
@@ -72,7 +66,7 @@ def ssm_scan(da: torch.Tensor, bx: torch.Tensor,
     with torch.cuda.device(da.device):       # launch on the operands' card
         err = lib.aeg_ssm_scan(
             da.data_ptr(), bx.data_ptr(), c.data_ptr(), y.data_ptr(), b, t,
-            di, n, _DTYPE_CODE[da.dtype],
+            di, n, DTYPE_CODE[da.dtype],
             torch.cuda.current_stream(da.device).cuda_stream)
     build.check(lib, err, "ssm_scan")
     ssm_scan.launches += 1

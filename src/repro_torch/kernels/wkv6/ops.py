@@ -1,0 +1,77 @@
+"""Public wrapper for the RWKV-6 WKV kernel, layout (B, T, H, K).
+
+On a CUDA tensor it launches the hand-written kernel (``csrc/wkv6.cu``) on
+the current stream, or raises; on a CPU tensor it computes the plain
+version (``ref.py``). Nothing falls back from one to the other.
+``wkv6.launches`` counts kernel launches.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.common import (DTYPE_CODE, check_float_dtype,
+                                        check_rank)
+from repro_torch.kernels.wkv6.ref import wkv6_ref_bthk
+
+HEAD_SIZES = (8, 16, 32, 64)      # the CUDA kernel's template instances
+
+
+def check_contract(r, k, v, lw, u) -> None:
+    """The JAX package's shape/dtype contract as its registry applies it
+    (chunk=1: any T), with the same ``ValueError``s."""
+    for name, a in (("r", r), ("k", k), ("v", v), ("lw", lw)):
+        check_rank("wkv6", name, a, 4)
+        check_float_dtype("wkv6", name, a)
+        if tuple(a.shape) != tuple(r.shape):
+            raise ValueError(
+                f"wkv6: operand {name!r} shape {tuple(a.shape)} differs "
+                f"from r {tuple(r.shape)}")
+    check_rank("wkv6", "u", u, 2)
+    check_float_dtype("wkv6", "u", u)
+    b, t, h, kk = r.shape
+    if tuple(u.shape) != (h, kk):
+        raise ValueError(
+            f"wkv6: u must be (H,K)=({h},{kk}), got {tuple(u.shape)}")
+    if t == 0:
+        raise ValueError("wkv6: zero-length sequence (t=0)")
+    if h == 0 or kk == 0:
+        raise ValueError(f"wkv6: zero-size head layout (h={h}, k={kk})")
+
+
+def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+         lw: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """r/k/v/lw: (B,T,H,K) with lw the per-step log-decay (<= 0); u: (H,K)
+    the bonus. Returns y (B,T,H,K) in r's dtype, from a zero state."""
+    check_contract(r, k, v, lw, u)
+    if r.shape[-1] not in HEAD_SIZES:
+        raise ValueError(
+            f"wkv6: head size K={r.shape[-1]} not supported by the kernel; "
+            f"supported: {HEAD_SIZES}")
+    devices = {a.device for a in (r, k, v, lw, u)}
+    if len(devices) != 1:
+        raise ValueError(f"wkv6: operands on several devices "
+                         f"{sorted(map(str, devices))}")
+    if r.device.type == "cpu":
+        return wkv6_ref_bthk(r, k, v, lw, u)
+    if r.device.type != "cuda":
+        raise ValueError(f"wkv6: unsupported device {r.device}")
+    if not k.dtype == v.dtype == lw.dtype == r.dtype:
+        raise ValueError(f"wkv6: the kernel takes one dtype for r, k, v, lw, "
+                         f"got {r.dtype}, {k.dtype}, {v.dtype}, {lw.dtype}")
+    r, k, v, lw = (a.contiguous() for a in (r, k, v, lw))
+    u = u.float().contiguous()        # exact, as the TPU kernel reads it
+    b, t, h, kk = r.shape
+    y = torch.empty_like(r)
+    lib = build.library()
+    with torch.cuda.device(r.device):        # launch on the operands' card
+        err = lib.aeg_wkv6(
+            r.data_ptr(), k.data_ptr(), v.data_ptr(), lw.data_ptr(),
+            u.data_ptr(), y.data_ptr(), b, t, h, kk, DTYPE_CODE[r.dtype],
+            torch.cuda.current_stream(r.device).cuda_stream)
+    build.check(lib, err, "wkv6")
+    wkv6.launches += 1
+    return y
+
+
+wkv6.launches = 0

@@ -1,0 +1,130 @@
+"""RWKV-6 "Finch": token-shift mixing + data-dependent decay WKV recurrence.
+
+The port's counterpart of ``repro.models.rwkv6`` for the full-sequence
+kernel route: the time-mix projections into the ``wkv6`` operand layout
+(``time_mix_pre``), its output stage (``time_mix_post``), the channel mix,
+and ``wkv_core``/``time_mix`` over the kernel registry. The RCTC per-layer
+lowering runs ``time_mix_pre``, ``time_mix_post`` and ``channel_mix`` as its
+``tm_pre``/``tm_post``/``cm`` glue around ``Op.WKV6``. The port always takes
+the registry route; the JAX package's chunked-scan route and single-token
+decode steps wait for the paged engine.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.common import ParamSpec, group_norm
+
+LORA_DIM = 64
+
+
+def rwkv_specs(cfg: ModelConfig) -> dict:
+    L, d, f = cfg.num_layers, cfg.d_model, cfg.d_ff
+    K = cfg.rwkv_head_dim
+    H = d // K
+    dt = cfg.dtype
+    return {
+        # time-mix
+        "tm_mix": ParamSpec((L, 5, d), dt, "uniform", 0.5),
+        "tm_w0": ParamSpec((L, d), "float32", "decay"),
+        "tm_wa": ParamSpec((L, d, LORA_DIM), dt),
+        "tm_wb": ParamSpec((L, LORA_DIM, d), dt),
+        "tm_u": ParamSpec((L, H, K), "float32", "uniform", 0.5),
+        "tm_wr": ParamSpec((L, d, d), dt),
+        "tm_wk": ParamSpec((L, d, d), dt),
+        "tm_wv": ParamSpec((L, d, d), dt),
+        "tm_wg": ParamSpec((L, d, d), dt),
+        "tm_wo": ParamSpec((L, d, d), dt),
+        "tm_ln_w": ParamSpec((L, d), dt, "ones"),
+        "tm_ln_b": ParamSpec((L, d), dt, "zeros"),
+        # channel-mix
+        "cm_mix": ParamSpec((L, 2, d), dt, "uniform", 0.5),
+        "cm_wk": ParamSpec((L, d, f), dt),
+        "cm_wv": ParamSpec((L, f, d), dt),
+        "cm_wr": ParamSpec((L, d, d), dt),
+    }
+
+
+def _shift(x: torch.Tensor, prev: torch.Tensor) -> torch.Tensor:
+    """x: (B,T,d); prev: (B,d) last token of the previous segment."""
+    return torch.cat([prev[:, None, :].to(x.dtype), x[:, :-1]], dim=1)
+
+
+def _decay(p: dict, xw: torch.Tensor) -> torch.Tensor:
+    """Data-dependent decay log-weights lw = -exp(w0 + lora(x)) (<= 0); the
+    LoRA runs in fp32 and is clipped to [-12, 3]."""
+    lora = torch.tanh(torch.matmul(xw.float(), p["tm_wa"].float()))
+    w_raw = p["tm_w0"].float() + torch.matmul(lora, p["tm_wb"].float())
+    return -torch.exp(torch.clamp(w_raw, -12.0, 3.0))
+
+
+def time_mix_pre(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                 ts_prev: torch.Tensor):
+    """Token-shift mixing + projections into the WKV operand layout.
+
+    Returns (r, k, v, lw — all (B,T,H,K) fp32, lw <= 0; g (B,T,d)): the
+    first four are the tensor operands of ``Op.WKV6``."""
+    B, T, d = x.shape
+    K = cfg.rwkv_head_dim
+    H = d // K
+    xprev = _shift(x, ts_prev)
+    mix = p["tm_mix"].to(x.dtype)                           # (5, d)
+    xr, xk, xv, xw, xg = [x + (xprev - x) * mix[i] for i in range(5)]
+    r = torch.matmul(xr, p["tm_wr"]).reshape(B, T, H, K)
+    k = torch.matmul(xk, p["tm_wk"]).reshape(B, T, H, K)
+    v = torch.matmul(xv, p["tm_wv"]).reshape(B, T, H, K)
+    g = torch.matmul(xg, p["tm_wg"])
+    lw = _decay(p, xw).reshape(B, T, H, K)
+    return r.float(), k.float(), v.float(), lw, g
+
+
+def time_mix_post(cfg: ModelConfig, p: dict, y: torch.Tensor,
+                  g: torch.Tensor, x_dtype: torch.dtype) -> torch.Tensor:
+    """Group-norm + silu gate + output projection (shared tail).
+    y: (B,T,H,K) fp32 WKV output; g: (B,T,d) gate projection."""
+    B, T, H, K = y.shape
+    y = y.reshape(B, T, H * K).to(x_dtype)
+    y = group_norm(y, p["tm_ln_w"], p["tm_ln_b"], H, cfg.norm_eps)
+    y = y * F.silu(g.float()).to(x_dtype)
+    return torch.matmul(y, p["tm_wo"])
+
+
+def wkv_core(r, k, v, lw, u, s0):
+    """Full-sequence WKV recurrence through the registry ``wkv6``. Returns
+    (y, s_final).
+
+    The kernel computes the zero-state recurrence: an entering state s0 is
+    folded in exactly with ``y += (r * exp(p_prev)) @ s0`` (p_prev the
+    exclusive cumsum of lw), and the final state comes in closed form; every
+    exponent is <= 0, so nothing overflows."""
+    from repro_torch.kernels import registry
+    y = registry.call("wkv6", r, k, v, lw, u)
+    p = torch.cumsum(lw, dim=1)                             # inclusive
+    pprev = p - lw                                          # exclusive
+    y = y + torch.einsum("bthi,bhio->btho", r * torch.exp(pprev), s0)
+    s_final = torch.exp(p[:, -1])[..., None] * s0 + torch.einsum(
+        "bthi,btho->bhio", k * torch.exp(p[:, -1:] - p), v)
+    return y, s_final
+
+
+def time_mix(cfg: ModelConfig, p: dict, x: torch.Tensor,
+             ts_prev: torch.Tensor, s0: torch.Tensor):
+    """RWKV6 attention replacement. Returns (y, new_ts, new_state)."""
+    r, k, v, lw, g = time_mix_pre(cfg, p, x, ts_prev)
+    y, s1 = wkv_core(r, k, v, lw, p["tm_u"].float(), s0)
+    return time_mix_post(cfg, p, y, g, x.dtype), x[:, -1], s1
+
+
+def channel_mix(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                ts_prev: torch.Tensor):
+    """RWKV6 FFN replacement. Returns (y, new_ts)."""
+    xprev = _shift(x, ts_prev)
+    mix = p["cm_mix"].to(x.dtype)
+    xk = x + (xprev - x) * mix[0]
+    xr = x + (xprev - x) * mix[1]
+    k = torch.square(F.relu(torch.matmul(xk, p["cm_wk"])))
+    kv = torch.matmul(k, p["cm_wv"])
+    r = torch.sigmoid(torch.matmul(xr, p["cm_wr"]).float())
+    return r.to(x.dtype) * kv, x[:, -1]

@@ -1,5 +1,5 @@
 """Parameter layout, initialization and input embedding of the LM families
-ported so far (dense, and hybrid: attention + Mamba + SwiGLU).
+ported so far (dense; hybrid: attention + Mamba + SwiGLU; ssm: RWKV-6).
 
 The port's counterpart of the parts of ``repro.models.transformer`` and
 ``repro.models.common`` that the per-layer RCB lowering needs: the stacked
@@ -19,29 +19,40 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.dtypes import as_tensor, torch_dtype
 from repro_torch.models.common import ParamSpec
 from repro_torch.models.mamba import mamba_specs
+from repro_torch.models.rwkv6 import rwkv_specs
 
-PORTED_FAMILIES = ("dense", "hybrid")
+PORTED_FAMILIES = ("dense", "hybrid", "ssm")
 
 
 def check_ported(cfg: ModelConfig) -> None:
     if cfg.family not in PORTED_FAMILIES or cfg.num_experts:
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported to PyTorch yet (dense and "
-            f"hybrid only, no experts)")
+            f"family {cfg.family!r} is not ported to PyTorch yet (dense, "
+            f"hybrid and ssm only, no experts)")
 
 
 def model_specs(cfg: ModelConfig) -> dict:
     """Stacked parameter specs (names and shapes as in
-    ``repro.models.transformer.model_specs``): attention and the SwiGLU MLP,
-    plus the Mamba branch in the hybrid family."""
+    ``repro.models.transformer.model_specs``): the norms, embedding and
+    head, then attention and the SwiGLU MLP, plus the Mamba branch in the
+    hybrid family, or the RWKV-6 time and channel mixes in the ssm one."""
     check_ported(cfg)
     L, d, V = cfg.num_layers, cfg.d_model, cfg.vocab_size
-    H, Hkv, D, F = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.d_ff
     dt = cfg.dtype
     specs = {
         "ln1": ParamSpec((L, d), dt, "ones"),
         "ln2": ParamSpec((L, d), dt, "ones"),
         "final_norm": ParamSpec((d,), dt, "ones"),
+    }
+    if cfg.input_kind == "tokens":
+        specs["embed"] = ParamSpec((V, d), dt, "embed")
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = ParamSpec((d, V), dt)
+    if cfg.family == "ssm":
+        specs.update(rwkv_specs(cfg))
+        return specs
+    H, Hkv, D, F = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.d_ff
+    specs.update({
         "wq": ParamSpec((L, d, H, D), dt),
         "wk": ParamSpec((L, d, Hkv, D), dt),
         "wv": ParamSpec((L, d, Hkv, D), dt),
@@ -49,11 +60,7 @@ def model_specs(cfg: ModelConfig) -> dict:
         "mlp_wi_gate": ParamSpec((L, d, F), dt),
         "mlp_wi_up": ParamSpec((L, d, F), dt),
         "mlp_wo": ParamSpec((L, F, d), dt),
-    }
-    if cfg.input_kind == "tokens":
-        specs["embed"] = ParamSpec((V, d), dt, "embed")
-    if not cfg.tie_embeddings:
-        specs["lm_head"] = ParamSpec((d, V), dt)
+    })
     if cfg.qkv_bias:
         specs["bq"] = ParamSpec((L, H, D), dt, "zeros")
         specs["bk"] = ParamSpec((L, Hkv, D), dt, "zeros")
@@ -69,7 +76,8 @@ def model_specs(cfg: ModelConfig) -> dict:
 def init_params(cfg: ModelConfig, seed: int, device="cuda") -> dict:
     """Draw parameters from ``seed`` with a ``torch.Generator`` on
     ``device``, following the JAX package's init kinds: ones, zeros,
-    uniform (U(-1, 1) * scale), embed (normal, std d^-1/2) and normal
+    uniform (U(-1, 1) * scale), decay (-6 + 5 U(0, 1), the rwkv decay
+    base), embed (normal, std d^-1/2) and normal
     (normal truncated at +-3, std scale / sqrt(fan_in)). The values differ
     from the JAX package's (another generator); parity tests carry weights
     across instead."""
@@ -88,6 +96,9 @@ def init_params(cfg: ModelConfig, seed: int, device="cuda") -> dict:
         elif s.init == "uniform":
             v = torch.rand(s.shape, generator=gen, device=dev) * 2.0 - 1.0
             v = (v * s.scale).to(dt)
+        elif s.init == "decay":
+            v = torch.rand(s.shape, generator=gen, device=dev)
+            v = (-6.0 + 5.0 * v).to(dt)
         elif s.init == "embed":
             v = torch.randn(s.shape, generator=gen, device=dev)
             v = (v * s.shape[-1] ** -0.5).to(dt)

@@ -25,6 +25,8 @@ def test_port_imports_no_jax_no_ml_dtypes_no_reference_package():
     assert "repro_torch.kernels.flash_attention.ops" in modules
     assert "repro_torch.kernels.ssm_scan.ops" in modules
     assert "repro_torch.models.mamba" in modules
+    assert "repro_torch.kernels.wkv6.ops" in modules
+    assert "repro_torch.models.rwkv6" in modules
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}:\n"

@@ -15,9 +15,12 @@ from repro_torch.kernels.flash_attention import ops
 from repro_torch.kernels.flash_attention.ref import attention_ref_bshd
 from repro_torch.kernels.ssm_scan import ops as ss_ops
 from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
+from repro_torch.kernels.wkv6 import ops as wk_ops
+from repro_torch.kernels.wkv6.ref import wkv6_ref_bthk
 
 TOL = {"float32": 2e-6, "bfloat16": 2e-2, "float16": 2e-2}
 SSM_TOL = {"float32": 2e-5, "bfloat16": 2e-2, "float16": 2e-2}
+WKV_TOL = {"float32": 5e-4, "bfloat16": 3e-2, "float16": 3e-2}
 
 
 @pytest.fixture
@@ -110,3 +113,62 @@ def test_ssm_scan_kernel_refuses_unsupported_state_size_and_mixed_dtypes(
     with pytest.raises(ValueError, match="one dtype"):
         ss_ops.ssm_scan(z, z, torch.zeros(1, 8, 16, device=cuda,
                                           dtype=torch.bfloat16))
+
+
+def _wkv6_inputs(rng, shape, dtype, cuda, lw_value=None, u_scale=0.5):
+    """r, k, v, lw (B,T,H,K) in ``dtype`` and u (H,K) fp32, drawn as
+    tests/test_kernels.py::test_wkv6 draws them."""
+    b, t, h, kk = shape
+    lw = (-np.exp(rng.randn(b, t, h, kk)) if lw_value is None
+          else np.full((b, t, h, kk), lw_value))
+    dt = getattr(torch, dtype)
+    rkvl = [torch.from_numpy(a.astype(np.float32)).to(cuda, dt)
+            for a in (rng.randn(b, t, h, kk), 0.3 * rng.randn(b, t, h, kk),
+                      rng.randn(b, t, h, kk), lw)]
+    u = torch.from_numpy((u_scale * rng.randn(h, kk)).astype(np.float32))
+    return rkvl + [u.to(cuda)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("shape", [
+    (1, 512, 32, 64),                       # the ssm slice (rwkv6-1.6B)
+    (2, 37, 3, 16),                         # ragged T, H=3, the smoke K
+    (1, 64, 4, 8), (1, 64, 4, 32),          # K = 8 and 32
+    (2, 128, 2, 64), (2, 13, 2, 16)])
+def test_wkv6_kernel_matches_plain_version(shape, dtype, cuda, rng):
+    r, k, v, lw, u = _wkv6_inputs(rng, shape, dtype, cuda)
+    before = wk_ops.wkv6.launches
+    got = wk_ops.wkv6(r, k, v, lw, u)
+    torch.cuda.synchronize()
+    assert wk_ops.wkv6.launches == before + 1
+    assert got.dtype == r.dtype and tuple(got.shape) == shape
+    want = wkv6_ref_bthk(r, k, v, lw, u).float()
+    # bf16/f16: relative to the output's scale (test_conformance.py:572)
+    tol = WKV_TOL[dtype] * (1.0 if dtype == "float32"
+                            else want.abs().max().item())
+    torch.testing.assert_close(got.float(), want, atol=tol, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["no_decay", "extreme_decay", "zero_u"])
+def test_wkv6_kernel_at_edge_decays_and_zero_bonus(case, cuda, rng):
+    """lw = 0 (S a running sum), lw = -80 (finite: decay 1.8e-35), u = 0."""
+    lw_value = {"no_decay": 0.0, "extreme_decay": -80.0}.get(case)
+    r, k, v, lw, u = _wkv6_inputs(rng, (1, 64, 4, 16), "float32", cuda,
+                                  lw_value, 0.0 if case == "zero_u" else 0.5)
+    got = wk_ops.wkv6(r, k, v, lw, u)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, wkv6_ref_bthk(r, k, v, lw, u),
+                               atol=5e-4, rtol=5e-4)
+
+
+@pytest.mark.gpu
+def test_wkv6_kernel_refuses_unsupported_head_size_and_mixed_dtypes(cuda):
+    z = torch.zeros(1, 8, 2, 12, device=cuda)
+    with pytest.raises(ValueError, match=r"K=12 not supported"):
+        wk_ops.wkv6(z, z, z, z, torch.zeros(2, 12, device=cuda))
+    z = torch.zeros(1, 8, 2, 16, device=cuda)
+    with pytest.raises(ValueError, match="one dtype"):
+        wk_ops.wkv6(z, z, z.bfloat16(), z, torch.zeros(2, 16, device=cuda))

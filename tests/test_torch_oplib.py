@@ -1,8 +1,9 @@
-"""Every opcode of the dense and hybrid LM programs but the GRAPH_EXEC glue
-(tests/test_torch_hybrid.py): the port's ``oplib.compute`` against the JAX
-package's on the same numpy inputs (fp32, atol 1e-5; RESHAPE and
-PASSTHROUGH exact). RMSNORM and ROPE run at the qwen2-1.5B smoke shapes,
-SSM_SCAN at hymba-1.5B smoke's state size (N=4)."""
+"""Every opcode of the dense, hybrid and ssm LM programs but the GRAPH_EXEC
+glue (tests/test_torch_hybrid.py, tests/test_torch_rwkv.py): the port's
+``oplib.compute`` against the JAX package's on the same numpy inputs (fp32,
+atol 1e-5; RESHAPE and PASSTHROUGH exact). RMSNORM and ROPE run at the
+qwen2-1.5B smoke shapes, SSM_SCAN at hymba-1.5B smoke's state size (N=4),
+WKV6 at rwkv6-1.6B smoke's heads (H=4, K=16)."""
 import numpy as np
 import pytest
 import torch
@@ -30,6 +31,12 @@ def _f32(rng, *shape):
 def _ssm_operands(rng, n=4):
     return [-np.exp(_f32(rng, B, S, D, n)), _f32(rng, B, S, D, n),
             _f32(rng, B, S, n)]
+
+
+def _wkv6_operands(rng, h=4, kk=16):
+    return [_f32(rng, B, S, h, kk), 0.3 * _f32(rng, B, S, h, kk),
+            _f32(rng, B, S, h, kk), -np.exp(_f32(rng, B, S, h, kk)),
+            0.5 * _f32(rng, h, kk)]
 
 
 def _positions():
@@ -81,6 +88,9 @@ CASES = {
     "ssm_scan": (Op.SSM_SCAN, lambda r: _ssm_operands(r), {}, False),
     "ssm_scan_plain": (Op.SSM_SCAN, lambda r: _ssm_operands(r),
                        {"impl": "ref"}, False),
+    "wkv6": (Op.WKV6, lambda r: _wkv6_operands(r), {}, False),
+    "wkv6_plain": (Op.WKV6, lambda r: _wkv6_operands(r), {"impl": "ref"},
+                   False),
     "attention": (Op.ATTENTION, lambda r: [_f32(r, B, S, H, HD),
                                            _f32(r, B, S, HKV, HD),
                                            _f32(r, B, S, HKV, HD)],
@@ -134,7 +144,7 @@ def test_rmsnorm_and_rope_cast_back_to_input_dtype(dtype, rng):
 
 
 @pytest.mark.parametrize("op", [Op.CONV2D, Op.SOFTMAX, Op.MATMUL_INT8,
-                                Op.MAXPOOL, Op.WKV6])
+                                Op.MAXPOOL, Op.AVGPOOL_GLOBAL])
 def test_unported_opcode_raises_naming_it(op):
     with pytest.raises(NotImplementedError, match=op.name):
         oplib.compute(op, [torch.zeros(1)], {})
@@ -142,11 +152,11 @@ def test_unported_opcode_raises_naming_it(op):
         make_eager_driver("cpu").link_compute(op, {})
 
 
-@pytest.mark.parametrize("name", ["matmul_int8", "wkv6", "conv2d"])
+@pytest.mark.parametrize("name", ["matmul_int8", "layer_norm", "conv2d"])
 def test_unported_kernel_raises(name):
     with pytest.raises(NotImplementedError, match=name) as err:
         registry.get(name)
-    assert "ported: ['attention', 'ssm_scan']" in str(err.value)
+    assert "ported: ['attention', 'ssm_scan', 'wkv6']" in str(err.value)
 
 
 def test_unknown_impl_is_rejected(rng):
