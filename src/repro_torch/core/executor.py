@@ -13,11 +13,15 @@ slots. Two modes:
 Both modes run the same op implementations on the same device, so their
 outputs are bit-identical. Host inputs (numpy arrays or CPU tensors) are
 moved onto the driver's device explicitly; outputs stay on the device.
+Either mode can ``probe`` the abs-max of every buffer it holds (INT8
+calibration, core/quant.py).
 """
 from __future__ import annotations
 
 import time
 from typing import Callable, Optional
+
+import torch
 
 from repro_torch import device as device_mod
 from repro_torch.core import linker as linker_mod
@@ -26,6 +30,24 @@ from repro_torch.core.rbl import BoundProgram
 from repro_torch.core.rbl import explicitly_freed as rbl_explicitly_freed
 from repro_torch.core.rcb import Op
 from repro_torch.dtypes import as_tensor
+
+
+def _probe_update(probe_dev: dict, sym: str, buf) -> None:
+    """Device-side abs-max accumulation: no host round-trip per op. A slot
+    that holds no tensor (empty, or a DMA ticket not yet redeemed) and an
+    empty tensor record nothing."""
+    if not isinstance(buf, torch.Tensor) or buf.numel() == 0:
+        return
+    m = torch.amax(torch.abs(buf))
+    prev = probe_dev.get(sym)
+    probe_dev[sym] = m if prev is None else torch.maximum(prev, m)
+
+
+def _probe_flush(probe: dict, probe_dev: dict) -> None:
+    """Convert the accumulated device scalars to host floats once, at
+    exit."""
+    for sym, m in probe_dev.items():
+        probe[sym] = max(probe.get(sym, 0.0), float(m))
 
 
 class Executor:
@@ -126,8 +148,13 @@ class Executor:
 
     # -------------------------------------------------------------- linked
     def run(self, bound: BoundProgram, inputs: Optional[dict] = None,
-            rimfs=None) -> dict:
-        """Execute the program through the linked (compiled-dispatch) path."""
+            rimfs=None, probe: Optional[dict] = None) -> dict:
+        """Execute the program through the linked (compiled-dispatch) path.
+
+        ``probe``: optional dict filled with the per-symbol abs-max of every
+        buffer the run holds (the bound ones and every one produced), for
+        INT8 calibration. The abs-max accumulates on the device; the host
+        reads each symbol's once, at exit."""
         linked = self.link(bound)
         istats0 = None
         if self.rtpm is not None:
@@ -138,18 +165,28 @@ class Executor:
         for sym, i in linked.missing_inputs:
             if slots[i] is None:
                 raise ValueError(f"missing input {sym!r}")
+        probe_dev: Optional[dict] = None
+        if probe is not None:
+            probe_dev = {}
+            for i, buf in enumerate(slots):
+                _probe_update(probe_dev, linked.names[i], buf)
         for pre in linked.prologue:                # prefetch issue phase
             pre(slots, rimfs)
-        if self.rtpm is None:
+        if probe_dev is None and self.rtpm is None:
             for thunk in linked.thunks:            # THE hot loop
                 thunk(slots, rimfs)
-        else:                                      # per-block telemetry
+        else:                                      # instrumented
             thunks = linked.thunks
             for block_id, start, end in linked.block_spans:
                 t_blk = time.perf_counter()
                 for k in range(start, end):
                     thunks[k](slots, rimfs)
-                self._block_done(block_id, t_blk)
+                    if probe_dev is not None:
+                        for d in linked.dst_lists[k]:
+                            _probe_update(probe_dev, linked.names[d],
+                                          slots[d])
+                if self.rtpm is not None:
+                    self._block_done(block_id, t_blk)
         for epi in linked.epilogue:                # drain redeem phase
             epi(slots, rimfs)
         self.driver._count("dispatch", linked.n_compute)
@@ -165,13 +202,17 @@ class Executor:
                 delta = self.driver.stats.get(key, 0) - istats0[key]
                 if delta:
                     self.rtpm.post(kind, {"n": delta, "source": "executor"})
+        if probe_dev is not None:
+            _probe_flush(probe, probe_dev)
         return {name: slots[i] for name, i in linked.output_slots
                 if slots[i] is not None}
 
     # --------------------------------------------------- interpreted baseline
     def run_interpreted(self, bound: BoundProgram,
-                        inputs: Optional[dict] = None, rimfs=None) -> dict:
-        """Interpret the program op-by-op (the per-op baseline)."""
+                        inputs: Optional[dict] = None, rimfs=None,
+                        probe: Optional[dict] = None) -> dict:
+        """Interpret the program op-by-op (the per-op baseline); ``probe``
+        as in ``run``."""
         self._prog = bound.program
         self._explicit_free = rbl_explicitly_freed(bound.program)
         buffers = dict(bound.buffers)
@@ -179,15 +220,25 @@ class Executor:
         for sym in bound.missing_inputs:
             if sym not in buffers:
                 raise ValueError(f"missing input {sym!r}")
+        probe_dev: Optional[dict] = None
+        if probe is not None:
+            probe_dev = {}
+            for sym, buf in buffers.items():
+                _probe_update(probe_dev, sym, buf)
         idx = 0
         for block in bound.program.blocks:
             t_blk = time.perf_counter()
             for op in block.ops:
                 self._dispatch(self.driver, op, buffers, bound.last_use,
                                idx, rimfs)
+                if probe_dev is not None:
+                    for dd in op.dsts:
+                        _probe_update(probe_dev, dd, buffers.get(dd))
                 idx += 1
             if self.rtpm is not None:
                 self._block_done(block.block_id, t_blk)
+        if probe_dev is not None:
+            _probe_flush(probe, probe_dev)
         return {name: buffers[name]
                 for name, t in bound.program.tensors.items()
                 if t.kind == "output" and name in buffers}

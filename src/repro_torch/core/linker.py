@@ -136,6 +136,7 @@ class LinkedProgram:
     residency: Optional[ResidencyPlan] = None
     prologue: tuple = ()           # prefetch issue thunks (run before thunks)
     epilogue: tuple = ()           # drain redeem thunks (run after thunks)
+    dst_lists: tuple = ()          # per-thunk tuple of slot indices written
 
     def fresh_slots(self, buffers: dict,
                     inputs: Optional[dict] = None) -> list:
@@ -214,6 +215,7 @@ def link(bound: rbl_mod.BoundProgram, driver,
     epilogue: list = []
     n_compute = 0
     free_lists: list = []
+    dst_lists: list = []
     idx = 0                                        # linear op index
     for block in prog.blocks:
         start = len(thunks)
@@ -401,6 +403,7 @@ def link(bound: rbl_mod.BoundProgram, driver,
                         slots[f] = None
             thunks.append(thunk)
             free_lists.append(frees)
+            dst_lists.append(dslots)
         block_spans.append((block.block_id, start, len(thunks)))
 
     prologue: list = []
@@ -434,4 +437,5 @@ def link(bound: rbl_mod.BoundProgram, driver,
     missing = tuple((n, slot_of[n]) for n in bound.missing_inputs)
     return LinkedProgram(prog, driver, slot_of, names, thunks, block_spans,
                          output_slots, missing, tuple(free_lists),
-                         n_compute, plan, tuple(prologue), tuple(epilogue))
+                         n_compute, plan, tuple(prologue), tuple(epilogue),
+                         tuple(dst_lists))

@@ -1,15 +1,18 @@
 """RCTC — the offline toolchain (forward translation / data packaging).
 
-The port's counterpart of ``repro.core.rctc`` for the per-layer LM lowering
-of the dense, hybrid and ssm families: every attention, projection, norm and
-residual of the layer stack becomes its own RCB op — ``Op.ATTENTION``,
-``Op.SSM_SCAN`` and ``Op.WKV6`` dispatch through the kernel registry, the
-glue (RMSNORM / ROPE / SILU_MUL / SCALE_SHIFT / GEMM / ADD / RESHAPE)
-through the generic vtable, and the Mamba branch's projections and the
+The port's counterpart of ``repro.core.rctc``: the paper's Conv2D -> ReLU ->
+Softmax pipeline (``compile_conv_relu_softmax``), ResNet-18 in fp32 and INT8
+(``compile_resnet18``: one op per conv / folded BN / relu / residual add /
+pool, the INT8 variant quantizing around every conv), and the per-layer LM
+lowering of the dense, hybrid and ssm families: every attention,
+projection, norm and residual of the layer stack becomes its own RCB op —
+``Op.ATTENTION``, ``Op.SSM_SCAN`` and ``Op.WKV6`` dispatch through the
+kernel registry, the glue (RMSNORM / ROPE / SILU_MUL / SCALE_SHIFT / GEMM /
+ADD / RESHAPE) through the generic vtable, and the Mamba branch's projections and the
 RWKV-6 token-shift mixes run as ``GRAPH_EXEC`` artifacts (plain torch
 callables) — and the weights flatten into a RIMFS image. From the same
 parameters it emits the same program bytes and the same image bytes as the
-JAX package. Other families (experts, vision, audio) raise
+JAX package. Other LM families (experts, vision, audio) raise
 ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -18,10 +21,11 @@ from typing import Optional
 
 import torch
 
+from repro_torch.configs.resnet18 import ResNetConfig
 from repro_torch.core import opt as opt_mod
 from repro_torch.core import rimfs as rimfs_mod
 from repro_torch.core.rcb import Op, RCB, RCBOp, RCBProgram, TensorDesc
-from repro_torch.dtypes import name_of, torch_dtype
+from repro_torch.dtypes import as_tensor, name_of, torch_dtype
 from repro_torch.models import mamba, rwkv6
 
 
@@ -64,6 +68,158 @@ class _Builder:
                           artifacts or {})
         prog.validate()
         return prog
+
+
+def _host(arr) -> torch.Tensor:
+    """A weight (torch tensor on any device, or numpy array) as a contiguous
+    CPU tensor for the RIMFS image."""
+    return as_tensor(arr, torch.device("cpu")).detach().contiguous()
+
+
+def compile_conv_relu_softmax(n=1, h=8, w=8, cin=3, cout=9) -> RCBProgram:
+    """The paper's data-path correctness pipeline (Conv2D->ReLU->Softmax)."""
+    b = _Builder("conv_relu_softmax")
+    b.tensor("input", (n, h, w, cin), "float32", "input")
+    b.tensor("w_conv", (3, 3, cin, cout), "float32", "weight")
+    t1 = b.scratch((n, h, w, cout), "float32")
+    b.emit(Op.CONV2D, [t1], ["input", "w_conv"], stride=(1, 1),
+           padding="SAME")
+    t2 = b.scratch((n, h, w, cout), "float32")
+    b.emit(Op.RELU, [t2], [t1])
+    t3 = b.scratch((n, cout), "float32")
+    b.emit(Op.AVGPOOL_GLOBAL, [t3], [t2])
+    b.tensor("output", (n, cout), "float32", "output")
+    b.emit(Op.SOFTMAX, ["output"], [t3])
+    return b.build()
+
+
+# ---------------------------------------------------------------------------
+# ResNet-18 forward translation (fp32 and INT8)
+# ---------------------------------------------------------------------------
+
+def _emit_conv_bn_relu(b: _Builder, x, wname, scale, shift, out_shape,
+                       stride, relu=True, int8: Optional[dict] = None,
+                       x_scale: float = 1.0):
+    """One conv+foldedBN(+relu) stage; int8 mode quantizes around the conv."""
+    if int8 is None:
+        t = b.scratch(out_shape, "float32")
+        b.emit(Op.CONV2D, [t], [x, wname], stride=(stride, stride),
+               padding="SAME")
+    else:
+        xq = b.scratch(b.tensors[x].shape, "int8")
+        b.emit(Op.QUANTIZE, [xq], [x], scale=x_scale)
+        ti = b.scratch(out_shape, "int32")
+        b.emit(Op.CONV2D_I8, [ti], [xq, wname], stride=(stride, stride),
+               padding="SAME")
+        t = b.scratch(out_shape, "float32")
+        # requant: int32 * (x_scale * w_scale_per_channel), then +shift
+        b.emit(Op.SCALE_SHIFT, [t], [ti, int8["requant_scale"],
+                                     int8["zero"]])
+    t2 = b.scratch(out_shape, "float32")
+    b.emit(Op.SCALE_SHIFT, [t2], [t, scale, shift])
+    if not relu:
+        return t2
+    t3 = b.scratch(out_shape, "float32")
+    b.emit(Op.RELU, [t3], [t2])
+    return t3
+
+
+def compile_resnet18(cfg: ResNetConfig, folded: dict, batch: int = 1,
+                     int8: Optional[dict] = None, optimize: bool = True):
+    """Translate ResNet-18 into (RCBProgram, RIMFS image bytes).
+
+    ``folded``: BN-folded weights from models/resnet.fold_bn (torch tensors
+    on any device, or the JAX package's numpy arrays). ``int8``: optional
+    quantization pack from core/quant.quantize_resnet — {weights int8,
+    requant scales, activation scales}. ``optimize``: run the core/opt.py
+    peephole pass (bit-exact rules only) before emission. The same weights
+    and pack give the JAX package's program and image bytes.
+    """
+    b = _Builder("resnet18_int8" if int8 else "resnet18")
+    img = cfg.image_size
+    files: dict[str, torch.Tensor] = {}
+
+    def weight(name, arr):
+        t = _host(arr)
+        files[name] = t
+        b.tensor(name, tuple(t.shape), name_of(t.dtype), "weight")
+        return name
+
+    def act_scale(name):
+        return float(int8["act_scales"][name]) if int8 else 1.0
+
+    wsrc = int8["weights"] if int8 else folded
+    b.tensor("input", (batch, img, img, 3), "float32", "input")
+
+    def conv_pack(prefix, key):
+        w = weight(key, wsrc[key])
+        scale = weight(key + ".bn_scale", folded[prefix + "_scale"])
+        shift = weight(key + ".bn_shift", folded[prefix + "_shift"])
+        pack = None
+        if int8:
+            rq = _host(int8["requant"][key])
+            pack = {"requant_scale": weight(key + ".rq", rq),
+                    "zero": weight(key + ".zero", torch.zeros_like(rq))}
+        return w, scale, shift, pack
+
+    # stem
+    w, sc, sh, pk = conv_pack("stem_bn", "stem_conv")
+    h = img // 2
+    x = _emit_conv_bn_relu(b, "input", w, sc, sh, (batch, h, h,
+                                                   cfg.stem_width), 2,
+                           int8=pk, x_scale=act_scale("stem_conv"))
+    b.close_block()
+    if img >= 64:
+        t = b.scratch((batch, h // 2, h // 2, cfg.stem_width), "float32")
+        b.emit(Op.MAXPOOL, [t], [x], window=(3, 3), stride=(2, 2),
+               padding="SAME")
+        x = t
+        h = h // 2
+        b.close_block()
+
+    cin = cfg.stem_width
+    for si, (n_blocks, width) in enumerate(zip(cfg.stage_sizes,
+                                               cfg.stage_widths)):
+        for bi in range(n_blocks):
+            pre = f"s{si}b{bi}_"
+            stride = 2 if (bi == 0 and si > 0) else 1
+            h_out = h // stride
+            shp = (batch, h_out, h_out, width)
+            res = x
+            w1, sc1, sh1, pk1 = conv_pack(pre + "bn1", pre + "conv1")
+            y = _emit_conv_bn_relu(b, x, w1, sc1, sh1, shp, stride,
+                                   int8=pk1, x_scale=act_scale(pre + "conv1"))
+            w2, sc2, sh2, pk2 = conv_pack(pre + "bn2", pre + "conv2")
+            y = _emit_conv_bn_relu(b, y, w2, sc2, sh2, shp, 1, relu=False,
+                                   int8=pk2, x_scale=act_scale(pre + "conv2"))
+            if (pre + "proj") in folded:
+                wp, scp, shp_, pkp = conv_pack(pre + "proj_bn", pre + "proj")
+                res = _emit_conv_bn_relu(b, x, wp, scp, shp_, shp, stride,
+                                         relu=False, int8=pkp,
+                                         x_scale=act_scale(pre + "proj"))
+            t = b.scratch(shp, "float32")
+            b.emit(Op.ADD, [t], [y, res])
+            t2 = b.scratch(shp, "float32")
+            b.emit(Op.RELU, [t2], [t])
+            x = t2
+            h = h_out
+            cin = width
+            b.close_block()
+
+    t = b.scratch((batch, cin), "float32")
+    b.emit(Op.AVGPOOL_GLOBAL, [t], [x])
+    fw = weight("fc_w", folded["fc_w"])
+    fb = weight("fc_b", folded["fc_b"])
+    t2 = b.scratch((batch, cfg.num_classes), "float32")
+    b.emit(Op.DENSE, [t2], [t, fw, fb])
+    b.tensor("output", (batch, cfg.num_classes), "float32", "output")
+    b.emit(Op.SOFTMAX, ["output"], [t2])
+    b.emit(Op.FENCE)
+    prog = b.build()
+    if optimize:
+        prog = opt_mod.optimize(prog)
+    image = rimfs_mod.pack(files)
+    return prog, image
 
 
 def _ssm_pre_artifact(cfg, keys):
@@ -128,7 +284,7 @@ def compile_transformer_block(cfg, params: dict, batch: int, seq_len: int,
     artifacts: dict = {}
 
     def weight(name, t: torch.Tensor):
-        t = t.detach().cpu().contiguous()
+        t = _host(t)
         files[name] = t
         b.tensor(name, t.shape, name_of(t.dtype), "weight")
         return name

@@ -2,7 +2,9 @@
 
 fp32 parity with the JAX package is gated at 1e-5 per op and 5e-4 per
 program, and TF32 keeps only about three decimal digits, so importing this
-module turns TF32 off for cuBLAS matmuls and cuDNN convolutions alike.
+module turns TF32 off for cuBLAS matmuls and cuDNN convolutions alike. It
+also asks cuDNN for deterministic algorithms only: a served fp32 CONV2D
+must equal a local run of the same bytes bit for bit.
 """
 from __future__ import annotations
 
@@ -12,6 +14,7 @@ import torch
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+torch.backends.cudnn.deterministic = True
 
 DeviceLike = Union[str, torch.device]
 

@@ -29,7 +29,8 @@ LIB_NAME = "libaeg_kernels.so"
 SOURCES = (_PKG / "common" / "csrc" / "common.cu",
            _PKG / "flash_attention" / "csrc" / "flash_attention.cu",
            _PKG / "ssm_scan" / "csrc" / "ssm_scan.cu",
-           _PKG / "wkv6" / "csrc" / "wkv6.cu")
+           _PKG / "wkv6" / "csrc" / "wkv6.cu",
+           _PKG / "int8_matmul" / "csrc" / "int8_matmul.cu")
 HEADERS = (_PKG / "common" / "csrc" / "common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -121,6 +122,9 @@ def library() -> ctypes.CDLL:
     lib.aeg_wkv6.argtypes = [vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32,
                              vp]
     lib.aeg_wkv6.restype = i32
+    lib.aeg_int8_matmul.argtypes = [vp, vp, vp, vp, vp, i32, i32, i32, i32,
+                                    i32, vp]
+    lib.aeg_int8_matmul.restype = i32
     lib.aeg_cuda_error_string.argtypes = [i32]
     lib.aeg_cuda_error_string.restype = ctypes.c_char_p
     return lib

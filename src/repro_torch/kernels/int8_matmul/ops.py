@@ -1,0 +1,161 @@
+"""Public wrappers for the INT8 GEMM kernel: x (M, K) int8 times w (K, N)
+int8 with an int32 accumulator.
+
+``int8_matmul`` returns ``f32(acc) * scale[n]`` in fp32, bf16 or f16 (the
+JAX package's ``int8_matmul``, ``Op.MATMUL_INT8``); ``int8_matmul_i32``
+returns the raw int32 sums (``Op.GEMM_I8``, and ``Op.CONV2D_I8`` after an
+im2col). On CUDA tensors both launch the hand-written kernel
+(``csrc/int8_matmul.cu``) on the current stream, or raise; on CPU tensors
+they compute the plain version (``ref.py``). Nothing falls back from one to
+the other. ``int8_matmul.launches`` counts the kernel's launches through
+either wrapper.
+"""
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from repro_torch.dtypes import name_of
+from repro_torch.kernels import build
+from repro_torch.kernels.common import DTYPE_CODE, FLOAT_DTYPES, check_rank
+from repro_torch.kernels.int8_matmul.ref import (int8_matmul_i32_ref,
+                                                 int8_matmul_ref)
+
+_TILE_M = _TILE_N = 128        # the kernel's block tile
+_STEP_K = 32                   # its k step
+_MIN_STEPS_PER_SPLIT = 4       # k steps a split-K block takes at least
+
+
+def _dtype_name(dt: torch.dtype) -> str:
+    try:
+        return name_of(dt)
+    except ValueError:
+        return str(dt)
+
+
+def _check_operands(x, w) -> None:
+    check_rank("int8_matmul", "x", x, 2)
+    check_rank("int8_matmul", "w", w, 2)
+
+
+def _check_int8(x, w) -> None:
+    for name, a in (("x", x), ("w", w)):
+        if a.dtype != torch.int8:
+            raise ValueError(f"int8_matmul: operand {name!r} must be int8, "
+                             f"got {_dtype_name(a.dtype)}")
+
+
+def _check_shapes(x, w) -> tuple:
+    m, k = x.shape
+    kw, n = w.shape
+    if m == 0 or k == 0 or n == 0:
+        raise ValueError(
+            f"int8_matmul: zero-size operand (m={m}, k={k}, n={n})")
+    if kw != k:
+        raise ValueError(
+            f"int8_matmul: contraction mismatch x {tuple(x.shape)} vs "
+            f"w {tuple(w.shape)}")
+    return m, k, n
+
+
+def check_contract(x, w, scale) -> None:
+    """The JAX package's shape/dtype contract as its registry applies it
+    (block sizes 1: any M, N, K), with the same ``ValueError``s."""
+    _check_operands(x, w)
+    check_rank("int8_matmul", "scale", scale, 1)
+    _check_int8(x, w)
+    if not scale.dtype.is_floating_point:
+        raise ValueError(f"int8_matmul: scale must be floating, got "
+                         f"{_dtype_name(scale.dtype)}")
+    _, _, n = _check_shapes(x, w)
+    if scale.shape[0] != n:
+        raise ValueError(
+            f"int8_matmul: scale must be per-out-channel (n={n},), got "
+            f"{tuple(scale.shape)}")
+
+
+def check_contract_i32(x, w) -> None:
+    """The int32-out variant's contract: two int8 matrices that contract."""
+    _check_operands(x, w)
+    _check_int8(x, w)
+    _check_shapes(x, w)
+
+
+def _device_of(*tensors) -> torch.device:
+    devices = {a.device for a in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"int8_matmul: operands on several devices "
+                         f"{sorted(map(str, devices))}")
+    dev = tensors[0].device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"int8_matmul: unsupported device {dev}")
+    return dev
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def splits_for(m: int, n: int, k: int, sms: int) -> int:
+    """How many ways the kernel splits K: enough blocks to give every SM
+    one where the output has fewer tiles than SMs, each split taking at
+    least ``_MIN_STEPS_PER_SPLIT`` k steps, and no split left empty."""
+    tiles = -(-m // _TILE_M) * -(-n // _TILE_N)
+    steps = -(-k // _STEP_K)
+    want = min(-(-sms // tiles), steps // _MIN_STEPS_PER_SPLIT)
+    if want <= 1:
+        return 1
+    per = -(-steps // want)                  # k steps a split takes
+    return -(-steps // per)
+
+
+def _launch(x, w, scale, out, out_code: int) -> torch.Tensor:
+    m, k = x.shape
+    n = w.shape[1]
+    x, w = x.contiguous(), w.contiguous()
+    splits = splits_for(m, n, k, _sm_count(x.device.index))
+    acc = None
+    if splits > 1 and out_code >= 0:
+        acc = torch.empty((m, n), dtype=torch.int32, device=x.device)
+    lib = build.library()
+    with torch.cuda.device(x.device):        # launch on the operands' card
+        err = lib.aeg_int8_matmul(
+            x.data_ptr(), w.data_ptr(),
+            None if scale is None else scale.data_ptr(), out.data_ptr(),
+            None if acc is None else acc.data_ptr(), m, n, k, splits,
+            out_code, torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(lib, err, "int8_matmul")
+    int8_matmul.launches += 1
+    return out
+
+
+def int8_matmul(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
+                out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """x: (M, K) int8; w: (K, N) int8; scale: (N,) floating, per output
+    channel, already times the activation scale. Returns
+    ``f32(x @ w) * scale`` as (M, N) ``out_dtype``."""
+    check_contract(x, w, scale)
+    if out_dtype not in FLOAT_DTYPES:
+        raise ValueError(f"int8_matmul: unsupported out_dtype {out_dtype}; "
+                         f"supported: float32, bfloat16, float16")
+    if _device_of(x, w, scale).type == "cpu":
+        return int8_matmul_ref(x, w, scale, out_dtype)
+    scale = scale.float().contiguous()   # exact, as the TPU kernel reads it
+    out = torch.empty((x.shape[0], w.shape[1]), dtype=out_dtype,
+                      device=x.device)
+    return _launch(x, w, scale, out, DTYPE_CODE[out_dtype])
+
+
+def int8_matmul_i32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x: (M, K) int8; w: (K, N) int8. Returns the exact int32 sums."""
+    check_contract_i32(x, w)
+    if _device_of(x, w).type == "cpu":
+        return int8_matmul_i32_ref(x, w)
+    out = torch.empty((x.shape[0], w.shape[1]), dtype=torch.int32,
+                      device=x.device)
+    return _launch(x, w, None, out, -1)
+
+
+int8_matmul.launches = 0

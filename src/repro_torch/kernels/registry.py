@@ -1,15 +1,17 @@
 """Kernel registry — the seam between RCB kernel opcodes and hand kernels.
 
 The port's counterpart of ``repro.kernels.registry``, with the
-``attention``, ``ssm_scan`` and ``wkv6`` specs. Each spec holds the hand-kernel
+``attention``, ``matmul_int8``, ``ssm_scan`` and ``wkv6`` specs. Each spec holds the hand-kernel
 wrapper, its plain PyTorch version and the shape contract. The op attr
 ``impl`` keeps its meaning for programs written by the JAX package:
 ``"ref"`` runs the plain version, ``"pallas"`` (or no ``impl``) runs the
 hand kernel. The hand kernel's wrapper computes the plain version itself
 for CPU tensors; on CUDA tensors it launches the kernel or raises. Block
 sizes in an op's ``params`` attr were tuned for the TPU's VMEM and are not
-read: each CUDA kernel fixes its own tiles and loops over any sequence
-length, so unlike the JAX registry nothing pads a ragged T. Autotuning is not ported yet.
+read: each CUDA kernel fixes its own tiles, loops over any sequence
+length and masks any M, N or K, so unlike the JAX registry nothing pads a
+ragged T and no block size has to divide a dimension. Autotuning is not
+ported yet.
 """
 from __future__ import annotations
 
@@ -17,7 +19,10 @@ import dataclasses
 from typing import Any, Callable, Optional
 
 from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.dtypes import torch_dtype
 from repro_torch.kernels.flash_attention.ref import attention_ref_bshd
+from repro_torch.kernels.int8_matmul import ops as im_ops
+from repro_torch.kernels.int8_matmul.ref import int8_matmul_ref
 from repro_torch.kernels.ssm_scan import ops as ss_ops
 from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
 from repro_torch.kernels.wkv6 import ops as wk_ops
@@ -36,6 +41,8 @@ class KernelSpec:
 SPECS: dict[str, KernelSpec] = {
     "attention": KernelSpec("attention", fa_ops.flash_attention,
                             attention_ref_bshd, fa_ops.check_contract),
+    "matmul_int8": KernelSpec("matmul_int8", im_ops.int8_matmul,
+                              int8_matmul_ref, im_ops.check_contract),
     "ssm_scan": KernelSpec("ssm_scan", ss_ops.ssm_scan, ssm_scan_ref,
                            ss_ops.check_contract),
     "wkv6": KernelSpec("wkv6", wk_ops.wkv6, wkv6_ref_bthk,
@@ -71,6 +78,9 @@ def call_op(name: str, srcs, attrs) -> Any:
     if name == "attention":
         return call("attention", *srcs, impl=attrs.get("impl"),
                     causal=bool(attrs.get("causal", True)))
+    if name == "matmul_int8":
+        return call("matmul_int8", *srcs, impl=attrs.get("impl"),
+                    out_dtype=torch_dtype(attrs.get("out_dtype", "float32")))
     return call(name, *srcs, impl=attrs.get("impl"))
 
 

@@ -1,11 +1,15 @@
 """Parameter specs and norms shared by the model modules (the port's
 counterpart of ``repro.models.common``: ``ParamSpec`` without the sharding
-axes, since the port runs on one device, and ``group_norm``)."""
+axes, since the port runs on one device, ``draw_param`` and
+``group_norm``)."""
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
+
+from repro_torch.dtypes import torch_dtype
 
 
 class ParamSpec(NamedTuple):
@@ -13,6 +17,34 @@ class ParamSpec(NamedTuple):
     dtype: str
     init: str = "normal"      # normal | zeros | ones | embed | decay | uniform
     scale: float = 1.0
+
+
+def draw_param(s: ParamSpec, gen: torch.Generator,
+               dev: torch.device) -> torch.Tensor:
+    """One parameter from ``gen`` on ``dev``, following the JAX package's
+    init kinds: ones, zeros, uniform (U(-1, 1) * scale), decay (-6 + 5
+    U(0, 1), the rwkv decay base), embed (normal, std d^-1/2) and normal
+    (normal truncated at +-3, std scale / sqrt(fan_in)). The values differ
+    from the JAX package's (another generator); parity tests carry weights
+    across instead."""
+    dt = torch_dtype(s.dtype)
+    if s.init == "zeros":
+        return torch.zeros(s.shape, dtype=dt, device=dev)
+    if s.init == "ones":
+        return torch.ones(s.shape, dtype=dt, device=dev)
+    if s.init == "uniform":
+        v = torch.rand(s.shape, generator=gen, device=dev) * 2.0 - 1.0
+        return (v * s.scale).to(dt)
+    if s.init == "decay":
+        v = torch.rand(s.shape, generator=gen, device=dev)
+        return (-6.0 + 5.0 * v).to(dt)
+    if s.init == "embed":
+        v = torch.randn(s.shape, generator=gen, device=dev)
+        return (v * s.shape[-1] ** -0.5).to(dt)
+    fan_in = s.shape[-2] if len(s.shape) >= 2 else s.shape[-1]
+    v = torch.empty(s.shape, device=dev)
+    torch.nn.init.trunc_normal_(v, 0.0, 1.0, -3.0, 3.0, generator=gen)
+    return (v * (s.scale / math.sqrt(max(1, fan_in)))).to(dt)
 
 
 def group_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,

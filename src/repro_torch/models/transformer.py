@@ -9,15 +9,13 @@ and ``params_from_jax`` to carry the JAX package's parameters across.
 """
 from __future__ import annotations
 
-import math
-
 import numpy as np
 import torch
 
 from repro_torch import device as device_mod
 from repro_torch.configs.base import ModelConfig
-from repro_torch.dtypes import as_tensor, torch_dtype
-from repro_torch.models.common import ParamSpec
+from repro_torch.dtypes import as_tensor
+from repro_torch.models.common import ParamSpec, draw_param
 from repro_torch.models.mamba import mamba_specs
 from repro_torch.models.rwkv6 import rwkv_specs
 
@@ -75,41 +73,13 @@ def model_specs(cfg: ModelConfig) -> dict:
 
 def init_params(cfg: ModelConfig, seed: int, device="cuda") -> dict:
     """Draw parameters from ``seed`` with a ``torch.Generator`` on
-    ``device``, following the JAX package's init kinds: ones, zeros,
-    uniform (U(-1, 1) * scale), decay (-6 + 5 U(0, 1), the rwkv decay
-    base), embed (normal, std d^-1/2) and normal
-    (normal truncated at +-3, std scale / sqrt(fan_in)). The values differ
-    from the JAX package's (another generator); parity tests carry weights
-    across instead."""
+    ``device``, one spec after another in name order (``draw_param`` has
+    the init kinds)."""
     dev = device_mod.resolve(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
     specs = model_specs(cfg)
-    out = {}
-    for name in sorted(specs):
-        s = specs[name]
-        dt = torch_dtype(s.dtype)
-        if s.init == "zeros":
-            v = torch.zeros(s.shape, dtype=dt, device=dev)
-        elif s.init == "ones":
-            v = torch.ones(s.shape, dtype=dt, device=dev)
-        elif s.init == "uniform":
-            v = torch.rand(s.shape, generator=gen, device=dev) * 2.0 - 1.0
-            v = (v * s.scale).to(dt)
-        elif s.init == "decay":
-            v = torch.rand(s.shape, generator=gen, device=dev)
-            v = (-6.0 + 5.0 * v).to(dt)
-        elif s.init == "embed":
-            v = torch.randn(s.shape, generator=gen, device=dev)
-            v = (v * s.shape[-1] ** -0.5).to(dt)
-        else:
-            fan_in = s.shape[-2] if len(s.shape) >= 2 else s.shape[-1]
-            v = torch.empty(s.shape, device=dev)
-            torch.nn.init.trunc_normal_(v, 0.0, 1.0, -3.0, 3.0,
-                                        generator=gen)
-            v = (v * (s.scale / math.sqrt(max(1, fan_in)))).to(dt)
-        out[name] = v
-    return out
+    return {name: draw_param(specs[name], gen, dev) for name in sorted(specs)}
 
 
 def params_from_jax(np_params: dict, device="cuda") -> dict:

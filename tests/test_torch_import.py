@@ -27,6 +27,9 @@ def test_port_imports_no_jax_no_ml_dtypes_no_reference_package():
     assert "repro_torch.models.mamba" in modules
     assert "repro_torch.kernels.wkv6.ops" in modules
     assert "repro_torch.models.rwkv6" in modules
+    for name in ("kernels.int8_matmul.ops", "kernels.int8_matmul.ref",
+                 "models.resnet", "core.quant", "configs.resnet18"):
+        assert "repro_torch." + name in modules
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}:\n"
@@ -59,6 +62,9 @@ def _entry_points():
     from repro_torch.core.executor import Executor
     from repro_torch.core.rhal import make_eager_driver
     from repro_torch.core.rtpm import Platform
+    from repro_torch.configs.resnet18 import CONFIG
+    from repro_torch.core.quant import quantize_resnet
+    from repro_torch.models.resnet import init_resnet
     from repro_torch.models.transformer import init_params
     from repro_torch.serving.server import InferenceServer
     cfg = get_config("qwen2-1.5b-smoke")
@@ -68,12 +74,15 @@ def _entry_points():
         "Platform": Platform,
         "InferenceServer": InferenceServer,
         "init_params": lambda: init_params(cfg, 0),
+        "init_resnet": lambda: init_resnet(CONFIG.smoke(), 0),
+        "quantize_resnet": lambda: quantize_resnet(CONFIG.smoke(), {}, None),
     }
 
 
 @pytest.mark.parametrize("name", ["make_eager_driver", "Executor",
                                   "Platform", "InferenceServer",
-                                  "init_params"])
+                                  "init_params", "init_resnet",
+                                  "quantize_resnet"])
 def test_default_device_is_cuda_and_raises_without_it(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default does not raise")

@@ -13,6 +13,9 @@ import torch
 
 from repro_torch.kernels.flash_attention import ops
 from repro_torch.kernels.flash_attention.ref import attention_ref_bshd
+from repro_torch.kernels.int8_matmul import ops as i8_ops
+from repro_torch.kernels.int8_matmul.ref import (int8_matmul_i32_ref,
+                                                 int8_matmul_ref)
 from repro_torch.kernels.ssm_scan import ops as ss_ops
 from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
 from repro_torch.kernels.wkv6 import ops as wk_ops
@@ -172,3 +175,78 @@ def test_wkv6_kernel_refuses_unsupported_head_size_and_mixed_dtypes(cuda):
     z = torch.zeros(1, 8, 2, 16, device=cuda)
     with pytest.raises(ValueError, match="one dtype"):
         wk_ops.wkv6(z, z, z.bfloat16(), z, torch.zeros(2, 16, device=cuda))
+
+
+def _int8(rng, *shape, extreme=None):
+    a = (np.full(shape, extreme) if extreme is not None
+         else rng.randint(-127, 128, shape))
+    return torch.from_numpy(a.astype(np.int8))
+
+
+# (M, K, N): ResNet-18's CONV2D_I8 GEMMs at B=1 (stem, the stages' 3x3 and
+# 1x1/2 convs, the largest K), qwen2-1.5B's MLP at S=512 cut in N, and
+# ragged shapes that no tile divides, K = 1 and M = 1
+INT8_SHAPES = [(12544, 147, 64), (3136, 576, 64), (784, 1152, 128),
+               (196, 128, 256), (49, 4608, 512), (512, 1536, 896),
+               (129, 33, 131), (77, 1, 5), (1, 300, 257), (200, 37, 1),
+               (17, 4097, 19)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("out_dtype", ["int32", "float32", "bfloat16",
+                                       "float16"])
+@pytest.mark.parametrize("mkn", INT8_SHAPES)
+def test_int8_matmul_kernel_equals_plain_version_bit_for_bit(mkn, out_dtype,
+                                                             cuda, rng):
+    m, k, n = mkn
+    x, w = _int8(rng, m, k).to(cuda), _int8(rng, k, n).to(cuda)
+    scale = torch.from_numpy(rng.rand(n).astype(np.float32)).to(cuda)
+    before = i8_ops.int8_matmul.launches
+    if out_dtype == "int32":
+        got = i8_ops.int8_matmul_i32(x, w)
+        want = int8_matmul_i32_ref(x, w)
+    else:
+        dt = getattr(torch, out_dtype)
+        got = i8_ops.int8_matmul(x, w, scale, dt)
+        want = int8_matmul_ref(x, w, scale, dt)
+    torch.cuda.synchronize()
+    assert i8_ops.int8_matmul.launches == before + 1
+    assert got.dtype == want.dtype and tuple(got.shape) == (m, n)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("value", [127, -127, -128])
+def test_int8_matmul_kernel_at_extreme_values(value, cuda, rng):
+    """All operands at one extreme, K = 4608 (ResNet-18's largest): the
+    sums reach 127 * 127 * 4608 = 74,322,432, past fp32's 2^24."""
+    x = _int8(rng, 49, 4608, extreme=value).to(cuda)
+    w = _int8(rng, 4608, 512, extreme=-127 if value < 0 else 127).to(cuda)
+    got = i8_ops.int8_matmul_i32(x, w)
+    want = torch.full((49, 512), abs(value) * 127 * 4608, dtype=torch.int32,
+                      device=cuda)
+    assert torch.equal(got, want)
+    scale = torch.full((512,), 0.5, device=cuda)
+    assert torch.equal(i8_ops.int8_matmul(x, w, scale),
+                       int8_matmul_ref(x, w, scale))
+
+
+@pytest.mark.gpu
+def test_int8_matmul_kernel_on_strided_views(cuda, rng):
+    """Non-contiguous operands are copied to contiguous ones first."""
+    x = _int8(rng, 64, 96).to(cuda)[:, ::2]
+    w = _int8(rng, 96, 48).to(cuda).t()              # (48, 96)
+    assert torch.equal(i8_ops.int8_matmul_i32(x, w),
+                       int8_matmul_i32_ref(x, w))
+
+
+@pytest.mark.gpu
+def test_int8_matmul_kernel_refuses_mixed_devices_and_dtypes(cuda):
+    x = torch.zeros(4, 8, dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="several devices"):
+        i8_ops.int8_matmul_i32(x, torch.zeros(8, 4, dtype=torch.int8))
+    with pytest.raises(ValueError, match="must be int8"):
+        i8_ops.int8_matmul_i32(x, torch.zeros(8, 4, device=cuda))
+    with pytest.raises(ValueError, match="unsupported out_dtype"):
+        i8_ops.int8_matmul(x, x.t().contiguous(),
+                           torch.ones(4, device=cuda), torch.int32)
