@@ -10,8 +10,10 @@ Phases, each printing one JSON line with its times:
   2. every kernel against its plain PyTorch version on the card, at the
      served paths' shapes and at the other shapes it takes, with the
      kernel's, the plain version's and the PyTorch library call's times
-     (``flash_attention``, ``ssm_scan``, ``wkv6``, then ``int8_matmul``, bit
-     for bit);
+     (``flash_attention``, also at its tile boundaries and with large
+     scores, timed by CUDA events and by ``torch.profiler``'s device time
+     beside ``scaled_dot_product_attention``; ``ssm_scan``, ``wkv6``, then
+     ``int8_matmul``, bit for bit);
   3. a two-layer full-width fp32 program of each served model (qwen2-1.5B,
      hymba-1.5B, then rwkv6-1.6B): the linked run with the kernels against
      the same program with ``impl="ref"`` on every kernel op;
@@ -62,7 +64,8 @@ HBM_BYTES_PER_S = 3.35e12            # H100 SXM device memory
 PEAK_OPS_PER_S = {"bfloat16": 989e12, "float16": 989e12,   # tensor cores
                   "float32": 67e12,                  # no TF32: CUDA cores
                   "int8": 1979e12}                   # tensor cores
-TOLERANCE = {"float32": 2e-6, "bfloat16": 2e-2}            # test_kernels.py:35
+TOLERANCE = {"float32": 2e-6, "bfloat16": 2e-2,            # test_kernels.py:35
+             "float16": 2e-2}
 SSM_TOLERANCE = {"float32": 2e-5, "bfloat16": 2e-2}        # test_kernels.py:88
 WKV_TOLERANCE = {"float32": 5e-4,                          # test_kernels.py:60
                  "bfloat16": 3e-2}     # of max |y|: test_conformance.py:572
@@ -98,6 +101,28 @@ def cuda_ms(torch, fn, iters: int = 50, warmup: int = 5) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def profiled_device_ms(torch, fn, iters: int = 50, warmup: int = 5):
+    """Mean device time of one call and the names of what ran: the
+    durations of every kernel and copy that ``torch.profiler`` records over
+    ``iters`` calls, summed, over ``iters``. Unlike ``cuda_ms`` it leaves
+    out the host's time between launches. (None, []) when the profiler
+    records no device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    us = sum(e.time_range.elapsed_us() for e in events)
+    return (us / iters / 1e3 if us else None,
+            sorted({e.name[:120] for e in events}))
 
 
 def attention_bound(b, s, sk, h, hkv, d, dtype: str, causal: bool):
@@ -173,12 +198,30 @@ def phase_attention(torch, seed: int) -> dict:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
 
-    def inputs(b, s, sk, h, hkv, d, dtype):
+    def inputs(b, s, sk, h, hkv, d, dtype, q_scale=1.0):
         dt = getattr(torch, dtype)
-        return [torch.randn(shape, generator=gen, device="cuda").to(dt)
-                for shape in ((b, s, h, d), (b, sk, hkv, d), (b, sk, hkv, d))]
+        q, k, v = [torch.randn(shape, generator=gen, device="cuda")
+                   for shape in ((b, s, h, d), (b, sk, hkv, d),
+                                 (b, sk, hkv, d))]
+        return [(q * q_scale).to(dt), k.to(dt), v.to(dt)]
 
-    cases = []                     # (b, s, sk, h, hkv, d, dtype, causal)
+    # (b, s, sk, h, hkv, d, dtype, causal[, q scale])
+    served = ((1, 512, 512, 12, 2, 128), (1, 512, 512, 25, 5, 64))
+    cases = [(*shape, "float16", True) for shape in served]
+    # S or Sk at the 64-row/64-key tile boundaries and one past them
+    for dtype in ("bfloat16", "float16", "float32"):
+        for causal in (True, False):
+            cases += [(1, n, n, 4, 2, d, dtype, causal)
+                      for n, d in ((1, 64), (63, 128), (64, 64), (65, 16),
+                                   (127, 128), (129, 64))]
+            cases += [(1, 127, 129, 4, 2, 128, dtype, causal),
+                      (1, 129, 127, 4, 2, 64, dtype, causal),
+                      (1, 1, 129, 4, 2, 128, dtype, causal),
+                      (1, 129, 1, 4, 2, 16, dtype, causal)]
+    # q scaled by 30: scores near +-100 drive the running max and the
+    # rounding of p to the value dtype
+    cases += [(*shape, dtype, causal, 30.0) for shape in served
+              for dtype in ("bfloat16", "float16") for causal in (True, False)]
     for dtype in ("bfloat16", "float32"):
         cases += [(1, 512, 512, 12, 2, 128, dtype, True),   # the slice
                   (1, 512, 512, 25, 5, 64, dtype, True),    # the hybrid one
@@ -194,8 +237,9 @@ def phase_attention(torch, seed: int) -> dict:
     worst = 0.0
     results = []
     for case in cases:
-        b, s, sk, h, hkv, d, dtype, causal = case
-        q, k, v = inputs(b, s, sk, h, hkv, d, dtype)
+        b, s, sk, h, hkv, d, dtype, causal = case[:8]
+        q_scale = case[8] if len(case) > 8 else 1.0
+        q, k, v = inputs(b, s, sk, h, hkv, d, dtype, q_scale)
         out = flash_attention(q, k, v, causal=causal).float()
         ref = attention_ref_bshd(q, k, v, causal=causal).float()
         torch.cuda.synchronize()
@@ -206,9 +250,13 @@ def phase_attention(torch, seed: int) -> dict:
                                  f"beyond atol=rtol={tol}")
         worst = max(worst, err)
         results.append({"shape": [b, s, sk, h, hkv, d], "dtype": dtype,
-                        "causal": causal, "max_abs_err": err})
+                        "causal": causal, "q_scale": q_scale,
+                        "max_abs_err": err})
 
-    # times at each served path's shape: bf16, causal, Sk = S
+    # times at each served path's shape: bf16, causal, Sk = S. "ms" and
+    # "library_ms" are CUDA events around 50 calls (host time between
+    # launches included); "device_ms" and "library_device_ms" the device
+    # time the profiler records over 50 calls (every kernel SDPA launches).
     timed = {}
     for model, (b, s, h, hkv, d) in ATTENTION_SHAPES.items():
         q, k, v = inputs(b, s, s, h, hkv, d, "bfloat16")
@@ -219,11 +267,19 @@ def phase_attention(torch, seed: int) -> dict:
                 is_causal=True, enable_gqa=True)
         bound_ms, bound_by = attention_bound(b, s, s, h, hkv, d, "bfloat16",
                                              True)
+
+        def kernel():
+            return flash_attention(q, k, v)
+        library_device_ms, library_kernels = profiled_device_ms(torch,
+                                                                library)
         timed[model] = {
             "shape": [b, s, s, h, hkv, d], "dtype": "bfloat16",
-            "ms": cuda_ms(torch, lambda: flash_attention(q, k, v)),
+            "ms": cuda_ms(torch, kernel),
+            "device_ms": profiled_device_ms(torch, kernel)[0],
             "plain_ms": cuda_ms(torch, lambda: attention_ref_bshd(q, k, v)),
             "library_ms": cuda_ms(torch, library),
+            "library_device_ms": library_device_ms,
+            "library_kernels": library_kernels,
             "library_max_abs_err": (
                 library().transpose(1, 2).float()
                 - attention_ref_bshd(q, k, v).float()).abs().max().item(),
@@ -235,9 +291,12 @@ def phase_attention(torch, seed: int) -> dict:
             "source": "src/repro_torch/kernels/flash_attention/csrc/"
                       "flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention/kernel.py:69",
+            "design": "mma.sync bf16/f16, fp32 CUDA cores",
             "max_abs_err": worst, "ms": first["ms"],
+            "device_ms": first["device_ms"],
             "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
             "bound_by": first["bound_by"], "library_ms": first["library_ms"],
+            "library_device_ms": first["library_device_ms"],
             "timed_shape": first["shape"], "by_path": timed}
 
 
@@ -1066,7 +1125,8 @@ def main() -> int:
          nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda,
          build_s=info["seconds"], built=info["built"],
          ptxas=[ln.strip() for ln in info["ptxas"].splitlines()
-                if "registers" in ln or "Compiling" in ln])
+                if "registers" in ln or "Compiling" in ln
+                or "spill" in ln])
 
     # 2. kernels against their plain versions
     rows = [phase_attention(torch, args.seed),

@@ -1,9 +1,10 @@
 """Public wrapper for the flash-attention kernel, layout (B, S, H, D).
 
 On a CUDA tensor it launches the hand-written kernel
-(``csrc/flash_attention.cu``) on the current stream, or raises; on a CPU
-tensor it computes the plain version (``ref.py``). Nothing falls back from
-one to the other. ``flash_attention.launches`` counts kernel launches.
+(``csrc/flash_attention.cu``: bf16/f16 on the tensor cores, fp32 on the CUDA
+cores) on the current stream, or raises; on a CPU tensor it computes the
+plain version (``ref.py``). Nothing falls back from one to the other.
+``flash_attention.launches`` counts kernel launches.
 """
 from __future__ import annotations
 
@@ -63,6 +64,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention: the kernel takes one dtype, got "
                          f"q {q.dtype}, k {k.dtype}, v {v.dtype}")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if q.dtype != torch.float32:
+        check_alignment(q, k, v)
     b, s, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     o = torch.empty_like(q)
@@ -78,3 +81,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_attention.launches = 0
+
+
+def check_alignment(q, k, v) -> None:
+    """The bf16/f16 kernel stages rows with 16-byte ``cp.async``: each
+    operand must start on a 16-byte boundary. (Its row strides, H*D and
+    Hkv*D elements, are multiples of 8 for every head_dim in HEAD_DIMS.) A
+    contiguous view at an odd storage offset fails here, as ``buf[1:]``
+    would."""
+    for name, a in (("q", q), ("k", k), ("v", v)):
+        if a.data_ptr() % 16:
+            raise ValueError(
+                f"flash_attention: {name} starts at a {a.data_ptr() % 16}-"
+                f"byte offset from a 16-byte boundary; the {a.dtype} kernel "
+                f"loads 16-byte rows (copy it with .clone())")

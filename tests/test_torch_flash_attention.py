@@ -111,3 +111,20 @@ def test_head_dim_outside_the_kernel_templates_raises(rng):
     q, k, v = (torch.from_numpy(a) for a in _inputs(rng, 1, 8, 2, 2, 32))
     with pytest.raises(ValueError, match="head_dim 32 not supported"):
         ops.flash_attention(q, k, v)
+
+
+@pytest.mark.parametrize("offset", [0, 1, 8])
+def test_alignment_check_of_the_16_bit_kernel(offset):
+    """The bf16/f16 kernel loads 16-byte rows: an operand that starts off a
+    16-byte boundary (a contiguous view at an odd storage offset) raises
+    before any launch."""
+    shape = (1, 8, 2, 16)
+    buf = torch.zeros(offset + int(np.prod(shape)), dtype=torch.bfloat16)
+    assert buf.data_ptr() % 16 == 0
+    q = buf[offset:].view(shape)
+    kv = torch.zeros(shape, dtype=torch.bfloat16)
+    if offset * buf.element_size() % 16:
+        with pytest.raises(ValueError, match="16-byte"):
+            ops.check_alignment(q, kv, kv)
+    else:
+        ops.check_alignment(q, kv, kv)

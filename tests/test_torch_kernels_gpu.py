@@ -42,13 +42,22 @@ def cuda():
     (1, 512, 512, 25, 5, 64),               # the hybrid slice (hymba-1.5B)
     # keys longer / shorter than the queries: the top-left causal limit
     # kpos <= qpos depends on both lengths
-    (1, 100, 300, 12, 2, 128), (1, 300, 100, 12, 2, 128)])
+    (1, 100, 300, 12, 2, 128), (1, 300, 100, 12, 2, 128),
+    # S or Sk at the 64-row/64-key tile boundaries and one past them
+    (1, 1, 1, 4, 2, 64), (1, 63, 63, 4, 2, 128), (1, 64, 64, 4, 2, 64),
+    (1, 65, 65, 4, 2, 16), (1, 127, 129, 4, 2, 128), (1, 129, 127, 4, 2, 64),
+    (1, 1, 129, 4, 2, 128), (1, 129, 1, 4, 2, 16), (1, 64, 65, 4, 1, 128),
+    # a 7th entry scales q: scores near +-100 drive the running max and
+    # the rounding of p to the value dtype
+    (1, 512, 512, 12, 2, 128, 30.0), (1, 129, 127, 25, 5, 64, 30.0)])
 def test_flash_attention_kernel_matches_plain_version(shape, causal, dtype,
                                                       cuda, rng):
-    b, s, sk, h, hkv, d = shape
+    b, s, sk, h, hkv, d = shape[:6]
+    q_scale = shape[6] if len(shape) > 6 else 1.0
     q, k, v = (torch.from_numpy(rng.randn(*shp).astype(np.float32))
                .to(cuda, getattr(torch, dtype))
                for shp in ((b, s, h, d), (b, sk, hkv, d), (b, sk, hkv, d)))
+    q = (q.float() * q_scale).to(q.dtype)
     before = ops.flash_attention.launches
     got = ops.flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
@@ -57,6 +66,42 @@ def test_flash_attention_kernel_matches_plain_version(shape, causal, dtype,
     want = attention_ref_bshd(q, k, v, causal=causal)
     tol = TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_flash_attention_kernel_is_deterministic(dtype, cuda, rng):
+    """Two launches on the same inputs give the same bits: the served logits
+    are held bit for bit against local runs."""
+    q, k, v = (torch.from_numpy(rng.randn(*shp).astype(np.float32))
+               .to(cuda, getattr(torch, dtype))
+               for shp in ((1, 200, 12, 128), (1, 200, 2, 128),
+                           (1, 200, 2, 128)))
+    first = ops.flash_attention(q, k, v)
+    second = ops.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_flash_attention_kernel_on_a_misaligned_view(dtype, cuda, rng):
+    """q at a storage offset of one element: the wrapper either computes
+    the right answer or raises ValueError; it never misreads."""
+    shape = (1, 100, 4, 64)
+    buf = torch.from_numpy(rng.randn(1 + int(np.prod(shape)))
+                           .astype(np.float32)).to(cuda, getattr(torch, dtype))
+    q = buf[1:].view(shape)
+    k, v = (torch.from_numpy(rng.randn(1, 100, 2, 64).astype(np.float32))
+            .to(cuda, getattr(torch, dtype)) for _ in range(2))
+    try:
+        got = ops.flash_attention(q, k, v)
+    except ValueError as e:
+        assert "16-byte" in str(e)
+        return
+    torch.testing.assert_close(
+        got.float(), attention_ref_bshd(q, k, v).float(), atol=TOL[dtype],
+        rtol=TOL[dtype])
 
 
 @pytest.mark.gpu
