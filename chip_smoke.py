@@ -88,6 +88,40 @@ def nvidia_smi() -> str:
         timeout=60, check=True).stdout.strip()
 
 
+def int8_matmul_sass() -> dict:
+    """The tensor-core check of the built library: for each instance of the
+    int8_matmul kernel (``<warps M, warps N, x in 16-byte rows, w in
+    16-byte rows>``), how many ``IMMA`` (integer mma) and ``IDP`` (dp4a)
+    instructions its SASS holds, from ``cuobjdump -sass``. Raises unless
+    every instance multiplies on the tensor cores only."""
+    import re
+    from repro_torch.kernels import build
+    from repro_torch.kernels.int8_matmul.ops import TILES
+    exe = Path(build.nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(exe), "-sass",
+                           str(build.BUILD_DIR / build.LIB_NAME)],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            args = re.search(
+                r"int8_matmul_kernelILi(\d+)ELi(\d+)ELb(\d)ELb(\d)E", fn)
+            name = "<%s,%s,%s,%s>" % args.groups() if args else None
+            if name:
+                counts[name] = {"IMMA": 0, "IDP": 0}
+        elif name:
+            for op in ("IMMA", "IDP"):
+                if re.search(rf"\b{op}\b", line):
+                    counts[name][op] += 1
+    if len(counts) != 4 * len(TILES) or any(c["IMMA"] == 0 or c["IDP"]
+                                            for c in counts.values()):
+        raise AssertionError(f"int8_matmul instances not on the tensor "
+                             f"cores only: {counts}")
+    return counts
+
+
 def cuda_ms(torch, fn, iters: int = 50, warmup: int = 5) -> float:
     """Mean device time of one call, from CUDA events around ``iters``."""
     for _ in range(warmup):
@@ -358,19 +392,22 @@ def phase_ssm_scan(torch, seed: int) -> dict:
 
     da, bx, c = inputs(*SSM_SHAPE, "float32")
     kernel_ms = cuda_ms(torch, lambda: ssm_scan(da, bx, c))
+    device_ms = profiled_device_ms(torch, lambda: ssm_scan(da, bx, c))[0]
     plain_ms = cuda_ms(torch, lambda: ssm_scan_ref(da, bx, c), iters=5,
                        warmup=1)
     bound_ms, bound_by, nbytes = ssm_scan_bound(*SSM_SHAPE, "float32")
     note = "no single PyTorch call computes a selective scan"
     emit("kernels_vs_plain", kernel="ssm_scan", cases=results,
-         kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=None,
+         kernel_ms=kernel_ms, device_ms=device_ms, plain_ms=plain_ms,
+         library_ms=None,
          library_note=note, bound_ms=bound_ms, bound_by=bound_by,
          bound_bytes=nbytes, timed_shape=list(SSM_SHAPE),
          timed_dtype="float32")
     return {"name": "ssm_scan", "route": "cuda",
             "source": "src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu",
             "replaces": "src/repro/kernels/ssm_scan/kernel.py:42",
-            "max_abs_err": worst, "ms": kernel_ms, "plain_ms": plain_ms,
+            "max_abs_err": worst, "ms": kernel_ms, "device_ms": device_ms,
+            "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
             "library_note": note, "timed_shape": list(SSM_SHAPE)}
 
@@ -441,19 +478,22 @@ def phase_wkv6(torch, seed: int) -> dict:
 
     args = inputs(*WKV_SHAPE, "float32")
     kernel_ms = cuda_ms(torch, lambda: wkv6(*args))
+    device_ms = profiled_device_ms(torch, lambda: wkv6(*args))[0]
     plain_ms = cuda_ms(torch, lambda: wkv6_ref_bthk(*args), iters=5,
                        warmup=1)
     bound_ms, bound_by, nbytes, ops = wkv6_bound(*WKV_SHAPE, "float32")
     note = "no single PyTorch call computes the WKV recurrence"
     emit("kernels_vs_plain", kernel="wkv6", cases=results,
-         kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=None,
+         kernel_ms=kernel_ms, device_ms=device_ms, plain_ms=plain_ms,
+         library_ms=None,
          library_note=note, bound_ms=bound_ms, bound_by=bound_by,
          bound_bytes=nbytes, bound_operations=ops,
          timed_shape=list(WKV_SHAPE), timed_dtype="float32")
     return {"name": "wkv6", "route": "cuda",
             "source": "src/repro_torch/kernels/wkv6/csrc/wkv6.cu",
             "replaces": "src/repro/kernels/wkv6/kernel.py:68",
-            "max_abs_err": worst, "ms": kernel_ms, "plain_ms": plain_ms,
+            "max_abs_err": worst, "ms": kernel_ms, "device_ms": device_ms,
+            "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
             "library_note": note, "timed_shape": list(WKV_SHAPE)}
 
@@ -507,9 +547,9 @@ def phase_int8_matmul(torch, seed: int) -> dict:
     """Phase 2d: int8_matmul against its plain version on the card, bit for
     bit in every epilogue."""
     from repro_torch.configs.resnet18 import CONFIG
-    from repro_torch.kernels.int8_matmul.ops import (int8_matmul,
+    from repro_torch.kernels.int8_matmul.ops import (TILES, int8_matmul,
                                                      int8_matmul_i32,
-                                                     splits_for)
+                                                     plan_for)
     from repro_torch.kernels.int8_matmul.ref import (int8_matmul_i32_ref,
                                                      int8_matmul_ref)
     gen = torch.Generator(device="cuda")
@@ -553,6 +593,46 @@ def phase_int8_matmul(torch, seed: int) -> dict:
                                  f"to the plain version")
         results.append({"mkn": [m, k, n], "out": out, "extreme": extreme,
                         "bit_identical": True})
+    # x at an odd storage offset (the byte-load instance), and a split K
+    # launched twice: the same bits both times
+    x, w, _ = operands(784, 1152 + 1, 128)
+    x = x.flatten()[1:1 + 784 * 1152].view(784, 1152)
+    w = w[1:]
+    first = int8_matmul_i32(x, w)
+    again = int8_matmul_i32(x, w)
+    torch.cuda.synchronize()
+    if not (torch.equal(first, int8_matmul_i32_ref(x, w))
+            and torch.equal(first, again)):
+        raise AssertionError("int8_matmul (784, 1152, 128) at a storage "
+                             "offset of 1, split K: not bit-identical")
+    results.append({"mkn": [784, 1152, 128], "out": "int32",
+                    "x_storage_offset": 1, "launched_twice": True,
+                    "bit_identical": True})
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    # every tile of the kernel at the MATMUL_INT8 shape, through the C entry
+    # point with the plan's choice overridden (splits 1): each bit for bit
+    # and timed by device time, to hold the plan's choice
+    from repro_torch.kernels import build
+    lib = build.library()
+    m, k, n = MATMUL_INT8_SHAPE
+    x, w, scale = operands(m, k, n)
+    want = int8_matmul_ref(x, w, scale)
+    tiles = {}
+    for code, (rows, cols) in enumerate(TILES):
+        got = torch.empty((m, n), device="cuda")
+
+        def launch(code=code, got=got):
+            build.check(lib, lib.aeg_int8_matmul(
+                x.data_ptr(), w.data_ptr(), scale.data_ptr(),
+                got.data_ptr(), None, m, n, k, code, 1, 0,
+                torch.cuda.current_stream().cuda_stream), "int8_matmul")
+        launch()
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"int8_matmul tile {rows}x{cols} at "
+                                 f"{MATMUL_INT8_SHAPE}: not bit-identical")
+        tiles[f"{rows}x{cols}"] = profiled_device_ms(torch, launch)[0]
 
     # times: the MATMUL_INT8 slice's shape, then ResNet-18's largest-M and
     # largest-K CONV2D_I8 GEMMs (the stem, s3's conv2)
@@ -577,36 +657,49 @@ def phase_int8_matmul(torch, seed: int) -> dict:
             def plain():
                 return int8_matmul_ref(x, w, scale)
         bound_ms, bound_by, nbytes, ops = int8_matmul_bound(m, k, n, out)
-        library_ms = library_wt_ms = None
+        library = {"library_ms": None, "library_device_ms": None,
+                   "library_ms_column_major_w": None,
+                   "library_device_ms_column_major_w": None}
         if int_mm_accepts(m, k, n):
-            library_ms = cuda_ms(torch, lambda: torch._int_mm(x, w))
             wt = w.t().contiguous().t()           # the same w, column-major
-            library_wt_ms = cuda_ms(torch, lambda: torch._int_mm(x, wt))
+            for suffix, ww in (("", w), ("_column_major_w", wt)):
+                def lib_call(ww=ww):
+                    return torch._int_mm(x, ww)
+                library["library_ms" + suffix] = cuda_ms(torch, lib_call)
+                library["library_device_ms" + suffix] = profiled_device_ms(
+                    torch, lib_call)[0]
+        tile, splits = plan_for(m, n, k, sms)
         timed[label] = {
             "mkn": [m, k, n], "out": out, "ms": cuda_ms(torch, kernel),
+            "device_ms": profiled_device_ms(torch, kernel)[0],
             "plain_ms": cuda_ms(torch, plain, iters=10, warmup=2),
-            "library_ms": library_ms,
-            "library_ms_column_major_w": library_wt_ms, "bound_ms": bound_ms,
+            **library, "bound_ms": bound_ms,
             "bound_by": bound_by, "bound_bytes": nbytes,
-            "bound_operations": ops,
-            "splits": splits_for(m, n, k, torch.cuda.get_device_properties(
-                0).multi_processor_count)}
+            "bound_operations": ops, "tile": list(TILES[tile]),
+            "splits": splits}
     note = ("torch._int_mm (cuBLAS, s8 -> s32: the int32 sums without the "
             "scaled epilogue) on the kernel's row-major w; it takes M > 16 "
-            "and K, N multiples of 8 only. library_ms_column_major_w: the "
-            "same call on a column-major copy of w made before the timing")
+            "and K, N multiples of 8 only. *_column_major_w: the same call "
+            "on a column-major copy of w made before the timing. device_ms: "
+            "torch.profiler's device time over 50 calls (a split K's memset "
+            "and scale kernel included)")
     emit("kernels_vs_plain", kernel="int8_matmul", cases=results,
-         timed=timed, library_note=note)
+         timed=timed, tiles_device_ms=tiles, library_note=note)
     first = timed["matmul_int8"]
     return {"name": "int8_matmul", "route": "cuda",
             "source": "src/repro_torch/kernels/int8_matmul/csrc/"
                       "int8_matmul.cu",
             "replaces": "src/repro/kernels/int8_matmul/kernel.py:39",
+            "design": "mma.sync m16n8k32 s8, cp.async ring",
             "max_abs_err": 0.0, "ms": first["ms"],
+            "device_ms": first["device_ms"],
             "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
             "bound_by": first["bound_by"], "library_ms": first["library_ms"],
+            "library_device_ms": first["library_device_ms"],
+            "library_device_ms_column_major_w": first[
+                "library_device_ms_column_major_w"],
             "library_note": note, "timed_shape": first["mkn"],
-            "by_shape": timed}
+            "by_shape": timed, "tiles_device_ms": tiles}
 
 
 def with_plain_kernels(prog):
@@ -1126,7 +1219,8 @@ def main() -> int:
          build_s=info["seconds"], built=info["built"],
          ptxas=[ln.strip() for ln in info["ptxas"].splitlines()
                 if "registers" in ln or "Compiling" in ln
-                or "spill" in ln])
+                or "spill" in ln or "smem" in ln],
+         int8_matmul_sass=int8_matmul_sass())
 
     # 2. kernels against their plain versions
     rows = [phase_attention(torch, args.seed),

@@ -123,7 +123,7 @@ def library() -> ctypes.CDLL:
                              vp]
     lib.aeg_wkv6.restype = i32
     lib.aeg_int8_matmul.argtypes = [vp, vp, vp, vp, vp, i32, i32, i32, i32,
-                                    i32, vp]
+                                    i32, i32, vp]
     lib.aeg_int8_matmul.restype = i32
     lib.aeg_cuda_error_string.argtypes = [i32]
     lib.aeg_cuda_error_string.restype = ctypes.c_char_p

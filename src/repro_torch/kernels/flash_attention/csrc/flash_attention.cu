@@ -721,12 +721,14 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, void* o,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16; bf16/f16 operands must
-// start on 16-byte boundaries. Returns a cudaError_t.
+// start on 16-byte boundaries; float32 takes B*H <= 65535 (its gridDim.y).
+// Returns a cudaError_t.
 extern "C" int aeg_flash_attention(const void* q, const void* k, const void* v,
                                    void* o, int B, int S, int Sk, int H,
                                    int Hkv, int D, int dtype, float scale,
                                    int causal, void* stream) {
-  if (B <= 0 || S <= 0 || Sk <= 0 || Hkv <= 0 || H % Hkv != 0)
+  if (B <= 0 || S <= 0 || Sk <= 0 || Hkv <= 0 || H % Hkv != 0 ||
+      (dtype == 0 && (long long)B * H > 65535))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {

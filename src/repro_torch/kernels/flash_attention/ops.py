@@ -16,6 +16,7 @@ from repro_torch.kernels.common import (DTYPE_CODE, check_float_dtype,
 from repro_torch.kernels.flash_attention.ref import attention_ref_bshd
 
 HEAD_DIMS = (16, 64, 128)         # the CUDA kernel's template instances
+MAX_GRID_Y = 65535                # the fp32 kernel puts B*H on gridDim.y
 
 
 def check_contract(q, k, v) -> None:
@@ -64,9 +65,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention: the kernel takes one dtype, got "
                          f"q {q.dtype}, k {k.dtype}, v {v.dtype}")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    if q.dtype != torch.float32:
-        check_alignment(q, k, v)
     b, s, h, d = q.shape
+    if q.dtype == torch.float32:
+        check_grid(b, h)
+    else:
+        # an operand off a 16-byte boundary is copied into a fresh (aligned)
+        # buffer, and the same kernel runs on the copy
+        q, k, v = (a if a.data_ptr() % 16 == 0 else a.clone()
+                   for a in (q, k, v))
+        check_alignment(q, k, v)
     sk, hkv = k.shape[1], k.shape[2]
     o = torch.empty_like(q)
     lib = build.library()
@@ -83,12 +90,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 flash_attention.launches = 0
 
 
+def check_grid(b: int, h: int) -> None:
+    """The fp32 kernel puts B*H on ``gridDim.y``, which stops at 65535."""
+    if b * h > MAX_GRID_Y:
+        raise ValueError(
+            f"flash_attention: the float32 kernel takes B*H <= {MAX_GRID_Y}, "
+            f"got B={b}, H={h}")
+
+
 def check_alignment(q, k, v) -> None:
     """The bf16/f16 kernel stages rows with 16-byte ``cp.async``: each
     operand must start on a 16-byte boundary. (Its row strides, H*D and
     Hkv*D elements, are multiples of 8 for every head_dim in HEAD_DIMS.) A
     contiguous view at an odd storage offset fails here, as ``buf[1:]``
-    would."""
+    would; ``flash_attention`` copies such an operand before it checks."""
     for name, a in (("q", q), ("k", k), ("v", v)):
         if a.data_ptr() % 16:
             raise ValueError(

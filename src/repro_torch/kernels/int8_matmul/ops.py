@@ -22,9 +22,11 @@ from repro_torch.kernels.common import DTYPE_CODE, FLOAT_DTYPES, check_rank
 from repro_torch.kernels.int8_matmul.ref import (int8_matmul_i32_ref,
                                                  int8_matmul_ref)
 
-_TILE_M = _TILE_N = 128        # the kernel's block tile
-_STEP_K = 32                   # its k step
-_MIN_STEPS_PER_SPLIT = 4       # k steps a split-K block takes at least
+# the kernel's block tiles, (rows, columns) of out, by their code at the C
+# interface, in the order the plan prefers them
+TILES = ((128, 64), (64, 64))
+_STEP_K = 64                   # the kernel's k step
+_MIN_STEPS_PER_SPLIT = 2       # k steps a split-K block takes at least
 
 
 def _dtype_name(dt: torch.dtype) -> str:
@@ -98,24 +100,40 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def splits_for(m: int, n: int, k: int, sms: int) -> int:
-    """How many ways the kernel splits K: enough blocks to give every SM
-    one where the output has fewer tiles than SMs, each split taking at
+def _tiles(m: int, n: int, code: int) -> int:
+    rows, cols = TILES[code]
+    return -(-m // rows) * -(-n // cols)
+
+
+def plan_for(m: int, n: int, k: int, sms: int) -> tuple:
+    """The kernel's tile plan, ``(tile code, K splits)``, a pure function
+    of the shape and the card's SM count. The larger tile is taken where it
+    still gives every SM a block. Where even the 64 x 64 tile leaves SMs
+    without a block, K is split to give every SM one, each split taking at
     least ``_MIN_STEPS_PER_SPLIT`` k steps, and no split left empty."""
-    tiles = -(-m // _TILE_M) * -(-n // _TILE_N)
+    for code in range(len(TILES)):
+        if _tiles(m, n, code) >= sms:
+            return code, 1
+    code = len(TILES) - 1
+    tiles = _tiles(m, n, code)
     steps = -(-k // _STEP_K)
     want = min(-(-sms // tiles), steps // _MIN_STEPS_PER_SPLIT)
     if want <= 1:
-        return 1
+        return code, 1
     per = -(-steps // want)                  # k steps a split takes
-    return -(-steps // per)
+    return code, -(-steps // per)
+
+
+def splits_for(m: int, n: int, k: int, sms: int) -> int:
+    """How many ways the kernel splits K (the plan's second half)."""
+    return plan_for(m, n, k, sms)[1]
 
 
 def _launch(x, w, scale, out, out_code: int) -> torch.Tensor:
     m, k = x.shape
     n = w.shape[1]
     x, w = x.contiguous(), w.contiguous()
-    splits = splits_for(m, n, k, _sm_count(x.device.index))
+    tile, splits = plan_for(m, n, k, _sm_count(x.device.index))
     acc = None
     if splits > 1 and out_code >= 0:
         acc = torch.empty((m, n), dtype=torch.int32, device=x.device)
@@ -124,7 +142,7 @@ def _launch(x, w, scale, out, out_code: int) -> torch.Tensor:
         err = lib.aeg_int8_matmul(
             x.data_ptr(), w.data_ptr(),
             None if scale is None else scale.data_ptr(), out.data_ptr(),
-            None if acc is None else acc.data_ptr(), m, n, k, splits,
+            None if acc is None else acc.data_ptr(), m, n, k, tile, splits,
             out_code, torch.cuda.current_stream(x.device).cuda_stream)
     build.check(lib, err, "int8_matmul")
     int8_matmul.launches += 1

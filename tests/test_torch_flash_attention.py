@@ -128,3 +128,15 @@ def test_alignment_check_of_the_16_bit_kernel(offset):
             ops.check_alignment(q, kv, kv)
     else:
         ops.check_alignment(q, kv, kv)
+
+
+@pytest.mark.parametrize("b,h,ok", [(1, 65535, True), (1, 65536, False),
+                                    (256, 256, False), (255, 257, True)])
+def test_grid_check_of_the_float32_kernel(b, h, ok):
+    """The fp32 kernel puts B*H on gridDim.y: past 65535 the wrapper
+    raises before any launch (and the C entry point refuses it too)."""
+    if ok:
+        ops.check_grid(b, h)
+    else:
+        with pytest.raises(ValueError, match="B\\*H <= 65535"):
+            ops.check_grid(b, h)

@@ -189,19 +189,65 @@ def test_wrapper_on_cpu_is_the_plain_version_and_launches_nothing(rng):
 
 
 @pytest.mark.parametrize("m,k,n,sms,want", [
-    (512, 1536, 8960, 132, 1),      # 280 tiles: no split
-    (12544, 147, 64, 132, 1),       # the stem: 98 tiles, 5 k steps
-    (49, 4608, 512, 132, 29),       # 4 tiles, 144 steps of 5
-    (196, 2304, 256, 132, 18),      # 4 tiles, 72 steps: 18 splits of 4
-    (1, 300, 257, 132, 2),          # 3 tiles, 10 steps: 2 splits of 5
-    (8, 64, 8, 132, 1)])            # 2 k steps: too few to split
+    (512, 1536, 8960, 132, 1),      # 560 tiles of 128 x 64: no split
+    (12544, 147, 64, 132, 1),       # the stem: 196 tiles of 64 x 64
+    (49, 4608, 512, 132, 15),       # 8 tiles, 72 steps: 15 splits of 5
+    (196, 2304, 256, 132, 9),       # 16 tiles, 36 steps: 9 splits of 4
+    (1, 300, 257, 132, 2),          # 5 tiles, 5 steps: 2 splits of 3
+    (8, 64, 8, 132, 1)])            # 1 k step: too few to split
 def test_split_k_choice(m, k, n, sms, want):
     got = ops.splits_for(m, n, k, sms)
     assert got == want
-    steps = -(-k // 32)
+    steps = -(-k // 64)
     per = -(-steps // got)
-    assert per >= 4 or got == 1          # every split takes 4 steps or more
+    assert per >= 2 or got == 1          # every split takes 2 steps or more
     assert (got - 1) * per < steps       # and none is empty
+
+
+# every GEMM the served paths give the kernel: MATMUL_INT8 and ResNet-18's
+# 20 CONV2D_I8 at 224 px, B=1 (11 distinct shapes), as (M, K, N)
+SERVED_GEMMS = [(512, 1536, 8960), (12544, 147, 64), (3136, 576, 64),
+                (784, 576, 128), (784, 64, 128), (784, 1152, 128),
+                (196, 1152, 256), (196, 128, 256), (196, 2304, 256),
+                (49, 2304, 512), (49, 256, 512), (49, 4608, 512)]
+
+
+@pytest.mark.parametrize("sms", [132, 114, 78])
+@pytest.mark.parametrize("mkn", SERVED_GEMMS)
+def test_tile_plan_of_every_served_shape(mkn, sms):
+    """Each served shape gets a tile of the kernel and a split of K that
+    leaves no split empty; a split is taken only where the output has
+    fewer tiles than SMs, and it never gives more blocks than needed to
+    give each SM one."""
+    m, k, n = mkn
+    tile, splits = ops.plan_for(m, n, k, sms)
+    assert 0 <= tile < len(ops.TILES)
+    rows, cols = ops.TILES[tile]
+    tiles = -(-m // rows) * -(-n // cols)
+    steps = -(-k // 64)
+    per = -(-steps // splits)
+    assert splits >= 1 and (splits - 1) * per < steps
+    if splits > 1:
+        assert tiles < sms and ops.TILES[tile] == ops.TILES[-1]
+        assert per >= 2
+        assert tiles * (splits - 1) < sms
+    assert ops.splits_for(m, n, k, sms) == splits
+
+
+def test_tile_plan_is_deterministic_and_covers_every_shape(rng):
+    """The plan is a pure function of (M, N, K, SM count): the same answer
+    on every call, and a valid one for any shape."""
+    shapes = [tuple(int(v) for v in rng.randint(1, 5000, 3))
+              for _ in range(300)] + [(1, 1, 1), (1, 4097, 1)]
+    for m, k, n in shapes:
+        first = ops.plan_for(m, n, k, 132)
+        assert all(ops.plan_for(m, n, k, 132) == first for _ in range(3))
+        tile, splits = first
+        steps = -(-k // 64)
+        assert 0 <= tile < len(ops.TILES)
+        assert 1 <= splits <= steps
+        assert (splits - 1) * -(-steps // splits) < steps
+    assert ops.plan_for(512, 8960, 1536, 132) == (0, 1)
 
 
 def _program(module, m, k, n, dtype):

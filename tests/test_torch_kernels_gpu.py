@@ -295,3 +295,138 @@ def test_int8_matmul_kernel_refuses_mixed_devices_and_dtypes(cuda):
     with pytest.raises(ValueError, match="unsupported out_dtype"):
         i8_ops.int8_matmul(x, x.t().contiguous(),
                            torch.ones(4, device=cuda), torch.int32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("operand", ["q", "k", "v"])
+def test_flash_attention_kernel_copies_a_misaligned_operand(operand, dtype,
+                                                            cuda, rng):
+    """An operand at a storage offset of one element is copied into an
+    aligned buffer and runs through the same hand kernel (one launch)."""
+    dt = getattr(torch, dtype)
+    shapes = {"q": (1, 100, 4, 64), "k": (1, 100, 2, 64),
+              "v": (1, 100, 2, 64)}
+    args = {}
+    for name, shape in shapes.items():
+        n = int(np.prod(shape))
+        buf = torch.from_numpy(rng.randn(1 + n).astype(np.float32)).to(cuda,
+                                                                       dt)
+        args[name] = (buf[1:].view(shape) if name == operand
+                      else buf[:n].view(shape))
+    assert args[operand].data_ptr() % 16
+    before = ops.flash_attention.launches
+    got = ops.flash_attention(args["q"], args["k"], args["v"])
+    torch.cuda.synchronize()
+    assert ops.flash_attention.launches == before + 1
+    torch.testing.assert_close(
+        got.float(), attention_ref_bshd(args["q"], args["k"],
+                                        args["v"]).float(),
+        atol=TOL[dtype], rtol=TOL[dtype])
+
+
+def _int8_case(rng, cuda, m, k, n, out_dtype):
+    """The kernel and the plain version on one random (m, k, n) case."""
+    x, w = _int8(rng, m, k).to(cuda), _int8(rng, k, n).to(cuda)
+    scale = torch.from_numpy(rng.rand(n).astype(np.float32)).to(cuda)
+    if out_dtype == "int32":
+        return i8_ops.int8_matmul_i32(x, w), int8_matmul_i32_ref(x, w)
+    dt = getattr(torch, out_dtype)
+    return (i8_ops.int8_matmul(x, w, scale, dt),
+            int8_matmul_ref(x, w, scale, dt))
+
+
+# the tile and fragment edges: m16/n8/k32 fragments, 64-row and 64-column
+# warp and block tiles, 64-deep k steps, and one past each
+EDGES = (1, 15, 16, 17, 31, 32, 33, 63, 64, 65, 127, 128, 129)
+EDGE_BASE = {"m": 65, "k": 97, "n": 33}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dim,value",
+                         [(d, v) for d in ("m", "k", "n") for v in EDGES]
+                         + [("k", 147), ("k", 4097)])
+def test_int8_matmul_kernel_at_tile_and_fragment_edges(dim, value, cuda,
+                                                       rng):
+    """One of M, K, N at an edge, the others ragged; every epilogue, bit
+    for bit."""
+    mkn = {**EDGE_BASE, dim: value}
+    for out_dtype in ("int32", "float32", "bfloat16", "float16"):
+        got, want = _int8_case(rng, cuda, mkn["m"], mkn["k"], mkn["n"],
+                               out_dtype)
+        torch.cuda.synchronize()
+        assert got.dtype == want.dtype, out_dtype
+        assert torch.equal(got, want), (mkn, out_dtype)
+
+
+# every CONV2D_I8 GEMM of ResNet-18 at 224 px, B=1, as (M, K, N)
+RESNET18_GEMMS = [(12544, 147, 64), (3136, 576, 64), (784, 576, 128),
+                  (784, 64, 128), (784, 1152, 128), (196, 1152, 256),
+                  (196, 128, 256), (196, 2304, 256), (49, 2304, 512),
+                  (49, 256, 512), (49, 4608, 512)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("out_dtype", ["int32", "float32", "bfloat16",
+                                       "float16"])
+@pytest.mark.parametrize("mkn", RESNET18_GEMMS)
+def test_int8_matmul_kernel_at_every_resnet18_gemm(mkn, out_dtype, cuda,
+                                                   rng):
+    got, want = _int8_case(rng, cuda, *mkn, out_dtype)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("out_dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("value", [127, -127, -128])
+def test_int8_matmul_kernel_at_extreme_values_in_16_bit_outputs(
+        value, out_dtype, cuda, rng):
+    """The extremes at 49 x 4608 x 512 (K split) through the 16-bit
+    epilogues, which round the sums past 2^24 once."""
+    x = _int8(rng, 49, 4608, extreme=value).to(cuda)
+    w = _int8(rng, 4608, 512, extreme=-127 if value < 0 else 127).to(cuda)
+    scale = torch.from_numpy(rng.rand(512).astype(np.float32)).to(cuda)
+    dt = getattr(torch, out_dtype)
+    assert torch.equal(i8_ops.int8_matmul(x, w, scale, dt),
+                       int8_matmul_ref(x, w, scale, dt))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("out_dtype", ["int32", "float32", "bfloat16",
+                                       "float16"])
+def test_int8_matmul_kernel_on_a_misaligned_x(out_dtype, cuda, rng):
+    """x at a storage offset of one byte: the byte-load instance."""
+    m, k, n = 196, 1152, 256
+    buf = _int8(rng, 1 + m * k).to(cuda)
+    x = buf[1:].view(m, k)
+    assert x.data_ptr() % 16
+    w = _int8(rng, k, n).to(cuda)
+    scale = torch.from_numpy(rng.rand(n).astype(np.float32)).to(cuda)
+    if out_dtype == "int32":
+        got, want = i8_ops.int8_matmul_i32(x, w), int8_matmul_i32_ref(x, w)
+    else:
+        dt = getattr(torch, out_dtype)
+        got = i8_ops.int8_matmul(x, w, scale, dt)
+        want = int8_matmul_ref(x, w, scale, dt)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("out_dtype", ["int32", "float32"])
+def test_int8_matmul_kernel_split_k_is_deterministic(out_dtype, cuda, rng):
+    """A split K (49 x 4608 x 512: the sums meet in int32 atomics) launched
+    twice gives the same bits, equal to the plain version."""
+    m, k, n = 49, 4608, 512
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert i8_ops.splits_for(m, n, k, sms) > 1
+    x, w = _int8(rng, m, k).to(cuda), _int8(rng, k, n).to(cuda)
+    scale = torch.from_numpy(rng.rand(n).astype(np.float32)).to(cuda)
+    if out_dtype == "int32":
+        runs = [i8_ops.int8_matmul_i32(x, w) for _ in range(2)]
+        want = int8_matmul_i32_ref(x, w)
+    else:
+        runs = [i8_ops.int8_matmul(x, w, scale) for _ in range(2)]
+        want = int8_matmul_ref(x, w, scale)
+    assert torch.equal(runs[0].view(torch.int32), runs[1].view(torch.int32))
+    assert torch.equal(runs[0], want)
