@@ -12,8 +12,11 @@ Phases, each printing one JSON line with its times:
      kernel's, the plain version's and the PyTorch library call's times
      (``flash_attention``, also at its tile boundaries and with large
      scores, timed by CUDA events and by ``torch.profiler``'s device time
-     beside ``scaled_dot_product_attention``; ``ssm_scan``, ``wkv6``, then
-     ``int8_matmul``, bit for bit);
+     beside ``scaled_dot_product_attention``; ``ssm_scan``; ``wkv6``, with
+     its states and output kernels' device times apart, the scratch and the
+     bytes its plan moves beside the bound's, and the in-block build of the
+     entering states timed against the carry kernel at T = 512 to 4096;
+     then ``int8_matmul``, bit for bit);
   3. a two-layer full-width fp32 program of each served model (qwen2-1.5B,
      hymba-1.5B, then rwkv6-1.6B): the linked run with the kernels against
      the same program with ``impl="ref"`` on every kernel op;
@@ -137,12 +140,10 @@ def cuda_ms(torch, fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def profiled_device_ms(torch, fn, iters: int = 50, warmup: int = 5):
-    """Mean device time of one call and the names of what ran: the
-    durations of every kernel and copy that ``torch.profiler`` records over
-    ``iters`` calls, summed, over ``iters``. Unlike ``cuda_ms`` it leaves
-    out the host's time between launches. (None, []) when the profiler
-    records no device activity."""
+def device_ms_by_kernel(torch, fn, iters: int = 50, warmup: int = 5):
+    """Mean device time of one call of ``fn`` by kernel name: the durations
+    ``torch.profiler`` records for each kernel and copy over ``iters``
+    calls, summed per name, over ``iters``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
@@ -153,10 +154,23 @@ def profiled_device_ms(torch, fn, iters: int = 50, warmup: int = 5):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    us = sum(e.time_range.elapsed_us() for e in events)
-    return (us / iters / 1e3 if us else None,
-            sorted({e.name[:120] for e in events}))
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = (by_name.get(e.name, 0.0)
+                               + e.time_range.elapsed_us() / iters / 1e3)
+    return by_name
+
+
+def profiled_device_ms(torch, fn, iters: int = 50, warmup: int = 5):
+    """Mean device time of one call and the names of what ran: the
+    durations of every kernel and copy that ``torch.profiler`` records over
+    ``iters`` calls, summed, over ``iters``. Unlike ``cuda_ms`` it leaves
+    out the host's time between launches. (None, []) when the profiler
+    records no device activity."""
+    by_name = device_ms_by_kernel(torch, fn, iters, warmup)
+    total = sum(by_name.values())
+    return total or None, sorted({name[:120] for name in by_name})
 
 
 def attention_bound(b, s, sk, h, hkv, d, dtype: str, causal: bool):
@@ -427,9 +441,56 @@ def wkv6_bound(b, t, h, kk, dtype: str):
                                        else "operations"), nbytes, ops
 
 
+def wkv6_plan_bytes(b, t, h, kk, dtype: str, inblock_chunks: int) -> dict:
+    """Bytes the chunked scan's kernels move, by kernel (each read and
+    write counted once, from L2 or device memory): the states kernel reads
+    k, v, lw and writes U_c (K*K fp32) and d_c (K fp32) per chunk and head
+    (the scratch); above ``inblock_chunks`` chunks the carry kernel reads
+    U_c and d_c and writes S_c in place, else each output block reads the
+    U_c and d_c of the chunks before its own; the output kernel reads r, k,
+    v, lw, u and its entering state and writes y."""
+    esize = 4 if dtype == "float32" else 2
+    nc = -(-t // 64)
+    stream = b * t * h * kk * esize
+    slot = (kk * kk + kk) * 4
+    scratch = b * h * nc * slot
+    if nc > inblock_chunks:
+        carry = b * h * nc * (slot + kk * kk * 4)
+        entering = b * h * nc * kk * kk * 4
+    else:
+        carry = 0
+        entering = b * h * nc * (nc - 1) // 2 * slot
+    states = 3 * stream + scratch
+    output = 5 * stream + h * kk * 4 + entering
+    return {"states": states, "carry": carry, "output": output,
+            "total": states + carry + output, "scratch": scratch}
+
+
+def wkv6_entry(torch, args, inblock_chunks: int):
+    """A call of the C entry point ``aeg_wkv6`` on ``args`` with the given
+    in-block cap (the wrapper passes ``ops.INBLOCK_CHUNKS``), and its
+    output, for timing the cap both ways."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.common import DTYPE_CODE
+    lib = build.library()
+    r, k, v, lw, u = args
+    b, t, h, kk = r.shape
+    y = torch.empty_like(r)
+    scratch = torch.empty(lib.aeg_wkv6_scratch_floats(b, t, h, kk),
+                          dtype=torch.float32, device=r.device)
+
+    def call():
+        build.check(lib, lib.aeg_wkv6(
+            r.data_ptr(), k.data_ptr(), v.data_ptr(), lw.data_ptr(),
+            u.data_ptr(), y.data_ptr(), scratch.data_ptr(), b, t, h, kk,
+            DTYPE_CODE[r.dtype], inblock_chunks,
+            torch.cuda.current_stream().cuda_stream), "wkv6")
+    return call, y
+
+
 def phase_wkv6(torch, seed: int) -> dict:
     """Phase 2c: wkv6 against its plain version on the card."""
-    from repro_torch.kernels.wkv6.ops import wkv6
+    from repro_torch.kernels.wkv6.ops import INBLOCK_CHUNKS, wkv6
     from repro_torch.kernels.wkv6.ref import wkv6_ref_bthk
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed + 4)
@@ -453,6 +514,7 @@ def phase_wkv6(torch, seed: int) -> dict:
              (1, 64, 4, 32, "float32", None, 0.5),     # K = 32
              (1, 64, 4, 16, "float32", 0.0, 0.5),      # no decay
              (1, 64, 4, 16, "float32", -80.0, 0.5),    # extreme decay
+             (1, 200, 4, 64, "float32", -80.0, 0.5),   # ... across chunks
              (1, 64, 4, 64, "float32", None, 0.0)]     # u = 0
     worst = 0.0
     results = []
@@ -478,24 +540,49 @@ def phase_wkv6(torch, seed: int) -> dict:
 
     args = inputs(*WKV_SHAPE, "float32")
     kernel_ms = cuda_ms(torch, lambda: wkv6(*args))
-    device_ms = profiled_device_ms(torch, lambda: wkv6(*args))[0]
+    by_name = device_ms_by_kernel(torch, lambda: wkv6(*args))
+    device_ms = sum(by_name.values())
+    kernel_device_ms = {part: sum(ms for name, ms in by_name.items()
+                                  if f"wkv6_{part}_kernel" in name)
+                        for part in ("states", "carry", "output")}
     plain_ms = cuda_ms(torch, lambda: wkv6_ref_bthk(*args), iters=5,
                        warmup=1)
     bound_ms, bound_by, nbytes, ops = wkv6_bound(*WKV_SHAPE, "float32")
+    plan = wkv6_plan_bytes(*WKV_SHAPE, "float32", INBLOCK_CHUNKS)
+    # the in-block cap both ways, through the C entry point: device time
+    # of the whole call with every entering state built in the output
+    # blocks (cap = 1 << 30) and with the carry kernel (cap = 0); the two
+    # give the same bits
+    cap_ms = {}
+    for t in (512, 704, 768, 1024, 2048, 4096):
+        targs = inputs(1, t, WKV_SHAPE[2], WKV_SHAPE[3], "float32")
+        ys = {}
+        for mode, cap in (("in_block", 1 << 30), ("carry", 0)):
+            call, ys[mode] = wkv6_entry(torch, targs, cap)
+            cap_ms[f"{t}_{mode}"] = profiled_device_ms(torch, call)[0]
+        if not torch.equal(ys["in_block"], ys["carry"]):
+            raise AssertionError(f"wkv6 T={t}: the in-block build and the "
+                                 f"carry kernel differ")
     note = "no single PyTorch call computes the WKV recurrence"
     emit("kernels_vs_plain", kernel="wkv6", cases=results,
-         kernel_ms=kernel_ms, device_ms=device_ms, plain_ms=plain_ms,
+         kernel_ms=kernel_ms, device_ms=device_ms,
+         kernel_device_ms=kernel_device_ms, plain_ms=plain_ms,
          library_ms=None,
          library_note=note, bound_ms=bound_ms, bound_by=bound_by,
-         bound_bytes=nbytes, bound_operations=ops,
-         timed_shape=list(WKV_SHAPE), timed_dtype="float32")
+         bound_bytes=nbytes, bound_operations=ops, plan_bytes=plan,
+         scratch_bytes=plan["scratch"], inblock_chunks=INBLOCK_CHUNKS,
+         cap_device_ms=cap_ms, timed_shape=list(WKV_SHAPE),
+         timed_dtype="float32")
     return {"name": "wkv6", "route": "cuda",
             "source": "src/repro_torch/kernels/wkv6/csrc/wkv6.cu",
             "replaces": "src/repro/kernels/wkv6/kernel.py:68",
+            "design": "chunked scan, states + output kernels, mma.sync "
+                      "m16n8k8 3xTF32",
             "max_abs_err": worst, "ms": kernel_ms, "device_ms": device_ms,
             "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-            "library_note": note, "timed_shape": list(WKV_SHAPE)}
+            "library_note": note, "timed_shape": list(WKV_SHAPE),
+            "kernel_device_ms": kernel_device_ms}
 
 
 def resnet_conv_gemms(cfg, batch: int = 1) -> dict:

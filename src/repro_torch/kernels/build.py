@@ -119,9 +119,11 @@ def library() -> ctypes.CDLL:
     lib.aeg_flash_attention.restype = i32
     lib.aeg_ssm_scan.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, i32, vp]
     lib.aeg_ssm_scan.restype = i32
-    lib.aeg_wkv6.argtypes = [vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32,
-                             vp]
+    lib.aeg_wkv6.argtypes = [vp, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32,
+                             i32, i32, vp]
     lib.aeg_wkv6.restype = i32
+    lib.aeg_wkv6_scratch_floats.argtypes = [i32, i32, i32, i32]
+    lib.aeg_wkv6_scratch_floats.restype = ctypes.c_longlong
     lib.aeg_int8_matmul.argtypes = [vp, vp, vp, vp, vp, i32, i32, i32, i32,
                                     i32, i32, vp]
     lib.aeg_int8_matmul.restype = i32

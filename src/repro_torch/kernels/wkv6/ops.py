@@ -1,9 +1,11 @@
 """Public wrapper for the RWKV-6 WKV kernel, layout (B, T, H, K).
 
-On a CUDA tensor it launches the hand-written kernel (``csrc/wkv6.cu``) on
-the current stream, or raises; on a CPU tensor it computes the plain
+On a CUDA tensor it launches the hand-written chunked scan (``csrc/wkv6.cu``)
+on the current stream, or raises; on a CPU tensor it computes the plain
 version (``ref.py``). Nothing falls back from one to the other.
-``wkv6.launches`` counts kernel launches.
+``wkv6.launches`` counts calls that launched the scan: each is two kernel
+launches (local chunk states, then outputs), three above ``INBLOCK_CHUNKS``
+chunks of 64 steps, where a carry kernel builds the entering states.
 """
 from __future__ import annotations
 
@@ -15,6 +17,10 @@ from repro_torch.kernels.common import (DTYPE_CODE, check_float_dtype,
 from repro_torch.kernels.wkv6.ref import wkv6_ref_bthk
 
 HEAD_SIZES = (8, 16, 32, 64)      # the CUDA kernel's template instances
+# Up to this many chunks each output block builds its entering state
+# itself; above, the carry kernel does. On an H100 the in-block build was
+# ahead up to 11 chunks (T = 704) and behind from 12 (PERF.md, "wkv6").
+INBLOCK_CHUNKS = 11
 
 
 def check_contract(r, k, v, lw, u) -> None:
@@ -59,15 +65,22 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not k.dtype == v.dtype == lw.dtype == r.dtype:
         raise ValueError(f"wkv6: the kernel takes one dtype for r, k, v, lw, "
                          f"got {r.dtype}, {k.dtype}, {v.dtype}, {lw.dtype}")
+    # the kernel stages rows by 16-byte cp.async: an operand off a 16-byte
+    # boundary (a view at an odd offset) is copied into a fresh buffer
     r, k, v, lw = (a.contiguous() for a in (r, k, v, lw))
+    r, k, v, lw = (a if a.data_ptr() % 16 == 0 else a.clone()
+                   for a in (r, k, v, lw))
     u = u.float().contiguous()        # exact, as the TPU kernel reads it
     b, t, h, kk = r.shape
     y = torch.empty_like(r)
     lib = build.library()
+    scratch = torch.empty(lib.aeg_wkv6_scratch_floats(b, t, h, kk),
+                          dtype=torch.float32, device=r.device)
     with torch.cuda.device(r.device):        # launch on the operands' card
         err = lib.aeg_wkv6(
             r.data_ptr(), k.data_ptr(), v.data_ptr(), lw.data_ptr(),
-            u.data_ptr(), y.data_ptr(), b, t, h, kk, DTYPE_CODE[r.dtype],
+            u.data_ptr(), y.data_ptr(), scratch.data_ptr(), b, t, h, kk,
+            DTYPE_CODE[r.dtype], INBLOCK_CHUNKS,
             torch.cuda.current_stream(r.device).cuda_stream)
     build.check(lib, err, "wkv6")
     wkv6.launches += 1

@@ -212,6 +212,84 @@ def test_wkv6_kernel_at_edge_decays_and_zero_bonus(case, cuda, rng):
                                atol=5e-4, rtol=5e-4)
 
 
+def _wkv6_check(rng, shape, dtype, cuda, lw_value=None):
+    """One wrapper call against the plain version, at the tolerance of
+    test_wkv6_kernel_matches_plain_version; returns the output."""
+    r, k, v, lw, u = _wkv6_inputs(rng, shape, dtype, cuda, lw_value)
+    got = wk_ops.wkv6(r, k, v, lw, u)
+    torch.cuda.synchronize()
+    assert got.dtype == r.dtype and tuple(got.shape) == shape
+    assert torch.isfinite(got).all()
+    want = wkv6_ref_bthk(r, k, v, lw, u).float()
+    if dtype == "float32":
+        torch.testing.assert_close(got, want, atol=5e-4, rtol=5e-4)
+    else:
+        tol = WKV_TOL[dtype] * want.abs().max().item()
+        torch.testing.assert_close(got.float(), want, atol=tol, rtol=0)
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("t", [1, 15, 16, 17, 63, 64, 65, 127, 128, 129,
+                               511, 512, 513, 1024, 4096])
+def test_wkv6_kernel_at_chunk_and_sub_chunk_edges(t, dtype, cuda, rng):
+    """T at each sub-chunk (16) and chunk (64) edge and either side of it;
+    T = 4096 (64 chunks) is past the in-block cap, so the carry kernel
+    builds the entering states."""
+    _wkv6_check(rng, (1, t, 4, 64), dtype, cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kk", wk_ops.HEAD_SIZES)
+def test_wkv6_kernel_at_each_head_size(kk, cuda, rng):
+    _wkv6_check(rng, (2, 130, 3, kk), "float32", cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lw_value", [-80.0, 0.0])
+def test_wkv6_kernel_at_edge_decays_across_chunks(lw_value, cuda, rng):
+    """lw = -80 (finite, every chunk and sub-chunk edge crossed) and lw = 0
+    (S the running sum over four chunks)."""
+    _wkv6_check(rng, (1, 200, 4, 64), "float32", cuda, lw_value)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_wkv6_kernel_with_several_batches_and_odd_heads(dtype, cuda, rng):
+    _wkv6_check(rng, (3, 150, 5, 64), dtype, cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t", [512, 4096])
+def test_wkv6_kernel_is_deterministic_and_counts_calls(t, cuda, rng):
+    """The same bits from two calls (no atomics, fixed orders), and
+    ``wkv6.launches`` moves by one a call, two or three kernels each."""
+    args = _wkv6_inputs(rng, (1, t, 32, 64), "float32", cuda)
+    before = wk_ops.wkv6.launches
+    first = wk_ops.wkv6(*args)
+    assert wk_ops.wkv6.launches == before + 1
+    second = wk_ops.wkv6(*args)
+    torch.cuda.synchronize()
+    assert wk_ops.wkv6.launches == before + 2
+    assert torch.equal(first, second)
+
+
+@pytest.mark.gpu
+def test_wkv6_kernel_on_a_misaligned_view(cuda, rng):
+    """An operand at a 4-byte offset from a 16-byte boundary is copied
+    before the 16-byte cp.async staging; the result is the aligned one's."""
+    r, k, v, lw, u = _wkv6_inputs(rng, (1, 100, 2, 16), "float32", cuda)
+    buf = torch.empty(r.numel() + 1, device=cuda)
+    shifted = buf[1:].view(r.shape)
+    shifted.copy_(r)
+    assert shifted.data_ptr() % 16 != 0
+    want = wk_ops.wkv6(r, k, v, lw, u)
+    got = wk_ops.wkv6(shifted, k, v, lw, u)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
 @pytest.mark.gpu
 def test_wkv6_kernel_refuses_unsupported_head_size_and_mixed_dtypes(cuda):
     z = torch.zeros(1, 8, 2, 12, device=cuda)

@@ -141,6 +141,14 @@ def test_shutdown_drains_queued_requests():
         gate, started = _gate_dispatcher(server)
         rids = [client.infer_async(**r) for r in requests]
         assert started.wait(10)
+        # the gated dispatcher holds every admitted request in the
+        # scheduler: wait until the handler thread has parsed all three,
+        # or the SHUTDOWN below may rightly refuse the ones not yet read
+        deadline = time.monotonic() + 10
+        while (server.scheduler.pending() < len(requests)
+               and time.monotonic() < deadline):
+            time.sleep(0.01)
+        assert server.scheduler.pending() == len(requests)
         acks = []
         other = Client(server.address)
         t = threading.Thread(target=lambda: acks.append(other.shutdown()))
