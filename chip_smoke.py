@@ -12,7 +12,10 @@ Phases, each printing one JSON line with its times:
      kernel's, the plain version's and the PyTorch library call's times
      (``flash_attention``, also at its tile boundaries and with large
      scores, timed by CUDA events and by ``torch.profiler``'s device time
-     beside ``scaled_dot_product_attention``; ``ssm_scan``; ``wkv6``, with
+     beside ``scaled_dot_product_attention``; ``ssm_scan``, its ring
+     instance held bit for bit against the row-wise one, with the plan, the
+     candidate plans' times, both instances' device times and registers,
+     and the CRC-32 of y at the hybrid shape; ``wkv6``, with
      its states and output kernels' device times apart, the scratch and the
      bytes its plan moves beside the bound's, and the in-block build of the
      entering states timed against the carry kernel at T = 512 to 4096;
@@ -361,8 +364,36 @@ def ssm_scan_bound(b, t, di, n, dtype: str):
                                        else "operations"), nbytes
 
 
-def phase_ssm_scan(torch, seed: int) -> dict:
-    """Phase 2b: ssm_scan against its plain version on the card."""
+def ptxas_of(ptxas: str, marker: str) -> list:
+    """Registers, spills and stack of each kernel whose mangled name holds
+    ``marker``, from the build's ``-Xptxas -v`` report (empty when this run
+    found the library built)."""
+    import re
+    found, cur = [], None
+    for line in ptxas.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = {"kernel": m.group(1)} if marker in m.group(1) else None
+            if cur:
+                found.append(cur)
+        elif cur is not None:
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", line)
+            if m:
+                cur.update(stack=int(m.group(1)),
+                           spill_stores=int(m.group(2)),
+                           spill_loads=int(m.group(3)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                cur["registers"] = int(m.group(1))
+    return found
+
+
+def phase_ssm_scan(torch, seed: int, ptxas: str) -> dict:
+    """Phase 2b: ssm_scan against its plain version on the card, and its
+    ring instance against the row-wise one bit for bit."""
+    import zlib
+    from repro_torch.kernels.ssm_scan import ops
     from repro_torch.kernels.ssm_scan.ops import ssm_scan
     from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
     gen = torch.Generator(device="cuda")
@@ -376,11 +407,19 @@ def phase_ssm_scan(torch, seed: int) -> dict:
               torch.full((b, t, di, n), da_value, device="cuda"))
         return [a.to(dt) for a in (da, rand(b, t, di, n), rand(b, t, n))]
 
+    def rowwise(da, bx, c):
+        b, _, di, n = da.shape
+        return ops.run_plan(da, bx, c, ops.rowwise_plan(b, di, n))
+
     cases = [(*SSM_SHAPE, "float32", None),        # the hybrid slice
              (*SSM_SHAPE, "bfloat16", None),
              (1, 37, 100, 16, "float32", None),    # ragged T, di % 32 != 0
              (1, 37, 100, 16, "bfloat16", None),
+             (3, 37, 101, 16, "float32", None),    # B=3, ragged lanes
+             (1, 1, 100, 16, "float32", None),     # T=1
+             (1, 4096, 100, 16, "float32", None),  # the ring wraps 256 times
              (2, 64, 32, 4, "float32", None),      # N=4 (smoke), B=2
+             (2, 64, 32, 4, "bfloat16", None),     # ... the row-wise instance
              (2, 128, 64, 8, "float32", None),
              (1, 64, 96, 32, "float32", None),
              (1, 64, 100, 16, "float32", 0.0),     # identity decay
@@ -390,7 +429,10 @@ def phase_ssm_scan(torch, seed: int) -> dict:
     for case in cases:
         b, t, di, n, dtype, da_value = case
         da, bx, c = inputs(b, t, di, n, dtype, da_value)
-        out = ssm_scan(da, bx, c).float()
+        plan = ops.plan_of(da, bx, c)
+        got = ssm_scan(da, bx, c)
+        same = torch.equal(got, rowwise(da, bx, c))
+        out = got.float()
         ref = ssm_scan_ref(da, bx, c).float()
         torch.cuda.synchronize()
         tol = SSM_TOLERANCE[dtype]
@@ -399,29 +441,66 @@ def phase_ssm_scan(torch, seed: int) -> dict:
                 and torch.allclose(out, ref, atol=tol, rtol=tol)):
             raise AssertionError(f"ssm_scan {case}: max |err| {err} beyond "
                                  f"atol=rtol={tol}")
+        if not same:
+            raise AssertionError(f"ssm_scan {case}: the {plan.instance} "
+                                 f"instance's bits differ from the row-wise "
+                                 f"instance's")
         worst = max(worst, err)
         results.append({"shape": [b, t, di, n], "dtype": dtype,
                         "da": "-exp(normal)" if da_value is None
-                        else da_value, "max_abs_err": err})
+                        else da_value, "instance": plan.instance,
+                        "same_bits_as_rowwise": same, "max_abs_err": err})
 
+    # the timed inputs come from their own generator, so the CRC of y is
+    # comparable across commits
+    gen.manual_seed(seed + 5)
     da, bx, c = inputs(*SSM_SHAPE, "float32")
+    plan = ops.plan_of(da, bx, c)
+    y = ssm_scan(da, bx, c)
+    same = torch.equal(y, rowwise(da, bx, c))
+    if plan.instance != ops.RING or not same:
+        raise AssertionError(f"ssm_scan at {SSM_SHAPE}: plan {plan}, same "
+                             f"bits as the row-wise instance: {same}")
+    crc = zlib.crc32(y.cpu().numpy().tobytes())
     kernel_ms = cuda_ms(torch, lambda: ssm_scan(da, bx, c))
     device_ms = profiled_device_ms(torch, lambda: ssm_scan(da, bx, c))[0]
+    rowwise_device_ms = profiled_device_ms(torch,
+                                           lambda: rowwise(da, bx, c))[0]
     plain_ms = cuda_ms(torch, lambda: ssm_scan_ref(da, bx, c), iters=5,
                        warmup=1)
     bound_ms, bound_by, nbytes = ssm_scan_bound(*SSM_SHAPE, "float32")
+    # the plan's candidates: each width, stages of 16 and 32 steps, depths
+    # 2 to 6, by CUDA events around 30 calls of the C entry point
+    b, _, di, n = SSM_SHAPE
+    candidates = []
+    for w in ops.RING_WIDTHS:
+        for s in (16, 32):
+            for depth in (2, 3, 4, 6):
+                cand = ops.ring_plan(b, di, n, 4, w, s, depth)
+                ms = cuda_ms(torch, lambda cand=cand: ops.run_plan(
+                    da, bx, c, cand), iters=30)
+                candidates.append({**cand._asdict(), "ms": ms})
     note = "no single PyTorch call computes a selective scan"
     emit("kernels_vs_plain", kernel="ssm_scan", cases=results,
-         kernel_ms=kernel_ms, device_ms=device_ms, plain_ms=plain_ms,
-         library_ms=None,
+         plan=plan._asdict(),
+         ptxas={"ring": ptxas_of(ptxas, "ssm_scan_ring_kernel"),
+                "rowwise": ptxas_of(ptxas, "ssm_scan_rowwise_kernel")},
+         kernel_ms=kernel_ms, device_ms=device_ms,
+         rowwise_device_ms=rowwise_device_ms,
+         bytes_per_s=nbytes / (device_ms / 1e3),
+         rowwise_bytes_per_s=nbytes / (rowwise_device_ms / 1e3),
+         bound_bytes_per_s=HBM_BYTES_PER_S,
+         same_bits_as_rowwise=same, y_crc32=crc,
+         candidates=candidates, plain_ms=plain_ms, library_ms=None,
          library_note=note, bound_ms=bound_ms, bound_by=bound_by,
          bound_bytes=nbytes, timed_shape=list(SSM_SHAPE),
          timed_dtype="float32")
     return {"name": "ssm_scan", "route": "cuda",
             "source": "src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu",
             "replaces": "src/repro/kernels/ssm_scan/kernel.py:42",
+            "design": "ring of cp.async stages in shared memory",
             "max_abs_err": worst, "ms": kernel_ms, "device_ms": device_ms,
-            "plain_ms": plain_ms,
+            "rowwise_device_ms": rowwise_device_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
             "library_note": note, "timed_shape": list(SSM_SHAPE)}
 
@@ -1311,7 +1390,7 @@ def main() -> int:
 
     # 2. kernels against their plain versions
     rows = [phase_attention(torch, args.seed),
-            phase_ssm_scan(torch, args.seed),
+            phase_ssm_scan(torch, args.seed, info["ptxas"]),
             phase_wkv6(torch, args.seed),
             phase_int8_matmul(torch, args.seed)]
 

@@ -117,8 +117,12 @@ def library() -> ctypes.CDLL:
                                         i32, i32, i32, ctypes.c_float, i32,
                                         vp]
     lib.aeg_flash_attention.restype = i32
-    lib.aeg_ssm_scan.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, i32, vp]
-    lib.aeg_ssm_scan.restype = i32
+    lib.aeg_ssm_scan_ring.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32,
+                                      i32, i32, i32, i32, vp]
+    lib.aeg_ssm_scan_ring.restype = i32
+    lib.aeg_ssm_scan_rowwise.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32,
+                                         i32, vp]
+    lib.aeg_ssm_scan_rowwise.restype = i32
     lib.aeg_wkv6.argtypes = [vp, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32,
                              i32, i32, vp]
     lib.aeg_wkv6.restype = i32

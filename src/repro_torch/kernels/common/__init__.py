@@ -1,9 +1,12 @@
 """Shared by the kernel wrappers (the port's counterpart of
 ``repro.kernels.common``): the floating dtypes every CUDA kernel takes,
-their codes at the C interface, and the shape/dtype checks whose
-``ValueError`` text matches the JAX package's. ``csrc/`` holds the CUDA
-side (element conversions and the error-string entry point)."""
+their codes at the C interface, the shape/dtype checks whose
+``ValueError`` text matches the JAX package's, and the card's SM count.
+``csrc/`` holds the CUDA side (element conversions and the error-string
+entry point)."""
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -21,3 +24,9 @@ def check_rank(kernel: str, name: str, a: torch.Tensor, rank: int) -> None:
     if a.ndim != rank:
         raise ValueError(f"{kernel}: operand {name!r} must be rank-{rank}, "
                          f"got shape {tuple(a.shape)}")
+
+
+@functools.cache
+def sm_count(index: int) -> int:
+    """The SM count of CUDA device ``index`` (the kernels' plans use it)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count

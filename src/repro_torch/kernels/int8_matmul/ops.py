@@ -12,13 +12,12 @@ either wrapper.
 """
 from __future__ import annotations
 
-import functools
-
 import torch
 
 from repro_torch.dtypes import name_of
 from repro_torch.kernels import build
-from repro_torch.kernels.common import DTYPE_CODE, FLOAT_DTYPES, check_rank
+from repro_torch.kernels.common import (DTYPE_CODE, FLOAT_DTYPES,
+                                        check_rank, sm_count)
 from repro_torch.kernels.int8_matmul.ref import (int8_matmul_i32_ref,
                                                  int8_matmul_ref)
 
@@ -95,11 +94,6 @@ def _device_of(*tensors) -> torch.device:
     return dev
 
 
-@functools.cache
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def _tiles(m: int, n: int, code: int) -> int:
     rows, cols = TILES[code]
     return -(-m // rows) * -(-n // cols)
@@ -133,7 +127,7 @@ def _launch(x, w, scale, out, out_code: int) -> torch.Tensor:
     m, k = x.shape
     n = w.shape[1]
     x, w = x.contiguous(), w.contiguous()
-    tile, splits = plan_for(m, n, k, _sm_count(x.device.index))
+    tile, splits = plan_for(m, n, k, sm_count(x.device.index))
     acc = None
     if splits > 1 and out_code >= 0:
         acc = torch.empty((m, n), dtype=torch.int32, device=x.device)

@@ -1,20 +1,47 @@
 """Public wrapper for the selective-scan kernel, layout (B, T, di, N).
 
-On a CUDA tensor it launches the hand-written kernel (``csrc/ssm_scan.cu``)
-on the current stream, or raises; on a CPU tensor it computes the plain
-version (``ref.py``). Nothing falls back from one to the other.
+On a CUDA tensor it launches one of the two hand-written instances of
+``csrc/ssm_scan.cu`` on the current stream, or raises: the ring instance
+(operands streamed through shared memory by asynchronous 16-byte copies)
+where its 16-byte rows allow, else the row-wise instance. ``plan_for``
+picks the instance and its launch shape. On a CPU tensor it computes the
+plain version (``ref.py``). Nothing falls back from one to the other.
 ``ssm_scan.launches`` counts kernel launches.
 """
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.common import (DTYPE_CODE, check_float_dtype,
-                                        check_rank)
+                                        check_rank, sm_count)
 from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
 
 STATE_SIZES = (4, 8, 16, 32)      # the CUDA kernel's template instances
+
+RING, ROWWISE = "ring", "rowwise"
+RING_WIDTHS = (128, 64, 32)       # lanes (threads) a ring block, widest first
+MIN_BLOCKS_PER_SM = 2             # the widest block that gives each SM this
+STAGE_STEPS = 32                  # S: steps a stage
+DEPTH = 2                         # D: stages in the ring, one of them loading
+SMEM_PER_BLOCK = 232448           # 227 KB: the most a ring block may have
+ROWWISE_THREADS, ROWWISE_STEPS = 128, 16      # ssm_scan.cu's NT and CH
+
+
+class Plan(NamedTuple):
+    """One launch: the instance, W lanes a block, S steps a stage, D stages
+    in the ring, the grid's blocks and a block's dynamic shared memory in
+    bytes. The row-wise instance has 128 lanes a block, holds 16 steps in
+    registers and no shared memory."""
+    instance: str
+    w: int
+    s: int
+    d: int
+    blocks: int
+    smem: int
 
 
 def check_contract(da, bx, c) -> None:
@@ -39,6 +66,82 @@ def check_contract(da, bx, c) -> None:
         raise ValueError(f"ssm_scan: zero-size state (di={di}, n={n})")
 
 
+def ring_smem(w: int, s: int, d: int, n: int, esize: int) -> int:
+    """A ring block's dynamic shared memory (``ring_smem_bytes`` in the
+    source): D slots of S x (2W + N) elements."""
+    return d * s * (2 * w + n) * esize
+
+
+def ring_plan(b: int, di: int, n: int, esize: int, w: int, s: int,
+              d: int) -> Plan:
+    """The ring instance at a given W, S and D."""
+    return Plan(RING, w, s, d, b * -(-di * n // w),
+                ring_smem(w, s, d, n, esize))
+
+
+def rowwise_plan(b: int, di: int, n: int) -> Plan:
+    return Plan(ROWWISE, ROWWISE_THREADS, ROWWISE_STEPS, 2,
+                b * -(-di * n // ROWWISE_THREADS), 0)
+
+
+@functools.cache
+def plan_for(b: int, di: int, n: int, dtype: torch.dtype, sms: int,
+             aligned: bool = True) -> Plan:
+    """The launch for one shape on a card of ``sms`` SMs, a pure function
+    of its arguments. ``aligned``: every operand's base is 16-byte aligned.
+
+    The ring needs rows of 16-byte units (N * element size a multiple of
+    16) and aligned bases; else the row-wise instance runs. W is the
+    widest of ``RING_WIDTHS`` that still gives every SM
+    ``MIN_BLOCKS_PER_SM`` blocks (else the narrowest). S and D are
+    ``STAGE_STEPS`` and ``DEPTH`` whatever T, so T does not enter: one
+    stage computes while the next one loads, which was the fastest on the
+    card at hymba's shape, where deeper rings were slower."""
+    esize = torch.empty((), dtype=dtype).element_size()
+    if not aligned or (n * esize) % 16:
+        return rowwise_plan(b, di, n)
+    lanes = di * n
+    w = next((w for w in RING_WIDTHS
+              if b * -(-lanes // w) >= MIN_BLOCKS_PER_SM * sms),
+             RING_WIDTHS[-1])
+    return ring_plan(b, di, n, esize, w, STAGE_STEPS, DEPTH)
+
+
+def aligned16(*tensors) -> bool:
+    """Every tensor's first element lies on a 16-byte boundary."""
+    return all(a.data_ptr() % 16 == 0 for a in tensors)
+
+
+def plan_of(da, bx, c) -> Plan:
+    """The plan the wrapper takes for these (contiguous, CUDA) operands."""
+    b, _, di, n = da.shape
+    return plan_for(b, di, n, da.dtype, sm_count(da.device.index),
+                    aligned16(da, bx, c))
+
+
+def run_plan(da, bx, c, plan: Plan) -> torch.Tensor:
+    """Launch ``plan``'s instance on contiguous CUDA operands of one dtype
+    and return y. It counts nothing: the wrapper counts its launches;
+    the card tests and ``chip_smoke.py`` call it to hold one instance or
+    plan against another."""
+    b, t, di, n = da.shape
+    y = torch.empty((b, t, di), dtype=da.dtype, device=da.device)
+    lib = build.library()
+    code = DTYPE_CODE[da.dtype]
+    with torch.cuda.device(da.device):       # launch on the operands' card
+        stream = torch.cuda.current_stream(da.device).cuda_stream
+        if plan.instance == RING:
+            err = lib.aeg_ssm_scan_ring(
+                da.data_ptr(), bx.data_ptr(), c.data_ptr(), y.data_ptr(), b,
+                t, di, n, code, plan.w, plan.s, plan.d, stream)
+        else:
+            err = lib.aeg_ssm_scan_rowwise(
+                da.data_ptr(), bx.data_ptr(), c.data_ptr(), y.data_ptr(), b,
+                t, di, n, code, stream)
+    build.check(lib, err, f"ssm_scan ({plan.instance})")
+    return y
+
+
 def ssm_scan(da: torch.Tensor, bx: torch.Tensor,
              c: torch.Tensor) -> torch.Tensor:
     """da/bx: (B,T,di,N) with da the per-step log-decay (<= 0); c: (B,T,N).
@@ -60,15 +163,7 @@ def ssm_scan(da: torch.Tensor, bx: torch.Tensor,
         raise ValueError(f"ssm_scan: the kernel takes one dtype, got "
                          f"da {da.dtype}, bx {bx.dtype}, c {c.dtype}")
     da, bx, c = da.contiguous(), bx.contiguous(), c.contiguous()
-    b, t, di, n = da.shape
-    y = torch.empty((b, t, di), dtype=da.dtype, device=da.device)
-    lib = build.library()
-    with torch.cuda.device(da.device):       # launch on the operands' card
-        err = lib.aeg_ssm_scan(
-            da.data_ptr(), bx.data_ptr(), c.data_ptr(), y.data_ptr(), b, t,
-            di, n, DTYPE_CODE[da.dtype],
-            torch.cuda.current_stream(da.device).cuda_stream)
-    build.check(lib, err, "ssm_scan")
+    y = run_plan(da, bx, c, plan_of(da, bx, c))
     ssm_scan.launches += 1
     return y
 

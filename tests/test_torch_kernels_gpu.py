@@ -121,6 +121,33 @@ def _ssm_inputs(rng, shape, dtype, da_value, cuda):
             for a in (da, rng.randn(b, t, di, n), rng.randn(b, t, n))]
 
 
+def _ssm_rowwise(da, bx, c):
+    """The row-wise instance on the same operands (the port's first kernel,
+    which the ring instance must equal bit for bit)."""
+    b, _, di, n = da.shape
+    return ss_ops.run_plan(da, bx, c, ss_ops.rowwise_plan(b, di, n))
+
+
+def _ssm_check(da, bx, c, instance=None):
+    """One wrapper call: the instance it took (``instance``, where given),
+    the same bits as the row-wise instance, and the plain version within
+    the dtype's tolerance. Returns the output."""
+    if instance is not None:
+        assert ss_ops.plan_of(da, bx, c).instance == instance
+    before = ss_ops.ssm_scan.launches
+    got = ss_ops.ssm_scan(da, bx, c)
+    rowwise = _ssm_rowwise(da, bx, c)
+    torch.cuda.synchronize()
+    assert ss_ops.ssm_scan.launches == before + 1
+    assert got.dtype == da.dtype and tuple(got.shape) == tuple(da.shape[:3])
+    assert torch.isfinite(got.float()).all()
+    assert torch.equal(got, rowwise)
+    tol = SSM_TOL[str(da.dtype).removeprefix("torch.")]
+    torch.testing.assert_close(got.float(), ssm_scan_ref(da, bx, c).float(),
+                               atol=tol, rtol=tol)
+    return got
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("shape", [
@@ -129,26 +156,99 @@ def _ssm_inputs(rng, shape, dtype, da_value, cuda):
     (2, 64, 32, 4), (2, 24, 12, 4),         # N=4 (smoke configs), B=2
     (1, 128, 64, 8), (1, 64, 96, 32)])
 def test_ssm_scan_kernel_matches_plain_version(shape, dtype, cuda, rng):
+    """The wrapper's instance (the ring, or the row-wise one for bf16/f16
+    rows of N = 4) equals the row-wise instance bit for bit and the plain
+    version within tolerance."""
     da, bx, c = _ssm_inputs(rng, shape, dtype, None, cuda)
-    before = ss_ops.ssm_scan.launches
-    got = ss_ops.ssm_scan(da, bx, c)
-    torch.cuda.synchronize()
-    assert ss_ops.ssm_scan.launches == before + 1
-    assert got.dtype == da.dtype and tuple(got.shape) == shape[:3]
-    tol = SSM_TOL[dtype]
-    torch.testing.assert_close(got.float(), ssm_scan_ref(da, bx, c).float(),
-                               atol=tol, rtol=tol)
+    ring = dtype == "float32" or shape[3] > 4
+    _ssm_check(da, bx, c, ss_ops.RING if ring else ss_ops.ROWWISE)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("da_value", [0.0, -80.0])
 def test_ssm_scan_kernel_at_identity_and_extreme_decay(da_value, cuda, rng):
     da, bx, c = _ssm_inputs(rng, (1, 64, 100, 16), "float32", da_value, cuda)
-    got = ss_ops.ssm_scan(da, bx, c)
+    _ssm_check(da, bx, c, ss_ops.RING)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("t", [1, 5, 15, 16, 17, 37, 100, 512, 4096])
+def test_ssm_scan_ring_at_stage_edges(t, dtype, cuda, rng):
+    """T = 1, below one stage (16 steps), either side of it, not a multiple
+    of it, the slice's 512 and 4096 (the ring wraps many times)."""
+    da, bx, c = _ssm_inputs(rng, (1, t, 100, 16), dtype, None, cuda)
+    _ssm_check(da, bx, c, ss_ops.RING)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("n", ss_ops.STATE_SIZES)
+def test_ssm_scan_ring_with_several_batches_and_ragged_lanes(n, dtype, cuda,
+                                                             rng):
+    """B = 3 and Di * N not a multiple of any ring width (Di = 101): the
+    last block's idle channels, and stages that never straddle two
+    sequences (T = 37)."""
+    da, bx, c = _ssm_inputs(rng, (3, 37, 101, n), dtype, None, cuda)
+    ring = dtype == "float32" or n > 4
+    _ssm_check(da, bx, c, ss_ops.RING if ring else ss_ops.ROWWISE)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(1, 512, 1600, 16), (2, 37, 101, 8),
+                                   (1, 100, 40, 32), (1, 77, 30, 4)])
+def test_ssm_scan_ring_plans_equal_the_rowwise_instance(shape, cuda, rng):
+    """Every width the plan chooses from, stages of 16 and 32 steps and
+    depths of 2 to 4, at fp32: the same bits as the row-wise instance. A
+    depth of 3 against 32 stages wraps the ring with T/S not a multiple
+    of D; a depth of 2 refills each slot right after it is read."""
+    da, bx, c = _ssm_inputs(rng, shape, "float32", None, cuda)
+    b, t, di, n = shape
+    want = _ssm_rowwise(da, bx, c)
+    assert ss_ops.plan_of(da, bx, c).instance == ss_ops.RING
+    for w in ss_ops.RING_WIDTHS:
+        for s in (max(16, n), 2 * max(16, n)):
+            for depth in (2, 3, 4):
+                plan = ss_ops.ring_plan(b, di, n, 4, w, s, depth)
+                if plan.smem > ss_ops.SMEM_PER_BLOCK:
+                    continue                # refused: see the test below
+                got = ss_ops.run_plan(da, bx, c, plan)
+                torch.cuda.synchronize()
+                assert torch.equal(got, want), plan
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_ssm_scan_kernel_on_a_misaligned_view(dtype, cuda, rng):
+    """da at a storage offset of one element: contiguous, but off the
+    16-byte boundary the bulk copies need, so the row-wise instance runs,
+    and matches."""
+    shape = (1, 37, 100, 16)
+    want_da, bx, c = _ssm_inputs(rng, shape, dtype, None, cuda)
+    buf = torch.empty(1 + want_da.numel(), dtype=want_da.dtype, device=cuda)
+    da = buf[1:].view(shape).copy_(want_da)
+    assert da.is_contiguous() and da.data_ptr() % 16
+    _ssm_check(da, bx, c, ss_ops.ROWWISE)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_ssm_scan_kernel_with_half_rows_of_n4_and_odd_di(dtype, cuda, rng):
+    """bf16/f16, N = 4, Di odd: rows of 8 bytes, the row-wise instance."""
+    da, bx, c = _ssm_inputs(rng, (2, 45, 33, 4), dtype, None, cuda)
+    _ssm_check(da, bx, c, ss_ops.ROWWISE)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssm_scan_kernel_is_deterministic(dtype, cuda, rng):
+    """Two calls on the same inputs give the same bits: the served logits
+    are held bit for bit against local runs."""
+    da, bx, c = _ssm_inputs(rng, (1, 512, 1600, 16), dtype, None, cuda)
+    first = ss_ops.ssm_scan(da, bx, c)
+    second = ss_ops.ssm_scan(da, bx, c)
     torch.cuda.synchronize()
-    assert torch.isfinite(got).all()
-    torch.testing.assert_close(got, ssm_scan_ref(da, bx, c), atol=2e-5,
-                               rtol=2e-5)
+    assert torch.equal(first, second)
 
 
 @pytest.mark.gpu
@@ -161,6 +261,27 @@ def test_ssm_scan_kernel_refuses_unsupported_state_size_and_mixed_dtypes(
     with pytest.raises(ValueError, match="one dtype"):
         ss_ops.ssm_scan(z, z, torch.zeros(1, 8, 16, device=cuda,
                                           dtype=torch.bfloat16))
+
+
+@pytest.mark.gpu
+def test_ssm_scan_ring_refuses_what_it_cannot_copy(cuda):
+    """The C entry point refuses a misaligned base, rows of N = 4 in bf16
+    and a plan past 227 KB of shared memory rather than misread."""
+    z = torch.zeros(1, 40, 8, 16, device=cuda)
+    c = torch.zeros(1, 40, 16, device=cuda)
+    plan = ss_ops.ring_plan(1, 8, 16, 4, 64, 16, 2)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        ss_ops.run_plan(torch.zeros(1 + z.numel(), device=cuda)[1:]
+                        .view(z.shape), z, c, plan)
+    too_big = ss_ops.ring_plan(1, 8, 16, 4, 128, 64, 4)
+    assert too_big.smem > ss_ops.SMEM_PER_BLOCK
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        ss_ops.run_plan(z, z, c, too_big)
+    h = torch.zeros(1, 40, 8, 4, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        ss_ops.run_plan(h, h, torch.zeros(1, 40, 4, device=cuda,
+                                          dtype=torch.bfloat16),
+                        ss_ops.ring_plan(1, 8, 4, 2, 64, 16, 2))
 
 
 def _wkv6_inputs(rng, shape, dtype, cuda, lw_value=None, u_scale=0.5):
