@@ -47,9 +47,20 @@ Phases, each printing one JSON line with its times:
      bit for bit against a local linked and an interpreted run, with the
      kernels' launches while the server answered, and where a request's
      time goes;
-  6. one ``kernels`` line: per kernel its launches on every served path,
-     its error against its plain version, its time, its bound and the
-     library's.
+  6. with each served path, its compiled dispatch path: a ``batched``
+     line (a burst of requests held behind the server's dispatcher, sent
+     twice, coalesced into one ``run_batched`` dispatch on a captured
+     batch bucket, or served one by one where the batch analysis refuses
+     the program, as for hymba's and rwkv6's GRAPH_EXEC glue; every reply
+     against its solo reply) and a ``fused`` line (``Executor.fuse``
+     captured as a CUDA graph and replayed, bit for bit against
+     ``Executor.run``, with the capture's seconds, one replay's launches,
+     the host wall of a replay beside a linked run's and the replay's
+     device time); then the card-only tests of both
+     (``tests/test_torch_graphs_gpu.py``, in a process of their own);
+  7. one ``kernels`` line: per kernel its launches on every served path
+     (and on each one's fused and batched paths), its error against its
+     plain version, its time, its bound and the library's.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure raises and
 exits non-zero; without CUDA the script exits non-zero before any result.
@@ -61,6 +72,7 @@ import argparse
 import dataclasses
 import gc
 import json
+import os
 import subprocess
 import sys
 import time
@@ -81,10 +93,20 @@ N_REQUESTS = 4             # the last two pipelined on one connection
 RESNET_ATOL = RESNET_RTOL = 1e-5             # test_resnet_rcb.py:31
 INT8_AGREEMENT, INT8_DRIFT = 0.6, 0.08       # test_resnet_rcb.py:50-51
 MATMUL_INT8_SHAPE = (512, 1536, 8960)        # qwen2-1.5B's MLP up-proj, S=512
+# the batched phase's bursts: requests held behind the dispatcher, then
+# released into one coalesced dispatch (bucket 4 with 1 pad lane, bucket 8
+# with 3, bucket 4 with none), twice: the first captures the bucket's graph
+BURST = {"lm": 3, "resnet": 5, "matmul_int8": 4}
+BATCH_BF16_TOL = TOLERANCE["bfloat16"]       # of max |logit|, as bf16 is held
+
+
+T0 = time.perf_counter()
 
 
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One phase's JSON line, with the script's seconds so far."""
+    print(json.dumps({"phase": phase, "at_s": time.perf_counter() - T0,
+                      **fields}), flush=True)
 
 
 def nvidia_smi() -> str:
@@ -930,22 +952,64 @@ def phase_two_layer_fp32(torch, cfg, seed: int) -> None:
 def kernel_counters() -> dict:
     """Every kernel wrapper of the port, by the name of its row
     (``int8_matmul`` counts the launches of both of its wrappers)."""
-    from repro_torch.kernels.flash_attention.ops import flash_attention
-    from repro_torch.kernels.int8_matmul.ops import int8_matmul
-    from repro_torch.kernels.ssm_scan.ops import ssm_scan
-    from repro_torch.kernels.wkv6.ops import wkv6
-    return {"flash_attention": flash_attention, "ssm_scan": ssm_scan,
-            "wkv6": wkv6, "int8_matmul": int8_matmul}
+    from repro_torch.kernels.registry import launch_counters
+    return launch_counters()
+
+
+def held_burst(torch, server, client, burst: list, output: str) -> dict:
+    """Send ``burst`` while the server's dispatcher is held at its next
+    item (as tests/test_torch_server.py holds it), release it once every
+    request is queued, so the backlog reaches the dispatcher at once, and
+    collect the replies. Returns them with the wall from the release to
+    the last reply and what the server's ``batched_stats`` gained."""
+    import threading
+    gate, started = threading.Event(), threading.Event()
+    inner, idle = server._loop.handler, server._loop.on_idle
+
+    def gated(item):
+        started.set()
+        gate.wait(120)
+        inner(item)
+
+    server._loop.handler = gated
+    server._loop.on_idle = lambda: idle() if gate.is_set() else False
+    try:
+        rids = [client.infer_async(**req) for req in burst]
+        if not started.wait(60):
+            raise AssertionError("the dispatcher never reached the burst")
+        deadline = time.monotonic() + 60
+        while server.scheduler.pending() < len(burst):
+            if time.monotonic() > deadline:
+                raise AssertionError(f"{server.scheduler.pending()} of "
+                                     f"{len(burst)} burst requests queued")
+            time.sleep(0.005)
+        before = dict(server.batched_stats)
+        t0 = time.perf_counter()
+        gate.set()
+        replies = [client.result(rid, timeout=600)[output] for rid in rids]
+        wall = time.perf_counter() - t0
+    finally:
+        gate.set()
+        server._loop.handler, server._loop.on_idle = inner, idle
+    gained = {k: server.batched_stats[k] - before[k]
+              for k in ("dispatches", "requests", "fallbacks", "seconds")}
+    return {"replies": replies, "wall_s": wall, **gained}
 
 
 def serve(torch, image: bytes, prog_bytes: bytes, requests: list,
-          output: str, artifacts=None) -> dict:
+          output: str, artifacts=None, burst: list = ()) -> dict:
     """Provision ``image`` and ``prog_bytes`` over protocol v2 into the
     port's InferenceServer on the card and send ``requests`` (the first
     N_REQUESTS - 2 one at a time, the last two pipelined on one
     connection). Every kernel's launch count is set to 0 just before and
     read just after: that run is the path's main run. The device memory
-    peak is the server's own: reset here, read after the last reply."""
+    peak is the server's own: reset here, read after the last reply.
+
+    With a ``burst``, the batched path follows on the same server: the
+    burst is sent twice behind the held dispatcher (``held_burst``); the
+    first pass stages (and on a batchable program captures) the batch
+    bucket, the second is the batched path's run, with the launch counts
+    set to 0 just before it and read just after."""
     from repro_torch.serving.server import Client, InferenceServer
     big = (1 << 32) - 1                  # PROVISION and reply frames
     torch.cuda.reset_peak_memory_stats()
@@ -956,6 +1020,7 @@ def serve(torch, image: bytes, prog_bytes: bytes, requests: list,
     server = InferenceServer(max_frame=big, artifacts=artifacts)
     server.start()
     client = Client(server.address, max_frame=big)
+    bursts = []
     try:
         t1 = time.perf_counter()
         client.provision(image, prog_bytes)
@@ -977,14 +1042,163 @@ def serve(torch, image: bytes, prog_bytes: bytes, requests: list,
         launches = {name: w.launches for name, w in counters.items()}
         serve_peak = torch.cuda.max_memory_allocated()
         telemetry = client.telemetry()
+        batched_launches = None
+        if burst:
+            bursts.append(held_burst(torch, server, client, burst, output))
+            for wrapper in counters.values():   # the batched path starts
+                wrapper.launches = 0
+            bursts.append(held_burst(torch, server, client, burst, output))
+            batched_launches = {name: w.launches
+                                for name, w in counters.items()}
+            batched_telemetry = client.telemetry()["serving"]["batched"]
         client.shutdown()
     finally:
         client.close()
         server.stop()
-    return {"responses": responses, "latencies": latencies,
-            "launches": launches, "provision_s": t_provision,
-            "serve_s": t_serve, "telemetry": telemetry,
-            "serve_peak": serve_peak, "serve_base": serve_base}
+    out = {"responses": responses, "latencies": latencies,
+           "launches": launches, "provision_s": t_provision,
+           "serve_s": t_serve, "telemetry": telemetry,
+           "serve_peak": serve_peak, "serve_base": serve_base}
+    if burst:
+        out.update(bursts=bursts, batched_launches=batched_launches,
+                   batched_telemetry=batched_telemetry)
+    return out
+
+
+def check_batched(torch, path: str, served: dict, want: list,
+                  launches: dict, exact: bool, atol: float = 0.0,
+                  scale_tol: float = 0.0) -> dict:
+    """The batched phase of one served path: each burst's replies against
+    ``want`` (the same requests answered solo, or run locally through
+    ``Executor.run``): bit for bit where ``exact``, else within ``atol``,
+    or within ``scale_tol`` of the largest |value| of the reference. A
+    batchable program must have ridden at least one coalesced dispatch on
+    each pass and never fallen back to per-request retries; a program the
+    batch analysis refuses (GRAPH_EXEC) must be reported so, and served
+    one by one. Emits the ``batched`` line; returns the batched path's
+    launches (the second pass)."""
+    tel = served["batched_telemetry"]
+    errs = []
+    for b in served["bursts"]:
+        if len(b["replies"]) != len(want):
+            raise AssertionError(f"batched {path}: {len(b['replies'])} "
+                                 f"replies for {len(want)} requests")
+        for i, (got, ref) in enumerate(zip(b["replies"], want)):
+            got, ref = torch.as_tensor(got).cpu(), torch.as_tensor(ref).cpu()
+            if tuple(got.shape) != tuple(ref.shape) or got.dtype != ref.dtype:
+                raise AssertionError(f"batched {path} request {i}: "
+                                     f"{tuple(got.shape)} {got.dtype}")
+            err = (got.float() - ref.float()).abs().max().item()
+            errs.append(err)
+            scale = ref.float().abs().max().item()
+            ok = same_bits(got, ref) if exact or not tel["batchable"] \
+                else (err <= atol if atol else err <= scale_tol * scale)
+            if not (ok and torch.isfinite(got.float()).all()):
+                raise AssertionError(f"batched {path} request {i}: max "
+                                     f"|err| {err} against its solo reply")
+        if b["fallbacks"]:
+            raise AssertionError(f"batched {path}: {b['fallbacks']} "
+                                 f"requests fell back to solo retries")
+        if tel["batchable"] and b["dispatches"] < 1:
+            raise AssertionError(f"batched {path}: no coalesced dispatch")
+        if not tel["batchable"] and b["dispatches"]:
+            raise AssertionError(f"batched {path}: a refused program "
+                                 f"rode a batched dispatch")
+    if not tel["batchable"] and "GRAPH_EXEC" not in tel["reason"]:
+        raise AssertionError(f"batched {path}: refused for "
+                             f"{tel['reason']!r}, not GRAPH_EXEC")
+    got_launches = served["batched_launches"]
+    launches = {**dict.fromkeys(got_launches, 0), **launches}
+    if got_launches != launches:
+        raise AssertionError(f"batched {path}: launches {got_launches}, "
+                             f"not {launches}")
+    n = len(want)
+    bucket = next(b for b in (1, 2, 4, 8, 16) if b >= n)
+    emit("batched", path=path, requests=n, batchable=tel["batchable"],
+         reason=tel["reason"], bucket=bucket if tel["batchable"] else None,
+         pad_lanes=bucket - n if tel["batchable"] else None,
+         max_abs_err=max(errs), exact=exact or not tel["batchable"],
+         atol=atol or None, scale_tol=scale_tol or None,
+         launches=got_launches,
+         passes=[{"dispatches": b["dispatches"], "requests": b["requests"],
+                  "fallbacks": b["fallbacks"],
+                  "dispatch_wall_s": b["seconds"],
+                  "amortized_s": b["seconds"] / n if b["dispatches"]
+                  else None,
+                  "release_to_last_reply_s": b["wall_s"]}
+                 for b in served["bursts"]],
+         note="pass 0 stages the bucket (warm-up run and capture), pass 1 "
+              "replays it")
+    return got_launches
+
+
+def phase_fused(torch, path: str, ex, bound, request: dict,
+                want: dict) -> dict:
+    """The fused path of one served program: ``Executor.fuse`` captured on
+    its first call, then replayed. One replay, with the launch counts set
+    to 0 just before it and read just after, must launch ``want``, and its
+    outputs must equal ``Executor.run``'s bit for bit (the same kernels
+    in the same order). Then, in turns (linked, fused, fused, linked), the
+    host wall of one call of each, both ending in a sync; the device time
+    of one graph replay by CUDA events; and one fused call under
+    ``torch.profiler``. Returns the replay's launches."""
+    from repro_torch.core.executor import Executor
+    fused = ex.fuse(bound)
+    weights = ex.weights_from(bound)
+    t0 = time.perf_counter()
+    fused(request, weights)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    (graph,) = fused.graphs.values()
+    counters = kernel_counters()
+    for wrapper in counters.values():    # the fused path starts here
+        wrapper.launches = 0
+    got = fused(request, weights)
+    torch.cuda.synchronize()
+    launches = {name: w.launches for name, w in counters.items()}
+    want = {**dict.fromkeys(launches, 0), **want}
+    if launches != want:
+        raise AssertionError(f"fused {path}: one replay launched "
+                             f"{launches}, not {want}")
+    linked = ex.run(bound, inputs=request)
+    if sorted(got) != sorted(linked):
+        raise AssertionError(f"fused {path}: outputs {sorted(got)}")
+    for k in linked:
+        if not same_bits(got[k], linked[k]):
+            raise AssertionError(f"fused {path}: {k} differs from the "
+                                 f"linked run")
+
+    def wall(fn) -> float:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    def run_linked():
+        ex.run(bound, inputs=request)
+
+    def run_fused():
+        fused(request, weights)
+
+    linked_s, fused_s = [], []
+    for _ in range(3):
+        linked_s.append(wall(run_linked))
+        fused_s += [wall(run_fused), wall(run_fused)]
+        linked_s.append(wall(run_linked))
+    replay_ms = cuda_ms(torch, graph.replay, iters=10, warmup=1)
+    emit("fused", path=path, capture_s=graph.capture_s,
+         first_call_s=first_s, launches_per_replay=launches,
+         bit_identical=True,
+         replay_wall_s=sorted(fused_s)[len(fused_s) // 2],
+         linked_wall_s=sorted(linked_s)[len(linked_s) // 2],
+         replay_walls_s=fused_s, linked_walls_s=linked_s,
+         graph_replay_device_ms=replay_ms,
+         fused_call=device_breakdown(torch, run_fused))
+    Executor.release_graphs(bound)
+    del fused, graph, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 def served_fields(served: dict) -> dict:
@@ -1033,17 +1247,26 @@ def phase_slice(torch, cfg, seed: int, phase: str) -> dict:
     # from here until the last reply nothing else of this process holds
     # device memory beyond ``serve_base``: the peak is the server's own
     served = serve(torch, image, prog_bytes, requests, "logits",
-                   artifacts=prog.artifacts)
+                   artifacts=prog.artifacts,
+                   burst=requests[:BURST["lm"]])
     launches = served["launches"]
     per_layer = {"flash_attention": int(cfg.family != "ssm"),
                  "ssm_scan": int(cfg.family == "hybrid"),
                  "wkv6": int(cfg.family == "ssm"), "int8_matmul": 0}
+    per_request = {k: v * cfg.num_layers for k, v in per_layer.items()}
     for name, n in launches.items():
-        want = per_layer[name] * cfg.num_layers * N_REQUESTS
+        want = per_request[name] * N_REQUESTS
         if n != want:
             raise AssertionError(f"{name} launched {n} times for "
                                  f"{N_REQUESTS} requests of {cfg.num_layers} "
                                  f"{cfg.family} layers, not {want}")
+    # the burst: one replay of bucket 4 (qwen2); one by one, refused (the
+    # GRAPH_EXEC glue of hymba and rwkv6)
+    lanes = 1 if cfg.family == "dense" else BURST["lm"]
+    batched = check_batched(
+        torch, cfg.name, served, served["responses"][:BURST["lm"]],
+        {k: v * lanes for k, v in per_request.items()}, exact=False,
+        scale_tol=BATCH_BF16_TOL)
 
     # the same bytes, run locally: linked and interpreted, bit for bit
     t2 = time.perf_counter()
@@ -1077,6 +1300,7 @@ def phase_slice(torch, cfg, seed: int, phase: str) -> dict:
     ex.run(bound, inputs=requests[0])
     torch.cuda.synchronize()
     t_local = time.perf_counter() - t7
+    fused = phase_fused(torch, cfg.name, ex, bound, requests[0], per_request)
     breakdown = device_breakdown(
         torch, lambda: ex.run(bound, inputs=requests[0]))
     t5 = time.perf_counter()
@@ -1098,7 +1322,8 @@ def phase_slice(torch, cfg, seed: int, phase: str) -> dict:
          bit_identical=True, response_bytes=len(payload),
          wire_pack_s=t_pack, wire_unpack_s=t_unpack,
          local_run_s=t_local, local_run=breakdown)
-    return launches
+    return {cfg.name: launches, f"{cfg.name}-fused": fused,
+            f"{cfg.name}-batched": batched}
 
 
 def same_bits(a, b) -> bool:
@@ -1186,9 +1411,18 @@ def phase_slice_matmul_int8(torch, seed: int, out: str) -> dict:
         return {"x": x.to(torch.int8).cpu().numpy(),
                 "w": w.to(torch.int8).cpu().numpy(), "scale": s.cpu().numpy()}
     requests = [request() for _ in range(N_REQUESTS)]
-    served = serve(torch, image, prog_bytes, requests, "out")
+    burst = requests[:BURST["matmul_int8"]] if out == "float32" else ()
+    served = serve(torch, image, prog_bytes, requests, "out", burst=burst)
     check_launches(f"slice_matmul_int8 {out}", served["launches"],
                    {"int8_matmul": N_REQUESTS})
+    path = f"matmul_int8-{out}"
+    paths = {path: served["launches"]}
+    if burst:
+        # x, w and scale all carry the lane axis: the vmap rule launches
+        # the kernel once per lane of bucket 4
+        paths[f"{path}-batched"] = check_batched(
+            torch, path, served, served["responses"][:len(burst)],
+            {"int8_matmul": 4}, exact=True)
     _, ex, bound, t_fsck, t_bind = local_platform(torch, image, prog_bytes)
     check_served(ex, bound, requests, served["responses"], "out")
     for i, (req, got) in enumerate(zip(requests, served["responses"])):
@@ -1207,7 +1441,9 @@ def phase_slice_matmul_int8(torch, seed: int, out: str) -> dict:
          bit_identical=True, equals_plain_version=True, local_run_s=t_local,
          local_run=device_breakdown(
              torch, lambda: ex.run(bound, inputs=requests[0])))
-    return served["launches"]
+    paths[f"{path}-fused"] = phase_fused(torch, path, ex, bound, requests[0],
+                                         {"int8_matmul": 1})
+    return paths
 
 
 RESNET_TENSOR_BYTES = {False: 46_758_048, True: 13_295_712}   # from the specs
@@ -1249,6 +1485,11 @@ def phase_slice_resnet(torch, seed: int, int8: bool) -> dict:
                         device="cuda")
     requests = [{"input": images[i:i + 1].cpu().numpy()}
                 for i in range(N_REQUESTS)]
+    burst_gen = torch.Generator(device="cuda")
+    burst_gen.manual_seed(seed + 8)
+    burst = [{"input": torch.rand((1, size, size, 3), generator=burst_gen,
+                                  device="cuda").cpu().numpy()}
+             for _ in range(BURST["resnet"])]
     pack, t_calib = None, 0.0
     if int8:
         calib_x = torch.rand((4, size, size, 3), generator=gen, device="cuda")
@@ -1267,13 +1508,20 @@ def phase_slice_resnet(torch, seed: int, int8: bool) -> dict:
     gc.collect()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    served = serve(torch, image, prog_bytes, requests, "output")
+    served = serve(torch, image, prog_bytes, requests, "output", burst=burst)
     n_conv = sum(resnet_conv_gemms(CONFIG).values())
+    per_request = {"int8_matmul": n_conv if int8 else 0}
     check_launches(phase, served["launches"],
-                   {"int8_matmul": n_conv * N_REQUESTS if int8 else 0})
+                   {k: v * N_REQUESTS for k, v in per_request.items()})
     plat, ex, bound, t_fsck, t_bind = local_platform(torch, image,
                                                      prog_bytes)
     linked = check_served(ex, bound, requests, served["responses"], "output")
+    path = "resnet18-int8" if int8 else "resnet18"
+    # bucket 8: the convolutions' lanes fold into M, one launch each
+    paths = {path: served["launches"], f"{path}-batched": check_batched(
+        torch, path, served, [ex.run(bound, inputs=r)["output"]
+                              for r in burst], per_request, exact=False,
+        atol=RESNET_ATOL)}
     got = torch.cat([torch.as_tensor(r) for r in served["responses"]])
     if tuple(got.shape) != (N_REQUESTS, CONFIG.num_classes) \
             or not torch.isfinite(got).all():
@@ -1359,7 +1607,27 @@ def phase_slice_resnet(torch, seed: int, int8: bool) -> dict:
          **served_fields(served), bit_identical=True, **fields,
          local_run_s=t_local, local_run=device_breakdown(
              torch, lambda: ex.run(bound, inputs=requests[0])))
-    return served["launches"]
+    paths[f"{path}-fused"] = phase_fused(torch, path, ex, bound, requests[0],
+                                         per_request)
+    return paths
+
+
+def phase_graphs_gpu_tests() -> None:
+    """The card-only tests of the compiled dispatch path
+    (tests/test_torch_graphs_gpu.py), in a process of their own."""
+    root = Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "pytest", "-q", "-m", "gpu",
+         "-p", "no:cacheprovider", "tests/test_torch_graphs_gpu.py"],
+        cwd=root, env={**os.environ, "PYTHONPATH": str(root / "src")},
+        capture_output=True, text=True, timeout=600)
+    tail = proc.stdout.strip().splitlines()[-1:] if proc.stdout else []
+    emit("graphs_gpu_tests", rc=proc.returncode,
+         seconds=time.perf_counter() - t0, summary=tail)
+    if proc.returncode != 0:
+        raise AssertionError("tests/test_torch_graphs_gpu.py failed:\n"
+                             + proc.stdout[-6000:] + proc.stderr[-3000:])
 
 
 def main() -> int:
@@ -1401,16 +1669,20 @@ def main() -> int:
     for cfg in models.values():
         phase_two_layer_fp32(torch, cfg, args.seed)
 
-    # 4. the served paths, at full depth; each kernel's launches on each
-    by_path = {cfg.name: phase_slice(torch, cfg, args.seed, phase)
-               for phase, cfg in models.items()}
+    # 4. the served paths, at full depth; each kernel's launches on each,
+    # fused and batched too
+    by_path = {}
+    for phase, cfg in models.items():
+        by_path.update(phase_slice(torch, cfg, args.seed, phase))
 
     # 5. the served vision and INT8 paths
     for out in ("float32", "bfloat16"):
-        by_path[f"matmul_int8-{out}"] = phase_slice_matmul_int8(
-            torch, args.seed, out)
-    by_path["resnet18"] = phase_slice_resnet(torch, args.seed, int8=False)
-    by_path["resnet18-int8"] = phase_slice_resnet(torch, args.seed, int8=True)
+        by_path.update(phase_slice_matmul_int8(torch, args.seed, out))
+    by_path.update(phase_slice_resnet(torch, args.seed, int8=False))
+    by_path.update(phase_slice_resnet(torch, args.seed, int8=True))
+
+    # the card-only tests of the fused and batched graphs
+    phase_graphs_gpu_tests()
 
     # 6. the kernels line, then the card, then the contract line
     for row in rows:

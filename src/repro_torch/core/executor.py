@@ -2,16 +2,21 @@
 
 The port's counterpart of ``repro.core.executor``. The executor knows
 nothing about models: it walks the linear op stream and invokes RHAL vtable
-slots. Two modes:
+slots. Four modes:
 
   * ``interpreted`` — every op is re-decoded through the opcode switch and
     dispatched with a host synchronization after it (the per-op baseline).
   * ``linked`` — the default ``run`` path: the program is linked ONCE
     (core/linker.py) into pre-resolved thunks over a dense slot array; ops
     launch asynchronously on the device queue, syncing only at FENCE ops.
+  * ``fused`` — ``fuse``: the same thunks, linked against the capture
+    driver, captured once into a CUDA graph and replayed as one launch.
+  * ``batched`` — ``run_batched``: the fused form under
+    ``torch.func.vmap``, one graph per batch bucket (1/2/4/8/16), over a
+    list of independent requests.
 
-Both modes run the same op implementations on the same device, so their
-outputs are bit-identical. Host inputs (numpy arrays or CPU tensors) are
+The first three run the same op implementations in the same order on the
+same device, so their outputs are bit-identical. Host inputs (numpy arrays or CPU tensors) are
 moved onto the driver's device explicitly; outputs stay on the device.
 Either mode can ``probe`` the abs-max of every buffer it holds (INT8
 calibration, core/quant.py).
@@ -22,6 +27,7 @@ import time
 from typing import Callable, Optional
 
 import torch
+from torch.func import vmap
 
 from repro_torch import device as device_mod
 from repro_torch.core import linker as linker_mod
@@ -29,7 +35,10 @@ from repro_torch.core import rhal as rhal_mod
 from repro_torch.core.rbl import BoundProgram
 from repro_torch.core.rbl import explicitly_freed as rbl_explicitly_freed
 from repro_torch.core.rcb import Op
-from repro_torch.dtypes import as_tensor
+from repro_torch.dtypes import as_tensor, to_host, torch_dtype
+from repro_torch.kernels import registry
+
+_CPU = torch.device("cpu")
 
 
 def _probe_update(probe_dev: dict, sym: str, buf) -> None:
@@ -48,6 +57,133 @@ def _probe_flush(probe: dict, probe_dev: dict) -> None:
     exit."""
     for sym, m in probe_dev.items():
         probe[sym] = max(probe.get(sym, 0.0), float(m))
+
+
+def _weight_key(weights: dict) -> tuple:
+    """The device addresses a captured graph reads its weights from."""
+    return tuple((k, w.data_ptr()) for k, w in sorted(weights.items()))
+
+
+def _check_weights(weights: dict, device: torch.device) -> None:
+    for k, w in weights.items():
+        if not isinstance(w, torch.Tensor) or w.device != device:
+            raise ValueError(f"weight {k!r} is not a tensor on {device}: a "
+                             f"captured graph reads it in place (bind with "
+                             f"the executor's driver)")
+
+
+class CapturedGraph:
+    """A staged callable captured as one ``torch.cuda.CUDAGraph``.
+
+    ``inputs`` are the graph's static input buffers on the device, filled
+    before each replay; ``weights`` are read in place, so the graph holds
+    them (their addresses are baked into it). Capture runs the callable
+    once on a side stream first: that first run builds the kernel library,
+    sets each kernel's shared-memory attribute at its first launch and lets
+    cuBLAS and cuDNN pick their algorithms, none of which a capture can
+    hold. The capture itself uses ``capture_error_mode="thread_local"``, so
+    the server's handler threads stay free to run while the dispatcher
+    captures. Anything in the callable that syncs or reads the host makes
+    the capture raise; nothing falls back to an uncaptured run.
+
+    The kernel wrappers' ``launches`` counts move at capture but nothing
+    runs then: the capture's counts are recorded as ``launches`` (a
+    replay's launches by kernel) and taken back, and every replay adds
+    them."""
+
+    def __init__(self, fn: Callable, inputs: dict, weights: dict,
+                 dev: torch.device):
+        _check_weights(weights, dev)
+        self.inputs = inputs
+        self.weights = weights
+        self.weight_key = _weight_key(weights)
+        counters = registry.launch_counters()
+        t0 = time.perf_counter()
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            fn(inputs, weights)                    # warm-up, uncaptured
+        torch.cuda.current_stream(dev).wait_stream(side)
+        before = {name: w.launches for name, w in counters.items()}
+        self.graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(self.graph,
+                                  capture_error_mode="thread_local"):
+                self.outputs = fn(inputs, weights)
+        finally:
+            self.launches = {name: w.launches - before[name]
+                             for name, w in counters.items()}
+            for name, w in counters.items():
+                w.launches = before[name]
+        self.capture_s = time.perf_counter() - t0
+
+    def __call__(self, inputs: dict) -> dict:
+        """Copy ``inputs`` into the static buffers, replay, and return
+        clones of the outputs (the next replay cannot overwrite them)."""
+        for k, buf in self.inputs.items():
+            v = inputs[k]
+            if tuple(v.shape) != tuple(buf.shape) or v.dtype != buf.dtype:
+                raise ValueError(
+                    f"input {k!r}: {tuple(v.shape)} {v.dtype} does not match "
+                    f"the captured {tuple(buf.shape)} {buf.dtype}")
+            buf.copy_(v)
+        self.replay()
+        return {k: v.clone() for k, v in self.outputs.items()}
+
+    def replay(self) -> None:
+        self.graph.replay()
+        counters = registry.launch_counters()
+        for name, n in self.launches.items():
+            counters[name].launches += n
+
+
+class FusedProgram:
+    """What ``Executor.fuse`` returns: ``fn(inputs, weights) -> outputs``.
+
+    On CUDA each distinct set of weight tensors (by their device addresses)
+    and of input shapes and dtypes gets its own ``CapturedGraph``, captured
+    at its first call: a call with other weight tensors captures anew and
+    never replays a graph that reads stale addresses. On the CPU the staged
+    callable runs uncaptured."""
+
+    def __init__(self, staged: Callable, device: torch.device,
+                 bound_inputs: dict, input_syms: tuple,
+                 donate_weights: bool):
+        self.staged = staged
+        self.device = device
+        self.bound_inputs = bound_inputs
+        self.input_syms = input_syms
+        self.donate_weights = donate_weights
+        self.graphs: dict = {}               # (weight key, input sig) -> graph
+
+    def _inputs(self, inputs: Optional[dict]) -> dict:
+        vals = {**self.bound_inputs, **(inputs or {})}
+        missing = [s for s in self.input_syms if s not in vals]
+        if missing:
+            raise ValueError(f"missing input {missing[0]!r}")
+        return {s: vals[s] for s in self.input_syms}
+
+    def __call__(self, inputs: dict, weights: dict) -> dict:
+        vals = self._inputs(inputs)
+        if self.device.type != "cuda":
+            return self.staged({k: as_tensor(v, self.device)
+                                for k, v in vals.items()}, weights)
+        vals = {k: v if isinstance(v, torch.Tensor) else as_tensor(v, _CPU)
+                for k, v in vals.items()}
+        key = (_weight_key(weights),
+               tuple((k, tuple(v.shape), v.dtype) for k, v in vals.items()))
+        graph = self.graphs.get(key)
+        if graph is None:
+            static = {k: v.to(self.device, copy=True)
+                      for k, v in vals.items()}
+            graph = self.graphs[key] = CapturedGraph(
+                self.staged, static, dict(weights), self.device)
+        return graph(vals)
+
+    def release(self) -> None:
+        """Drop every captured graph (and with it its memory pool and its
+        hold on the weight tensors)."""
+        self.graphs.clear()
 
 
 class Executor:
@@ -206,6 +342,230 @@ class Executor:
             _probe_flush(probe, probe_dev)
         return {name: slots[i] for name, i in linked.output_slots
                 if slots[i] is not None}
+
+    # --------------------------------------------------------------- fused
+    def fuse(self, bound: BoundProgram, donate_weights: bool = False):
+        """Stage the whole program into one CUDA graph.
+
+        Returns ``fn(inputs: dict, weights: dict) -> outputs: dict`` (a
+        ``FusedProgram``): the SAME linked thunk form ``run`` executes,
+        linked against the capture driver (``rhal.make_capture_driver``,
+        the JAX package's trace driver), captured once and replayed as one
+        launch. ``weights`` are the program's weight tensors
+        (``weights_from``); the graph reads them in place. Outputs are
+        fresh device tensors, bit-identical to ``run``'s: the same kernels
+        run in the same order. The fused form posts no per-block RTPM
+        events (the JAX package's fused form posts none either).
+
+        The callable is cached on the BoundProgram, keyed by
+        ``donate_weights``, and holds one graph per set of weight tensors
+        (by device address), so repeated calls replay. The cache is
+        invalidated if the bound's program object is swapped out from
+        under it. ``donate_weights`` keeps the JAX package's signature and
+        cache key; on the card a graph reads its weights in place and
+        never writes them, so there is nothing to donate and the flag
+        changes nothing but the cache entry. On the CPU (only when the
+        executor's driver is there) the staged callable runs uncaptured.
+        """
+        cache = getattr(bound, "_fused", None)
+        if cache is None or cache[0] is not bound.program:
+            cache = bound._fused = (bound.program, {})
+        fn = cache[1].get(donate_weights)
+        if fn is None:
+            dev = self.driver.device
+            linked = linker_mod.link(bound,
+                                     rhal_mod.make_capture_driver(dev))
+            fn = FusedProgram(
+                linker_mod.stage_callable(linked), dev,
+                {n: b for n, b in bound.buffers.items()
+                 if bound.program.tensors[n].kind == "input"},
+                tuple(linked.input_slots), donate_weights)
+            cache[1][donate_weights] = fn
+        return fn
+
+    # -------------------------------------------------------------- batched
+    #: Batch-bucket ladder: every batched dispatch stages at one of these
+    #: leading-axis sizes, so the number of captured graphs per program is
+    #: bounded (len(buckets)), not O(#distinct request counts).
+    BATCH_BUCKETS: tuple = (1, 2, 4, 8, 16)
+
+    # (program CRC, bucket, device, weight addresses) -> batched callable.
+    # Module-wide on purpose: re-binds, fresh BoundPrograms and every
+    # Executor instance of the same program over the same weight tensors
+    # (two binds of one image on one driver share RIMFS's resident
+    # tensors) share ONE graph per bucket.
+    _batch_cache: dict = {}
+    _BATCH_CACHE_CAP = 64
+
+    @classmethod
+    def aot_cache_get(cls, key):
+        """Look up a staged callable in the module-wide cache."""
+        return cls._batch_cache.get(key)
+
+    @classmethod
+    def aot_cache_put(cls, key, fn) -> None:
+        """Insert under the capacity bound, evicting the oldest entries
+        (an evicted graph frees its memory pool with it)."""
+        while len(cls._batch_cache) >= cls._BATCH_CACHE_CAP:
+            cls._batch_cache.pop(next(iter(cls._batch_cache)))
+        cls._batch_cache[key] = fn
+
+    def _batch_key(self, bound: BoundProgram, bucket: int) -> tuple:
+        return (bound.program.crc(), bucket, str(self.driver.device),
+                _weight_key(self.weights_from(bound)))
+
+    def _batched_callable(self, bound: BoundProgram, bucket: int):
+        """``fn(stacked_inputs, weights) -> outputs`` for one bucket: the
+        staged program under ``torch.func.vmap`` (inputs mapped over a
+        leading axis of ``bucket`` lanes, weights broadcast). On CUDA it is
+        captured as one graph at the bucket's input shapes (from the
+        program's input descs) when it is first staged."""
+        key = self._batch_key(bound, bucket)
+        fn = Executor.aot_cache_get(key)
+        if fn is None:
+            dev = self.driver.device
+            linked = linker_mod.link(bound,
+                                     rhal_mod.make_capture_driver(dev))
+            mapped = vmap(linker_mod.stage_callable(linked),
+                          in_dims=(0, None))
+            if dev.type == "cuda":
+                static = {
+                    n: torch.zeros((bucket,) + tuple(t.shape),
+                                   dtype=torch_dtype(t.dtype), device=dev)
+                    for n, t in bound.program.tensors.items()
+                    if t.kind == "input"}
+                graph = CapturedGraph(mapped, static,
+                                      self.weights_from(bound), dev)
+
+                def fn(stacked, weights, _g=graph):
+                    if _weight_key(weights) != _g.weight_key:
+                        raise ValueError("batched graph: weight tensors "
+                                         "differ from the captured ones")
+                    return _g(stacked)
+                fn.graph = graph
+            else:
+                def fn(stacked, weights, _m=mapped, _dev=dev):
+                    return _m({k: v.to(_dev) for k, v in stacked.items()},
+                              weights)
+            Executor.aot_cache_put(key, fn)
+        return fn
+
+    @classmethod
+    def release_graphs(cls, bound: BoundProgram) -> int:
+        """Drop every graph captured over ``bound``'s weight tensors: its
+        fused graphs and its batch buckets (the server calls this before a
+        re-provision unpins the weights the graphs read). Returns the
+        number of batch buckets dropped."""
+        cache = getattr(bound, "_fused", None)
+        if cache is not None:
+            for fn in cache[1].values():
+                fn.release()
+            bound._fused = None
+        weights = {n: b for n, b in bound.buffers.items()
+                   if bound.program.tensors[n].kind == "weight"}
+        crc, wkey = bound.program.crc(), _weight_key(weights)
+        stale = [k for k in cls._batch_cache
+                 if k[0] == crc and k[3] == wkey]
+        for k in stale:
+            del cls._batch_cache[k]
+        return len(stale)
+
+    def _bucket_for(self, n: int) -> int:
+        """Smallest ladder bucket >= n (pad-to-bucket), or the largest
+        bucket when n exceeds the ladder (the caller chunks)."""
+        for b in self.BATCH_BUCKETS:
+            if b >= n:
+                return b
+        return self.BATCH_BUCKETS[-1]
+
+    def run_batched(self, bound: BoundProgram, inputs_list,
+                    rimfs=None, max_bucket: Optional[int] = None) -> list:
+        """Execute one program over a batch of independent requests.
+
+        The program is staged ONCE per batch bucket (sizes 1/2/4/8/16, via
+        ``torch.func.vmap`` over a leading axis on the input slots with
+        weights broadcast, captured as one CUDA graph) and the request
+        list is chunked greedily onto the ladder: full largest-bucket
+        chunks first, then the remainder pads up to the smallest covering
+        bucket — padded lanes replicate the chunk's last request and are
+        sliced away from the results (pad-to-bucket + slice-back).
+        ``max_bucket`` clamps the ladder top (e.g. to a serving batch
+        window).
+
+        Execution is two-phase: every chunk is DISPATCHED first (a replay
+        is asynchronous; each chunk's outputs are cloned off the graph's
+        static buffers on the device), then results materialize in request
+        order — each output tensor crosses d2h ONCE per chunk, and the
+        per-request entries are views of it, as host values (numpy, or a
+        CPU bf16 tensor). Integer outputs and the hand kernels' outputs
+        equal a serial ``run``'s per lane; a float op whose library
+        (cuBLAS, cuDNN) picks its algorithm by the batched shape may differ
+        from the serial run by rounding.
+
+        Programs the batch analysis rejects (split-phase DMA, collectives,
+        GRAPH_EXEC — see ``linker.batch_analysis``) run serially through
+        ``run``: same results, no batch amortization.
+        ``self.batch_stats`` reports what happened either way.
+        """
+        reqs = list(inputs_list)
+        verdict = linker_mod.batch_analysis(bound)
+        self.batch_stats = {"batchable": verdict.batchable,
+                            "reason": verdict.reason,
+                            "requests": len(reqs), "buckets": [],
+                            "padded": 0}
+        if not reqs:
+            return []
+        if not verdict.batchable:
+            return [self.run(bound, inputs=req, rimfs=rimfs)
+                    for req in reqs]
+        input_syms = tuple(n for n, t in bound.program.tensors.items()
+                           if t.kind == "input")
+        weights = self.weights_from(bound)
+        top = self.BATCH_BUCKETS[-1] if max_bucket is None \
+            else max(1, min(max_bucket, self.BATCH_BUCKETS[-1]))
+        # phase 1: stack + dispatch every chunk (no sync anywhere)
+        pending: list = []                 # (pos, take, {sym: device out})
+        pos = 0
+        while pos < len(reqs):
+            rem = len(reqs) - pos
+            take = top if rem >= top else rem
+            # a non-ladder max_bucket stages its own chunk size rather
+            # than padding past the caller's clamp
+            bucket = min(self._bucket_for(take), top)
+            chunk = reqs[pos:pos + take]
+            stacked = {}
+            for sym in input_syms:
+                vals = []
+                for req in chunk:
+                    v = req.get(sym) if req else None
+                    if v is None:
+                        v = bound.buffers.get(sym)
+                    if v is None:
+                        raise ValueError(f"missing input {sym!r} in "
+                                         f"batched request {pos}")
+                    vals.append(as_tensor(v, _CPU))
+                vals.extend([vals[-1]] * (bucket - take))   # pad lanes
+                stacked[sym] = torch.stack(vals)   # host-side: one copy
+            fn = self._batched_callable(bound, bucket)
+            pending.append((pos, take, fn(stacked, weights)))
+            self.batch_stats["buckets"].append(bucket)
+            self.batch_stats["padded"] += bucket - take
+            pos += take
+        # phase 2: materialize in order — ONE d2h per output tensor per
+        # chunk, per-lane views of it; blocking on chunk k overlaps chunk
+        # k+1's in-flight replay
+        results: list = [None] * len(reqs)
+        for cpos, take, outs in pending:
+            hosts = {k: v.cpu() for k, v in outs.items()}
+            for j in range(take):
+                results[cpos + j] = {k: to_host(h[j])
+                                     for k, h in hosts.items()}
+        return results
+
+    # ------------------------------------------------------------- helpers
+    def weights_from(self, bound: BoundProgram) -> dict:
+        return {n: b for n, b in bound.buffers.items()
+                if bound.program.tensors[n].kind == "weight"}
 
     # --------------------------------------------------- interpreted baseline
     def run_interpreted(self, bound: BoundProgram,

@@ -15,7 +15,10 @@ re-decodes every op on every step; the linker pays those costs ONCE:
 
 The result is a ``LinkedProgram`` whose execution is
 ``prologue; for thunk in thunks: thunk(slots, rimfs); epilogue`` — see
-``Executor.run``.
+``Executor.run``. ``stage_callable`` wraps the same walk as a function of
+the inputs and weights alone, which ``Executor.fuse`` captures into a CUDA
+graph and ``Executor.run_batched`` maps over a batch axis first
+(``batch_analysis`` says which programs may).
 """
 from __future__ import annotations
 
@@ -129,6 +132,8 @@ class LinkedProgram:
     names: list                    # slot index -> symbol
     thunks: list                   # thunk(slots, rimfs) -> None
     block_spans: list              # (block_id, thunk_start, thunk_end)
+    input_slots: dict              # input symbol -> slot
+    weight_slots: dict             # weight symbol -> slot
     output_slots: tuple            # (symbol, slot) pairs
     missing_inputs: tuple          # (symbol, slot) the caller must feed
     free_lists: tuple              # per-thunk tuple of slot indices released
@@ -137,6 +142,10 @@ class LinkedProgram:
     prologue: tuple = ()           # prefetch issue thunks (run before thunks)
     epilogue: tuple = ()           # drain redeem thunks (run after thunks)
     dst_lists: tuple = ()          # per-thunk tuple of slot indices written
+
+    @property
+    def n_slots(self) -> int:
+        return len(self.names)
 
     def fresh_slots(self, buffers: dict,
                     inputs: Optional[dict] = None) -> list:
@@ -182,6 +191,96 @@ def _mk_compute(handler: Callable, d: int, src_idx: tuple, frees: tuple):
             for f in frees:
                 slots[f] = None
     return thunk
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchAnalysis:
+    """Verdict of the per-program batch-axis analysis."""
+    batchable: bool
+    reason: str
+
+
+def batch_analysis(bound: rbl_mod.BoundProgram) -> BatchAnalysis:
+    """Decide whether a program can stage under a leading batch axis.
+
+    The batched path runs the staged linked form under ``torch.func.vmap``
+    (inputs mapped, weights broadcast), which is only sound for programs
+    whose every op is a pure device computation per sample:
+
+      * COLLECTIVE ops coordinate across a mesh axis — a mapped replica
+        would silently change the collective's participant set;
+      * GRAPH_EXEC artifacts are opaque host callables written for one
+        batch shape (and are not covered by the program CRC the staging
+        cache keys on);
+      * split-phase DMA (any H2D the residency plan hoists into the
+        prefetch prologue, or D2H it sinks into the drain epilogue)
+        carries per-execution host-side ticket state — the host engine
+        moves ONE buffer per descriptor, not a batch-of-N.
+
+    Everything else (compute dispatches, ALLOC/FREE, BIND_CONST, FENCE,
+    POLL, non-split-phase transfers) stages cleanly. The verdict and its
+    reason strings are the JAX package's; it is cached on the
+    BoundProgram. ``Executor.run_batched`` runs a refused program
+    serially.
+    """
+    cached = getattr(bound, "_batch_analysis", None)
+    if cached is not None:
+        return cached
+
+    def analyze() -> BatchAnalysis:
+        for op in bound.program.ops():
+            if op.op is Op.COLLECTIVE:
+                return BatchAnalysis(False, "COLLECTIVE op (mesh-axis "
+                                     "semantics do not vmap)")
+            if op.op is Op.GRAPH_EXEC:
+                return BatchAnalysis(False, "GRAPH_EXEC artifact (opaque "
+                                     "host callable, fixed batch shape)")
+        plan = plan_residency(bound)
+        if plan.prefetch_syms or plan.drain_syms:
+            syms = (plan.prefetch_syms + plan.drain_syms)[:3]
+            return BatchAnalysis(False, "host split-phase DMA (prefetch/"
+                                 f"drain schedule over {list(syms)})")
+        return BatchAnalysis(True, "batchable")
+
+    verdict = analyze()
+    bound._batch_analysis = verdict
+    return verdict
+
+
+def stage_callable(linked: LinkedProgram):
+    """The staged form of a linked program: ``fn(inputs, weights) -> outs``.
+
+    ``Executor.fuse`` captures this function into one CUDA graph, and
+    ``Executor.run_batched`` wraps it in ``torch.func.vmap`` (inputs mapped
+    over a leading batch axis, weights broadcast) before capturing one
+    graph per batch bucket. Linked against the capture driver
+    (``rhal.make_capture_driver``), it syncs nothing and reads nothing back
+    to the host, so every op it runs can be captured.
+    """
+    weight_slots = linked.weight_slots
+    input_slots = linked.input_slots
+    thunks = linked.thunks
+    output_slots = linked.output_slots
+    n_slots = linked.n_slots
+    prologue = linked.prologue
+    epilogue = linked.epilogue
+
+    def staged(inputs: dict, weights: dict) -> dict:
+        slots: list = [None] * n_slots
+        for k, i in weight_slots.items():
+            slots[i] = weights[k]
+        for k, i in input_slots.items():
+            slots[i] = inputs[k]
+        for pre in prologue:
+            pre(slots, None)
+        for thunk in thunks:
+            thunk(slots, None)
+        for epi in epilogue:
+            epi(slots, None)
+        return {name: slots[i] for name, i in output_slots
+                if slots[i] is not None}
+
+    return staged
 
 
 def link(bound: rbl_mod.BoundProgram, driver,
@@ -435,7 +534,11 @@ def link(bound: rbl_mod.BoundProgram, driver,
     output_slots = tuple((n, slot_of[n]) for n, t in prog.tensors.items()
                          if t.kind == "output")
     missing = tuple((n, slot_of[n]) for n in bound.missing_inputs)
+    input_slots = {n: slot_of[n] for n, t in prog.tensors.items()
+                   if t.kind == "input"}
+    weight_slots = {n: slot_of[n] for n, t in prog.tensors.items()
+                    if t.kind == "weight"}
     return LinkedProgram(prog, driver, slot_of, names, thunks, block_spans,
-                         output_slots, missing, tuple(free_lists),
+                         input_slots, weight_slots, output_slots, missing, tuple(free_lists),
                          n_compute, plan, tuple(prologue), tuple(epilogue),
                          tuple(dst_lists))

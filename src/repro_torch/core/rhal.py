@@ -21,6 +21,10 @@ Split-phase DMA: ``dma_async`` returns a ``DmaTicket`` stamped with the
 source payload's CRC-32; ``dma_wait`` verifies the delivered buffer against
 it (one device-to-host read-back on CUDA) and re-issues a bounded number of
 times before raising ``IntegrityError(kind="dma_crc")``.
+
+The capture driver (``make_capture_driver``) fills the same slots with
+work a CUDA graph can hold: no sync, no read of the host, no CRC stamp.
+``Executor.fuse`` and ``Executor.run_batched`` link against it.
 """
 from __future__ import annotations
 
@@ -358,4 +362,97 @@ def make_eager_driver(device="cuda", arena_bytes: Optional[int] = None,
                   device=dev, link_compute=link_compute, dma_async=dma_async,
                   dma_wait=dma_wait_, dma_async_batch=dma_async_batch,
                   arena=arena)
+    return d
+
+
+# ---------------------------------------------------------------------------
+# Capture driver: every slot can be recorded into a CUDA graph.
+# ---------------------------------------------------------------------------
+
+def make_capture_driver(device="cuda") -> HalDriver:
+    """The port's counterpart of the JAX package's ``make_trace_driver``:
+    the slots the executor stages the whole RCB program through, for
+    ``Executor.fuse`` (one CUDA graph) and ``Executor.run_batched`` (one
+    graph per batch bucket, under ``torch.func.vmap``).
+
+    No slot syncs or reads the host, so none of the eager driver's sync
+    and host-read points is reached: ``wait_dma``, ``dispatch_compute`` and
+    ``fence`` do not synchronize, and no DMA is stamped with (or checked
+    against) a CRC of the host copy. ``alloc`` is ``torch.zeros`` on the
+    device, ``fence`` and ``poll`` are no-ops, and a DMA in any direction
+    is a device copy of a tensor that is already on the device (the caller
+    stages inputs first). ``bind_const`` makes its tensor once per value,
+    on the first (uncaptured) run, and hands the same tensor to every later
+    run, since a host-to-device copy cannot be captured. ``link_compute``
+    resolves kernel opcodes through the registry, as the eager driver's
+    does."""
+    dev = device_mod.resolve(device)
+    consts: dict[int, tuple] = {}          # id(value) -> (value, tensor)
+
+    def device_copy(buf) -> torch.Tensor:
+        if isinstance(buf, torch.Tensor) and buf.device == dev:
+            return buf.clone()
+        if dev.type == "cpu":
+            return as_tensor(buf, dev).clone()
+        raise DmaError(f"capture driver: DMA source is not a tensor on "
+                       f"{dev} ({type(buf).__name__}); stage it on the "
+                       f"device before the captured run")
+
+    def alloc(shape, dtype):
+        return torch.zeros(tuple(shape), dtype=torch_dtype(dtype), device=dev)
+
+    def free(buf):
+        return None
+
+    def bind_const(value):
+        hit = consts.get(id(value))
+        if hit is None or hit[0] is not value:
+            hit = consts[id(value)] = (value,
+                                       torch.as_tensor(value, device=dev))
+        return hit[1]
+
+    def initiate_dma(host_buf, direction):
+        return device_copy(host_buf)
+
+    def wait_dma(buf):
+        return buf                                 # ordered by the stream
+
+    def dma_async(host_buf, direction, prefetched=False):
+        return DmaTicket(device_copy(host_buf), direction, 0, prefetched)
+
+    def dma_wait_(ticket):
+        ticket.redeem()                            # double-wait raises
+        return ticket.buf
+
+    def dma_async_batch(host_bufs, direction, prefetched=False):
+        return [dma_async(h, direction, prefetched) for h in host_bufs]
+
+    def dispatch_compute(op, srcs, attrs):
+        d._count("dispatch")
+        return oplib.compute(op, srcs, attrs)      # no sync
+
+    def collective(kind, x, attrs):
+        return x                                   # one device: identity
+
+    def fence(bufs):
+        return None
+
+    def poll(buf):
+        return True
+
+    def donate(buf):
+        return buf
+
+    def link_compute(op, attrs):
+        if op in oplib.OP_KERNELS:
+            from repro_torch.kernels import registry
+            return registry.linked_handler(oplib.OP_KERNELS[op], attrs)
+        fn = oplib.lookup(op)
+        return lambda *srcs: fn(srcs, attrs)
+
+    d = HalDriver(f"capture_{dev.type}", alloc, free, bind_const,
+                  initiate_dma, wait_dma, dispatch_compute, collective, fence,
+                  poll, donate, device=dev, link_compute=link_compute,
+                  dma_async=dma_async, dma_wait=dma_wait_,
+                  dma_async_batch=dma_async_batch)
     return d

@@ -539,7 +539,8 @@ class Platform:
                               ("watchdog_preempt", "watchdog_preemptions"),
                               ("dma_retry", "dma_retries"),
                               ("rimfs_fsck", "rimfs_fscks"),
-                              ("tile_failure", "tile_failures")):
+                              ("tile_failure", "tile_failures"),
+                              ("batched_fallback", "batched_fallbacks")):
             self.events.register(
                 kind, lambda p, c=counter: self.telemetry.incr(
                     c, p.get("n", 1)))

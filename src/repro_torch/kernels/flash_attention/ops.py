@@ -1,10 +1,13 @@
 """Public wrapper for the flash-attention kernel, layout (B, S, H, D).
 
-On a CUDA tensor it launches the hand-written kernel
-(``csrc/flash_attention.cu``: bf16/f16 on the tensor cores, fp32 on the CUDA
-cores) on the current stream, or raises; on a CPU tensor it computes the
-plain version (``ref.py``). Nothing falls back from one to the other.
-``flash_attention.launches`` counts kernel launches.
+The wrapper checks the contract and calls the custom op
+``torch.ops.aeg.flash_attention``. On a CUDA tensor the op launches the
+hand-written kernel (``csrc/flash_attention.cu``: bf16/f16 on the tensor
+cores, fp32 on the CUDA cores) on the current stream, or raises; on a CPU
+tensor it computes the plain version (``ref.py``). Nothing falls back from
+one to the other. The op's vmap rule folds the lane axis into B, so a
+program mapped over a batch (``Executor.run_batched``) launches the kernel
+once. ``flash_attention.launches`` counts kernel launches.
 """
 from __future__ import annotations
 
@@ -12,7 +15,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.common import (DTYPE_CODE, check_float_dtype,
-                                        check_rank)
+                                        check_rank, fold_lanes, unfold_lanes)
 from repro_torch.kernels.flash_attention.ref import attention_ref_bshd
 
 HEAD_DIMS = (16, 64, 128)         # the CUDA kernel's template instances
@@ -57,10 +60,22 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if len(devices) != 1:
         raise ValueError(f"flash_attention: operands on several devices "
                          f"{sorted(map(str, devices))}")
-    if q.device.type == "cpu":
-        return attention_ref_bshd(q, k, v, causal=causal)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_attention: unsupported device {q.device}")
+    return _flash_attention_op(q, k, v, bool(causal))
+
+
+@torch.library.custom_op(
+    "aeg::flash_attention", mutates_args=(), device_types="cpu",
+    schema="(Tensor q, Tensor k, Tensor v, bool causal) -> Tensor")
+def _flash_attention_op(q, k, v, causal):
+    """The op ``flash_attention`` dispatches to: the plain version on the
+    CPU, the hand kernel on CUDA (``_launch``), nothing elsewhere."""
+    return attention_ref_bshd(q, k, v, causal=causal)
+
+
+@_flash_attention_op.register_kernel("cuda")
+def _launch(q, k, v, causal):
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"flash_attention: the kernel takes one dtype, got "
                          f"q {q.dtype}, k {k.dtype}, v {v.dtype}")
@@ -85,6 +100,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     build.check(lib, err, "flash_attention")
     flash_attention.launches += 1
     return o
+
+
+@_flash_attention_op.register_vmap
+def _vmap(info, in_dims, q, k, v, causal):
+    """Under ``torch.func.vmap`` the lane axis folds into B: one launch
+    covers every lane (lane j's heads are batch rows [j*B, (j+1)*B))."""
+    n = info.batch_size
+    q, k, v = fold_lanes(n, in_dims[:3], (q, k, v))
+    return unfold_lanes(n, _flash_attention_op(q, k, v, causal)), 0
 
 
 flash_attention.launches = 0

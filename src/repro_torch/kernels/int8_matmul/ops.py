@@ -4,20 +4,24 @@ int8 with an int32 accumulator.
 ``int8_matmul`` returns ``f32(acc) * scale[n]`` in fp32, bf16 or f16 (the
 JAX package's ``int8_matmul``, ``Op.MATMUL_INT8``); ``int8_matmul_i32``
 returns the raw int32 sums (``Op.GEMM_I8``, and ``Op.CONV2D_I8`` after an
-im2col). On CUDA tensors both launch the hand-written kernel
-(``csrc/int8_matmul.cu``) on the current stream, or raise; on CPU tensors
-they compute the plain version (``ref.py``). Nothing falls back from one to
-the other. ``int8_matmul.launches`` counts the kernel's launches through
+im2col). Each calls its custom op (``torch.ops.aeg.int8_matmul``,
+``torch.ops.aeg.int8_matmul_i32``). On CUDA tensors both launch the
+hand-written kernel (``csrc/int8_matmul.cu``) on the current stream, or
+raise; on CPU tensors they compute the plain version (``ref.py``). Nothing
+falls back from one to the other. Under ``torch.func.vmap`` the lane axis
+folds into M when only x carries it, else the kernel launches once per
+lane. ``int8_matmul.launches`` counts the kernel's launches through
 either wrapper.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.dtypes import name_of
+from repro_torch.dtypes import name_of, torch_dtype
 from repro_torch.kernels import build
 from repro_torch.kernels.common import (DTYPE_CODE, FLOAT_DTYPES,
-                                        check_rank, sm_count)
+                                        check_rank, fold_lanes, lane,
+                                        sm_count, unfold_lanes)
 from repro_torch.kernels.int8_matmul.ref import (int8_matmul_i32_ref,
                                                  int8_matmul_ref)
 
@@ -152,22 +156,70 @@ def int8_matmul(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     if out_dtype not in FLOAT_DTYPES:
         raise ValueError(f"int8_matmul: unsupported out_dtype {out_dtype}; "
                          f"supported: float32, bfloat16, float16")
-    if _device_of(x, w, scale).type == "cpu":
-        return int8_matmul_ref(x, w, scale, out_dtype)
-    scale = scale.float().contiguous()   # exact, as the TPU kernel reads it
-    out = torch.empty((x.shape[0], w.shape[1]), dtype=out_dtype,
-                      device=x.device)
-    return _launch(x, w, scale, out, DTYPE_CODE[out_dtype])
+    _device_of(x, w, scale)
+    return _scaled_op(x, w, scale, name_of(out_dtype))
 
 
 def int8_matmul_i32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x: (M, K) int8; w: (K, N) int8. Returns the exact int32 sums."""
     check_contract_i32(x, w)
-    if _device_of(x, w).type == "cpu":
-        return int8_matmul_i32_ref(x, w)
+    _device_of(x, w)
+    return _i32_op(x, w)
+
+
+@torch.library.custom_op(
+    "aeg::int8_matmul", mutates_args=(), device_types="cpu",
+    schema="(Tensor x, Tensor w, Tensor scale, str out_dtype) -> Tensor")
+def _scaled_op(x, w, scale, out_dtype):
+    """The op ``int8_matmul`` dispatches to: the plain version on the CPU,
+    the hand kernel on CUDA, nothing elsewhere."""
+    return int8_matmul_ref(x, w, scale, torch_dtype(out_dtype))
+
+
+@_scaled_op.register_kernel("cuda")
+def _scaled_cuda(x, w, scale, out_dtype):
+    dt = torch_dtype(out_dtype)
+    scale = scale.float().contiguous()   # exact, as the TPU kernel reads it
+    out = torch.empty((x.shape[0], w.shape[1]), dtype=dt, device=x.device)
+    return _launch(x, w, scale, out, DTYPE_CODE[dt])
+
+
+@torch.library.custom_op(
+    "aeg::int8_matmul_i32", mutates_args=(), device_types="cpu",
+    schema="(Tensor x, Tensor w) -> Tensor")
+def _i32_op(x, w):
+    """The op ``int8_matmul_i32`` dispatches to, as ``_scaled_op``."""
+    return int8_matmul_i32_ref(x, w)
+
+
+@_i32_op.register_kernel("cuda")
+def _i32_cuda(x, w):
     out = torch.empty((x.shape[0], w.shape[1]), dtype=torch.int32,
                       device=x.device)
     return _launch(x, w, None, out, -1)
+
+
+def _lanes(op, info, in_dims, tensors, extra=()):
+    """vmap rule of both ops. Where only x carries the lane axis, it folds
+    into M: one launch covers every lane. Where w (or scale) carries it,
+    as for a ``MATMUL_INT8`` program whose w is a request input, the lanes
+    share no operand the kernel could stack along M, so the rule launches
+    the kernel once per lane (``info.batch_size`` launches) and stacks the
+    outputs."""
+    n = info.batch_size
+    if all(d is None for d in in_dims[1:len(tensors)]):
+        (x,) = fold_lanes(n, in_dims[:1], tensors[:1])
+        return unfold_lanes(n, op(x, *tensors[1:], *extra)), 0
+    return torch.stack([
+        op(*(lane(t, d, j) for t, d in zip(tensors, in_dims)), *extra)
+        for j in range(n)]), 0
+
+
+_scaled_op.register_vmap(
+    lambda info, in_dims, x, w, scale, out_dtype: _lanes(
+        _scaled_op, info, in_dims, (x, w, scale), (out_dtype,)))
+_i32_op.register_vmap(
+    lambda info, in_dims, x, w: _lanes(_i32_op, info, in_dims, (x, w)))
 
 
 int8_matmul.launches = 0

@@ -1,8 +1,13 @@
 """Kernel registry — the seam between RCB kernel opcodes and hand kernels.
 
 The port's counterpart of ``repro.kernels.registry``, with the
-``attention``, ``matmul_int8``, ``ssm_scan`` and ``wkv6`` specs. Each spec holds the hand-kernel
-wrapper, its plain PyTorch version and the shape contract. The op attr
+``attention``, ``matmul_int8``, ``ssm_scan`` and ``wkv6`` specs. Each spec
+holds the hand-kernel wrapper, its plain PyTorch version and the shape
+contract. Each wrapper calls a ``torch.library.custom_op`` (namespace
+``aeg``) whose CPU implementation is the plain version, whose CUDA
+implementation is the hand kernel, and whose vmap rule folds a batch of
+lanes into the kernel's own leading axis, as ``pallas_call``'s batching
+rule does for the JAX package's ``jax.vmap``. The op attr
 ``impl`` keeps its meaning for programs written by the JAX package:
 ``"ref"`` runs the plain version, ``"pallas"`` (or no ``impl``) runs the
 hand kernel. The hand kernel's wrapper computes the plain version itself
@@ -82,6 +87,15 @@ def call_op(name: str, srcs, attrs) -> Any:
         return call("matmul_int8", *srcs, impl=attrs.get("impl"),
                     out_dtype=torch_dtype(attrs.get("out_dtype", "float32")))
     return call(name, *srcs, impl=attrs.get("impl"))
+
+
+def launch_counters() -> dict:
+    """Every kernel wrapper, by the name of its kernel: each holds the
+    ``launches`` count of its kernel (``int8_matmul``'s counts both of
+    its wrappers)."""
+    return {"flash_attention": fa_ops.flash_attention,
+            "ssm_scan": ss_ops.ssm_scan, "wkv6": wk_ops.wkv6,
+            "int8_matmul": im_ops.int8_matmul}
 
 
 def linked_handler(name: str, attrs) -> Callable:

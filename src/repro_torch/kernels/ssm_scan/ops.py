@@ -5,7 +5,9 @@ On a CUDA tensor it launches one of the two hand-written instances of
 (operands streamed through shared memory by asynchronous 16-byte copies)
 where its 16-byte rows allow, else the row-wise instance. ``plan_for``
 picks the instance and its launch shape. On a CPU tensor it computes the
-plain version (``ref.py``). Nothing falls back from one to the other.
+plain version (``ref.py``). Nothing falls back from one to the other. The
+wrapper reaches either through the custom op ``torch.ops.aeg.ssm_scan``,
+whose vmap rule folds the lane axis into B (one launch for every lane).
 ``ssm_scan.launches`` counts kernel launches.
 """
 from __future__ import annotations
@@ -17,7 +19,8 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.common import (DTYPE_CODE, check_float_dtype,
-                                        check_rank, sm_count)
+                                        check_rank, fold_lanes, sm_count,
+                                        unfold_lanes)
 from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
 
 STATE_SIZES = (4, 8, 16, 32)      # the CUDA kernel's template instances
@@ -155,10 +158,22 @@ def ssm_scan(da: torch.Tensor, bx: torch.Tensor,
     if len(devices) != 1:
         raise ValueError(f"ssm_scan: operands on several devices "
                          f"{sorted(map(str, devices))}")
-    if da.device.type == "cpu":
-        return ssm_scan_ref(da, bx, c)
-    if da.device.type != "cuda":
+    if da.device.type not in ("cpu", "cuda"):
         raise ValueError(f"ssm_scan: unsupported device {da.device}")
+    return _ssm_scan_op(da, bx, c)
+
+
+@torch.library.custom_op(
+    "aeg::ssm_scan", mutates_args=(), device_types="cpu",
+    schema="(Tensor da, Tensor bx, Tensor c) -> Tensor")
+def _ssm_scan_op(da, bx, c):
+    """The op ``ssm_scan`` dispatches to: the plain version on the CPU, the
+    hand kernel on CUDA (``_launch``), nothing elsewhere."""
+    return ssm_scan_ref(da, bx, c)
+
+
+@_ssm_scan_op.register_kernel("cuda")
+def _launch(da, bx, c):
     if bx.dtype != da.dtype or c.dtype != da.dtype:
         raise ValueError(f"ssm_scan: the kernel takes one dtype, got "
                          f"da {da.dtype}, bx {bx.dtype}, c {c.dtype}")
@@ -166,6 +181,15 @@ def ssm_scan(da: torch.Tensor, bx: torch.Tensor,
     y = run_plan(da, bx, c, plan_of(da, bx, c))
     ssm_scan.launches += 1
     return y
+
+
+@_ssm_scan_op.register_vmap
+def _vmap(info, in_dims, da, bx, c):
+    """Under ``torch.func.vmap`` the lane axis folds into B: one launch
+    covers every lane."""
+    n = info.batch_size
+    return unfold_lanes(n, _ssm_scan_op(*fold_lanes(n, in_dims,
+                                                    (da, bx, c)))), 0
 
 
 ssm_scan.launches = 0

@@ -2,8 +2,9 @@
 
 On a CUDA tensor it launches the hand-written chunked scan (``csrc/wkv6.cu``)
 on the current stream, or raises; on a CPU tensor it computes the plain
-version (``ref.py``). Nothing falls back from one to the other.
-``wkv6.launches`` counts calls that launched the scan: each is two kernel
+version (``ref.py``). Nothing falls back from one to the other. The wrapper
+reaches either through the custom op ``torch.ops.aeg.wkv6``, whose vmap rule
+folds the lane axis into B. ``wkv6.launches`` counts calls that launched the scan: each is two kernel
 launches (local chunk states, then outputs), three above ``INBLOCK_CHUNKS``
 chunks of 64 steps, where a carry kernel builds the entering states.
 """
@@ -13,7 +14,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.common import (DTYPE_CODE, check_float_dtype,
-                                        check_rank)
+                                        check_rank, fold_lanes, unfold_lanes)
 from repro_torch.kernels.wkv6.ref import wkv6_ref_bthk
 
 HEAD_SIZES = (8, 16, 32, 64)      # the CUDA kernel's template instances
@@ -58,10 +59,22 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if len(devices) != 1:
         raise ValueError(f"wkv6: operands on several devices "
                          f"{sorted(map(str, devices))}")
-    if r.device.type == "cpu":
-        return wkv6_ref_bthk(r, k, v, lw, u)
-    if r.device.type != "cuda":
+    if r.device.type not in ("cpu", "cuda"):
         raise ValueError(f"wkv6: unsupported device {r.device}")
+    return _wkv6_op(r, k, v, lw, u)
+
+
+@torch.library.custom_op(
+    "aeg::wkv6", mutates_args=(), device_types="cpu",
+    schema="(Tensor r, Tensor k, Tensor v, Tensor lw, Tensor u) -> Tensor")
+def _wkv6_op(r, k, v, lw, u):
+    """The op ``wkv6`` dispatches to: the plain version on the CPU, the
+    hand kernel on CUDA (``_launch``), nothing elsewhere."""
+    return wkv6_ref_bthk(r, k, v, lw, u)
+
+
+@_wkv6_op.register_kernel("cuda")
+def _launch(r, k, v, lw, u):
     if not k.dtype == v.dtype == lw.dtype == r.dtype:
         raise ValueError(f"wkv6: the kernel takes one dtype for r, k, v, lw, "
                          f"got {r.dtype}, {k.dtype}, {v.dtype}, {lw.dtype}")
@@ -85,6 +98,20 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     build.check(lib, err, "wkv6")
     wkv6.launches += 1
     return y
+
+
+@_wkv6_op.register_vmap
+def _vmap(info, in_dims, r, k, v, lw, u):
+    """Under ``torch.func.vmap`` the lane axis folds into B: one call
+    covers every lane. The kernel takes one u (H, K) for all of B, so a u
+    that differs by lane cannot fold, and raises."""
+    if in_dims[4] is not None:
+        raise ValueError("wkv6: u carries the vmap lane axis; the kernel "
+                         "takes one (H, K) bonus for every batch row, so "
+                         "the lanes cannot fold into B")
+    n = info.batch_size
+    r, k, v, lw = fold_lanes(n, in_dims[:4], (r, k, v, lw))
+    return unfold_lanes(n, _wkv6_op(r, k, v, lw, u)), 0
 
 
 wkv6.launches = 0

@@ -23,7 +23,12 @@ Flow per request:
   dispatcher:      drains the scheduler through admit(1) in priority/EDF
                    order -> shed? ERROR/F_SHED with the verdict, before any
                    compute -> else the linked Executor path on the device;
-                   results return to the host for the reply
+                   results return to the host for the reply. When the
+                   program passes the batch analysis, a backlog that is
+                   ALREADY queued behind the head coalesces (up to
+                   ``batch_window`` requests of one shape) into one
+                   ``Executor.run_batched`` dispatch: one CUDA graph
+                   replay per batch bucket
   SHUTDOWN:        graceful drain — queued work is answered, then stop.
 
 PROVISION binds with the executor's driver, so the weight image is pinned
@@ -43,6 +48,7 @@ from typing import Any, Optional
 
 import numpy as np
 
+from repro_torch.core import linker as linker_mod
 from repro_torch.core.executor import Executor
 from repro_torch.core.integrity import IntegrityError
 from repro_torch.core.rhal import TileFailure
@@ -157,7 +163,7 @@ class InferenceServer:
                  device="cuda", artifacts: Optional[dict] = None,
                  scheduler: Optional[DeadlineScheduler] = None,
                  max_queue: int = 128, max_frame: int = proto.MAX_FRAME,
-                 send_timeout: float = 30.0,
+                 send_timeout: float = 30.0, batch_window: int = 8,
                  watchdog: bool = True, watchdog_slack: float = 16.0,
                  watchdog_floor: float = 2.0, watchdog_poll: float = 0.02):
         self.platform = Platform(device=device)
@@ -169,6 +175,16 @@ class InferenceServer:
         self.max_frame = max_frame
         self.max_queue = max_queue
         self.send_timeout = send_timeout
+        # Dispatcher request coalescing: up to this many compatible
+        # backlogged requests dispatch as ONE batched execution. 1 disables
+        # coalescing. The window never delays a solo request — it only
+        # widens over work that is ALREADY queued when the EDF head is
+        # popped. ``fallbacks`` counts requests re-run one by one after a
+        # batched dispatch failed (each also posts a platform event).
+        self.batch_window = max(1, int(batch_window))
+        self.batched_stats = {"dispatches": 0, "requests": 0,
+                              "max_batch": 0, "fallbacks": 0,
+                              "seconds": 0.0}
         self._sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
         self._sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
         self._sock.bind((host, port))
@@ -216,6 +232,10 @@ class InferenceServer:
                     r.send(proto.Msg.ERROR, payload, rid=srid,
                            flags=proto.F_DRAINING, version=sver)
                 self._sock.close()
+                if self._bound is not None and not self._loop.alive():
+                    # the batch buckets hold the bound weights: the
+                    # module-wide cache must not outlive the server
+                    Executor.release_graphs(self._bound)
         if self._thread and self._thread is not threading.current_thread():
             self._thread.join(timeout=5)
 
@@ -377,12 +397,43 @@ class InferenceServer:
             route.send(proto.Msg.ERROR, proto.pack_json({"error": str(e)}),
                        rid=rid, version=ver)
 
+    def _coalescible(self) -> bool:
+        """True when backlogged requests may batch: the program is
+        provisioned and passes the batch analysis — otherwise a batched
+        dispatch would just serialize inside run_batched and inflate queue
+        wait for nothing. (The JAX package also refuses while a tile mesh
+        or a canary is attached; the port has neither yet.)"""
+        return (self.batch_window > 1 and self._bound is not None
+                and linker_mod.batch_analysis(self._bound).batchable)
+
+    @staticmethod
+    def _tensor_sig(tensors: dict) -> tuple:
+        """Shape/dtype signature two requests must share to ride one
+        batched dispatch (they stack on a new leading axis)."""
+        sig = []
+        for k, v in tensors.items():
+            if not hasattr(v, "dtype"):
+                v = np.asarray(v)
+            sig.append((k, tuple(v.shape), str(v.dtype)))
+        return tuple(sorted(sig))
+
     def _drain_plain(self) -> bool:
         """Drain the admission queue in priority/EDF order: shed infeasible
-        requests with their verdicts, execute the rest one by one."""
+        requests with their verdicts, execute the rest.
+
+        Coalescing: EDF picks the head as before; when the program is
+        batchable, a bounded batch window then gathers up to
+        ``batch_window - 1`` more requests that are ALREADY in the backlog
+        (``admit`` pops only queued work — a solo request is never delayed
+        waiting for company). Same-signature runs dispatch as one batched
+        execution (replies scatter back by request id); signature changes
+        split the window, preserving admission order. A run of one stays
+        on ``Executor.run``."""
         progressed = False
         while True:
             admitted = self.scheduler.admit(1)
+            if admitted and self._coalescible():
+                admitted += self.scheduler.admit(self.batch_window - 1)
             for s in self.scheduler.drain_shed():
                 r, srid, sver, _ = s.payload
                 r.send(proto.Msg.ERROR,
@@ -391,9 +442,21 @@ class InferenceServer:
                 progressed = True
             if not admitted:
                 return progressed
+            # split the admitted window into maximal same-signature runs
+            # (EDF order preserved across runs)
+            runs: list = []
             for s in admitted:
-                self._dispatch_single(s)
-            progressed = True
+                sig = self._tensor_sig(s.payload[3])
+                if runs and runs[-1][0] == sig:
+                    runs[-1][1].append(s)
+                else:
+                    runs.append((sig, [s]))
+            for _, run in runs:
+                if len(run) == 1:
+                    self._dispatch_single(run[0])
+                else:
+                    self._dispatch_batch(run)
+                progressed = True
 
     def _dispatch_single(self, s) -> None:
         r, srid, sver, sts = s.payload
@@ -430,6 +493,66 @@ class InferenceServer:
         r.send_final(s, proto.Msg.INFER_RESPONSE, proto.pack_tensors(out),
                      rid=srid, version=sver)
 
+    def _dispatch_batch(self, run: list) -> None:
+        """One coalesced dispatch for a same-signature request run.
+
+        The whole run executes through ``Executor.run_batched`` (one
+        captured graph per batch bucket); replies scatter back by request
+        id, and telemetry and the scheduler EWMA are fed the per-request
+        AMORTIZED latency — the whole batch's wall time would make the
+        admission policy believe a step costs batch_size times what a
+        request actually experiences, and shed feasible work.
+
+        A failed batched dispatch retries each member through the solo path
+        (which reports its own error if the failure is really the
+        request's), as the JAX package's server does; the failure is never
+        silent: every retried request counts in ``fallbacks`` and the error
+        is posted as a ``batched_fallback`` platform event."""
+        if self._bound is None:
+            for s in run:                       # mirror _infer's refusal
+                r, srid, sver, _ = s.payload
+                r.send_final(s, proto.Msg.ERROR,
+                             proto.pack_json({"error": "not provisioned"}),
+                             rid=srid, version=sver)
+            return
+        wd = self._loop.watchdog
+        self._executing = run
+        failed: Optional[Exception] = None
+        t0 = time.perf_counter()
+        try:
+            if wd is not None:
+                wd.arm(run)
+            outs = self.executor.run_batched(
+                self._bound, [s.payload[3] for s in run],
+                rimfs=self.platform.rimfs)
+            outs = [{k: to_host(v) for k, v in out.items()} for out in outs]
+        except Exception as e:
+            failed = e
+        finally:
+            if wd is not None:
+                wd.disarm()
+            self._executing = None
+        if failed is not None:
+            self.batched_stats["fallbacks"] += len(run)
+            self.platform.post("batched_fallback",
+                               {"n": len(run), "error": repr(failed)})
+            for s in run:
+                self._dispatch_single(s)
+            return
+        wall = time.perf_counter() - t0
+        amortized = wall / len(run)
+        st = self.batched_stats
+        st["dispatches"] += 1
+        st["requests"] += len(run)
+        st["max_batch"] = max(st["max_batch"], len(run))
+        st["seconds"] += wall
+        for s, out in zip(run, outs):
+            r, srid, sver, _ = s.payload
+            self.platform.telemetry.record_latency(amortized)
+            self.scheduler.observe_step_latency(amortized)
+            r.send_final(s, proto.Msg.INFER_RESPONSE,
+                         proto.pack_tensors(out), rid=srid, version=sver)
+
     def _drop_work(self, work: _Work) -> None:
         """close(drain=False) hand-back: refuse explicitly, never drop a
         request whose submit was already acknowledged."""
@@ -440,21 +563,29 @@ class InferenceServer:
                             flags=proto.F_DRAINING,
                             version=work.frame.version)
             return
-        # a dropped KICK may stand for the dispatch a wedged worker is still
-        # executing: refuse it (send_final keeps the reply exactly-once)
-        s = self._executing
-        if s is None:
+        # a dropped KICK may stand for the dispatch (one request, or a
+        # batched run of them) a wedged worker is still executing: refuse
+        # it (send_final keeps the reply exactly-once)
+        ex = self._executing
+        if ex is None:
             return
-        r, srid, sver, _ = s.payload
-        r.send_final(s, proto.Msg.ERROR,
-                     proto.pack_json({"error": "preempted: dispatcher "
-                                      "closing"}),
-                     rid=srid, flags=proto.F_DRAINING, version=sver)
+        payload = proto.pack_json({"error": "preempted: dispatcher "
+                                   "closing"})
+        for s in (ex if isinstance(ex, list) else [ex]):
+            r, srid, sver, _ = s.payload
+            r.send_final(s, proto.Msg.ERROR, payload, rid=srid,
+                         flags=proto.F_DRAINING, version=sver)
 
     def _telemetry_summary(self) -> dict:
         s = dict(self.platform.telemetry.summary(warmup=1))
+        batched = dict(self.batched_stats)
+        if self._bound is not None:
+            verdict = linker_mod.batch_analysis(self._bound)
+            batched.update(batchable=verdict.batchable,
+                           reason=verdict.reason)
         s["serving"] = {**self._loop.summary(),
-                        "shed": self.scheduler.shed_count}
+                        "shed": self.scheduler.shed_count,
+                        "batched": batched}
         s["counters"] = self.platform.telemetry.counters()
         s["device"] = str(self.platform.driver.device)
         return s
@@ -466,6 +597,11 @@ class InferenceServer:
         _, image = proto.decode_frame(view, max_frame=self.max_frame)
         rest = view[proto.HEADER.size + len(image) + 4:]
         _, prog = proto.decode_frame(rest, max_frame=self.max_frame)
+        if self._bound is not None:
+            # the graphs read the old image's pinned weights in place:
+            # drop them (and their memory pools) before it is unpinned
+            Executor.release_graphs(self._bound)
+            self._bound = None
         self.platform.provision(image=image, program_bytes=prog)
         self._bound = self.platform.bind(driver=self.executor.driver,
                                          artifacts=self.artifacts)
