@@ -56,9 +56,25 @@ Phases, each printing one JSON line with its times:
      captured as a CUDA graph and replayed, bit for bit against
      ``Executor.run``, with the capture's seconds, one replay's launches,
      the host wall of a replay beside a linked run's and the replay's
-     device time); then the card-only tests of both
-     (``tests/test_torch_graphs_gpu.py``, in a process of their own);
-  7. one ``kernels`` line: per kernel its launches on every served path
+     device time);
+  7. the LM serving engine: first at qwen2-1.5B's full width cut to 2
+     layers in bf16 and 1 layer in fp32 (two ``engine_reduced_depth``
+     lines: each prefill group's last-position logits on the kernel
+     against the plain attention, each greedy stream against an offline
+     recompute, gated on the fp32 layer), then at full depth
+     (``slice_engine``):
+     packed into a RIMFS image, pinned by ``ServingEngine.from_rimfs`` (4
+     slots of 640 rows) and served by the InferenceServer: six greedy
+     prompts of 512, 512, 256, 256, 100 and 37 tokens with 32 new tokens
+     each, held until all are queued; the tokens against a local engine fed
+     the same prefill groups (bit for bit), every attention call of each
+     prefill against the plain version on the same q, k, v, 28
+     ``flash_attention`` launches a prefill and none a decode step; the
+     same prompts again, not held; the host wall and device time of a
+     decode step and of each prefill shape; then the card-only tests of the
+     fused and batched graphs (``tests/test_torch_graphs_gpu.py``, in a
+     process of their own);
+  8. one ``kernels`` line: per kernel its launches on every served path
      (and on each one's fused and batched paths), its error against its
      plain version, its time, its bound and the library's.
 
@@ -75,6 +91,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -307,6 +324,9 @@ def phase_attention(torch, seed: int) -> dict:
                   (1, 100, 300, 12, 2, 128, dtype, False),
                   (1, 300, 100, 12, 2, 128, dtype, True),   # Sk < S
                   (1, 300, 100, 12, 2, 128, dtype, False)]
+    # the serving engine's prefill groups (qwen2-1.5B)
+    cases += [(b, n, n, 12, 2, 128, "bfloat16", True)
+              for b, n in ((2, 512), (2, 256), (1, 512), (1, 100), (1, 37))]
     worst = 0.0
     results = []
     for case in cases:
@@ -962,7 +982,6 @@ def held_burst(torch, server, client, burst: list, output: str) -> dict:
     request is queued, so the backlog reaches the dispatcher at once, and
     collect the replies. Returns them with the wall from the release to
     the last reply and what the server's ``batched_stats`` gained."""
-    import threading
     gate, started = threading.Event(), threading.Event()
     inner, idle = server._loop.handler, server._loop.on_idle
 
@@ -1612,6 +1631,404 @@ def phase_slice_resnet(torch, seed: int, int8: bool) -> dict:
     return paths
 
 
+# the LM serving engine: qwen2-1.5B, 4 slots of 640 rows; six prompts, the
+# first four fill the slots (two prefill groups of B = 2), the last two wait
+ENGINE_PROMPTS = (512, 512, 256, 256, 100, 37)
+ENGINE_MAX_NEW = 32
+ENGINE_SLOTS, ENGINE_MAX_SEQ = 4, 640
+ENGINE_TOL = TOLERANCE["bfloat16"]           # of max |logit|, as bf16 is held
+
+
+def instrument_engine(torch, eng, keep: bool = False) -> list:
+    """Record every prefill and decode step of ``eng`` as it runs: the
+    step, its (B, S) input, the ``flash_attention`` launches it made and
+    its host wall to a sync; with ``keep``, also the prefill's tokens and
+    last-position logits. The engine's own code is not changed: its step
+    functions are wrapped."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    log: list = []
+
+    def wrap(kind, fn):
+        def step(*args):
+            batch = args[-1]
+            n0, t0 = flash_attention.launches, time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            entry = {"step": kind, "shape": list(batch["inputs"].shape),
+                     "fa_launches": flash_attention.launches - n0,
+                     "wall_s": time.perf_counter() - t0}
+            if keep and kind == "prefill":
+                entry.update(tokens=batch["inputs"].clone(),
+                             logits=out[0].clone())
+            log.append(entry)
+            return out
+        return step
+
+    eng._prefill = wrap("prefill", eng._prefill)
+    eng._decode = wrap("decode", eng._decode)
+    return log
+
+
+def engine_launch_check(log: list, layers: int, what: str) -> None:
+    """``flash_attention`` launches: one a layer in every prefill dispatch,
+    none in any decode step."""
+    for e in log:
+        want = layers if e["step"] == "prefill" else 0
+        if e["fa_launches"] != want:
+            raise AssertionError(f"{what}: a {e['step']} of {e['shape']} "
+                                 f"launched flash_attention "
+                                 f"{e['fa_launches']} times, not {want}")
+
+
+def prefill_groups(log: list) -> list:
+    return [e["shape"] for e in log if e["step"] == "prefill"]
+
+
+def greedy_recompute(torch, cfg, params, prompt, served: list) -> dict:
+    """A greedy stream against ``forward_full`` over prompt + tokens so
+    far, one token at a time (the offline recompute of
+    tests/test_serving.py:266), up to the first position whose top two
+    logits lie closer than ENGINE_TOL of the largest |logit| (the decode
+    path's rounding may rightly pick either there) or the first token the
+    recompute's argmax disagrees with. Returns both positions (None when
+    not reached) and the number of tokens that agreed."""
+    from repro_torch.models import transformer as tf
+    seq = torch.as_tensor(prompt, device="cuda").long()
+    for t, tok in enumerate(served):
+        logits = tf.forward_full(cfg, params, seq[None])[0][0, -1].float()
+        top = torch.topk(logits, 2)
+        gap = (top.values[0] - top.values[1]).item()
+        if gap < ENGINE_TOL * logits.abs().max().item():
+            return {"near_tie_at": t, "mismatch_at": None, "agreed": t}
+        if int(top.indices[0]) != tok:
+            return {"near_tie_at": None, "mismatch_at": t, "agreed": t,
+                    "served": tok, "recompute": int(top.indices[0]),
+                    "top_two_gap": gap}
+        seq = torch.cat([seq, seq.new_tensor([tok])])
+    return {"near_tie_at": None, "mismatch_at": None, "agreed": len(served)}
+
+
+def prefill_logits_vs_plain(torch, cfg, params, log: list) -> list:
+    """Each kept prefill's last-position logits (the engine's, on the
+    kernel) against ``forward_full`` on the same tokens with the plain
+    attention (``impl="ref"``)."""
+    from repro_torch.models import transformer as tf
+    out = []
+    for e in (e for e in log if e["step"] == "prefill"):
+        plain = tf.forward_full(cfg, params, e["tokens"],
+                                impl="ref")[0][:, -1].float()
+        got = e["logits"].float()
+        out.append({"shape": e["shape"],
+                    "finite": bool(torch.isfinite(got).all()),
+                    "max_abs_err": (got - plain).abs().max().item(),
+                    "max_abs_logit": plain.abs().max().item()})
+    return out
+
+
+def attention_in_model(torch, fn) -> list:
+    """Run ``fn`` with every attention call of the model's forward checked
+    in place: the kernel's output against the plain version on the very
+    same q, k, v (the kernel's output goes on). Returns, per call, the
+    shape and max |err| over max |plain|."""
+    from repro_torch.kernels.flash_attention.ref import attention_ref_bshd
+    from repro_torch.models import attention as attn_mod
+    kernel, errs = attn_mod.flash_attention, []
+
+    def checked(q, k, v, causal=True):
+        o = kernel(q, k, v, causal=causal)
+        ref = attention_ref_bshd(q, k, v, causal=causal).float()
+        errs.append({"shape": list(q.shape), "rel_err": (
+            (o.float() - ref).abs().max() / ref.abs().max()).item()})
+        return o
+
+    attn_mod.flash_attention = checked
+    try:
+        fn()
+    finally:
+        attn_mod.flash_attention = kernel
+    return errs
+
+
+def phase_engine_reduced_depth(torch, seed: int, prompts: list, layers: int,
+                               dtype: str, gate_recompute: bool) -> None:
+    """Phase 7a: a local engine at qwen2-1.5B's full width cut to
+    ``layers`` layers in ``dtype``, the same prompts and slots as
+    ``slice_engine``. Gates: each prefill group's last-position logits on
+    the kernel within ENGINE_TOL of the largest |logit| of the same
+    forward on the plain attention; with ``gate_recompute``, each greedy
+    stream equal to the offline recompute up to its first near tie
+    (otherwise the comparison is only printed). The random-weight model
+    is chaotic in depth (``slice_engine``'s docstring says why): in bf16
+    a second layer already lets the decode path's roundings move a token
+    past the tolerance, so the recompute is gated on one fp32 layer."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving.engine import Request, ServingEngine
+    cfg = dataclasses.replace(get_config("qwen2-1.5b"), num_layers=layers,
+                              dtype=dtype)
+    eng = ServingEngine(cfg, tf.init_params(cfg, seed),
+                        max_batch=ENGINE_SLOTS, max_seq=ENGINE_MAX_SEQ)
+    log = instrument_engine(torch, eng, keep=True)
+    reqs = [Request(rid=i, prompt=p, max_new=ENGINE_MAX_NEW)
+            for i, p in enumerate(prompts)]
+    for r in reqs:
+        eng.submit(r)
+    eng.run_until_drained()
+    engine_launch_check(log, cfg.num_layers, f"{layers}-layer engine")
+    logits = prefill_logits_vs_plain(torch, cfg, eng.params, log)
+    for c in logits:
+        if not (c["finite"]
+                and c["max_abs_err"] <= ENGINE_TOL * c["max_abs_logit"]):
+            raise AssertionError(f"{layers}-layer {dtype} engine: prefill "
+                                 f"{c} beyond {ENGINE_TOL} of max |logit|")
+    recompute = [greedy_recompute(torch, cfg, eng.params, p, r.out_tokens)
+                 for p, r in zip(prompts, reqs)]
+    for i, rc in enumerate(recompute):
+        if gate_recompute and rc["mismatch_at"] is not None:
+            raise AssertionError(f"{layers}-layer {dtype} engine: request "
+                                 f"{i} {rc}")
+    emit("engine_reduced_depth", model=cfg.name, layers=layers,
+         dtype=dtype, prefill_groups=prefill_groups(log),
+         prefill_logits=logits, logits_tol=ENGINE_TOL,
+         recompute_gated=gate_recompute, recompute=recompute)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def engine_prompts(seed: int, vocab: int) -> list:
+    import numpy as np
+    rng = np.random.RandomState(seed + 3)
+    return [rng.randint(0, vocab, (n,)).astype(np.int32)
+            for n in ENGINE_PROMPTS]
+
+
+def phase_slice_engine(torch, seed: int) -> dict:
+    """Phase 7b: the LM serving engine. qwen2-1.5B at full width and depth
+    (bf16, random weights from ``seed``) packed into a RIMFS image, pinned
+    on the card by ``ServingEngine.from_rimfs`` and served by the port's
+    InferenceServer: six greedy prompts, sent while the engine is held
+    until all six are queued, answered with tokens through continuous
+    batching. Gates: the served tokens equal a local engine's on the card
+    fed the same prefill groups bit for bit; every attention call of every
+    prefill group agrees with the plain version on the same q, k, v within
+    ENGINE_TOL of its largest |value|; 28 ``flash_attention`` launches a
+    prefill dispatch and none a decode step.
+
+    Reported, not gated: each group's last-position logits against the
+    same forward on the plain attention, each stream against a greedy
+    recompute, and the plain attention's bf16 forward against its fp32
+    one. The JAX package's init draws wq, wk and wv with std 1/sqrt(heads)
+    (fan-in is the heads axis), so q.k reaches hundreds and each softmax
+    is nearly one-hot: a bf16 rounding anywhere moves which key wins in
+    some rows, and after a few of the 28 layers any two bf16 orders of
+    arithmetic give unrelated logits (``phase_engine_reduced_depth`` holds
+    them at 1 and 2 layers). Then the same prompts again, not held, to see
+    whether arrival moved a token; and where a decode step's and a
+    prefill's time goes. Returns the launches of the held run, the main
+    path's."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core import rhal, rimfs
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving.engine import (Request, ServingEngine,
+                                            pack_params_image)
+    from repro_torch.serving.server import Client, InferenceServer
+    cfg = get_config("qwen2-1.5b")
+    t0 = time.perf_counter()
+    params = tf.init_params(cfg, seed)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    image = pack_params_image(params)
+    t_pack = time.perf_counter() - t0 - t_init
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    fs = rimfs.mount(image)
+    prompts = engine_prompts(seed, cfg.vocab_size)
+    n_req = len(prompts)
+
+    torch.cuda.reset_peak_memory_stats()
+    serve_base = torch.cuda.memory_allocated()
+    counters = kernel_counters()
+    for wrapper in counters.values():    # the main path starts here
+        wrapper.launches = 0
+    driver = rhal.make_eager_driver()
+    t1 = time.perf_counter()
+    eng = ServingEngine.from_rimfs(cfg, fs, driver=driver,
+                                   max_batch=ENGINE_SLOTS,
+                                   max_seq=ENGINE_MAX_SEQ)
+    torch.cuda.synchronize()
+    pin_s = time.perf_counter() - t1
+    served_log = instrument_engine(torch, eng)
+    server = InferenceServer(engine=eng)
+    server.start()
+    client = Client(server.address)
+    passes = []
+    try:
+        for held in (True, False):
+            idle = server._loop.on_idle
+            gate = threading.Event()
+            if held:                     # step nothing until all are queued
+                server._loop.on_idle = lambda: idle() if gate.is_set() \
+                    else False
+            first = len(served_log)
+            sent = [(client.infer_async(prompt=p, max_new=ENGINE_MAX_NEW),
+                     time.perf_counter()) for p in prompts]
+            deadline = time.monotonic() + 120
+            while held and eng.pending() < n_req:
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"engine: {eng.pending()} of "
+                                         f"{n_req} prompts queued")
+                time.sleep(0.005)
+            t_release = time.perf_counter()
+            gate.set()
+            tokens, walls = [], []
+            for rid, ts in sent:
+                tokens.append(client.result(rid, timeout=600)["tokens"])
+                walls.append(time.perf_counter() - ts)
+            burst_s = time.perf_counter() - t_release
+            server._loop.on_idle = idle
+            log = served_log[first:]
+            engine_launch_check(log, cfg.num_layers,
+                                "served held" if held else "served")
+            passes.append({"tokens": tokens, "walls": walls,
+                           "burst_s": burst_s, "log": log})
+            if held:
+                launches = {name: w.launches for name, w in counters.items()}
+                serve_peak = torch.cuda.max_memory_allocated()
+                telemetry = client.telemetry()
+        client.shutdown()
+    finally:
+        client.close()
+        server.stop()
+    held_pass, free_pass = passes
+    groups = prefill_groups(held_pass["log"])
+    n_prefills = len(groups)
+    want = {**dict.fromkeys(launches, 0),
+            "flash_attention": cfg.num_layers * n_prefills}
+    if launches != want:
+        raise AssertionError(f"engine: the held burst launched {launches}, "
+                             f"not {want} ({n_prefills} prefills)")
+    for i, tok in enumerate(held_pass["tokens"]):
+        if tok.shape != (ENGINE_MAX_NEW + 1,) or tok.dtype != np.int32 \
+                or tok.min() < 0 or tok.max() >= cfg.vocab_size:
+            raise AssertionError(f"engine: request {i} replied {tok}")
+
+    # a local engine over the same pinned weights (zero bytes moved), fed
+    # the same groups: the served tokens bit for bit
+    dma_before = dict(driver.stats)
+    local = ServingEngine.from_rimfs(cfg, fs, driver=driver,
+                                     max_batch=ENGINE_SLOTS,
+                                     max_seq=ENGINE_MAX_SEQ)
+    if driver.stats.get("dma_bytes", 0) != dma_before.get("dma_bytes", 0):
+        raise AssertionError("engine: a second from_rimfs moved bytes")
+    local_log = instrument_engine(torch, local, keep=True)
+    reqs = [Request(rid=i, prompt=p, max_new=ENGINE_MAX_NEW)
+            for i, p in enumerate(prompts)]
+    for r in reqs:
+        local.submit(r)
+    local.run_until_drained()
+    if prefill_groups(local_log) != groups:
+        raise AssertionError(f"engine: local prefill groups "
+                             f"{prefill_groups(local_log)}, served {groups}")
+    for i, (r, tok) in enumerate(zip(reqs, held_pass["tokens"])):
+        if r.out_tokens != tok.tolist():
+            raise AssertionError(f"engine: request {i} served {tok.tolist()}"
+                                 f", the local engine {r.out_tokens}")
+    engine_launch_check(local_log, cfg.num_layers, "local")
+    ungated_same = [a.tolist() == b.tolist()
+                    for a, b in zip(held_pass["tokens"], free_pass["tokens"])]
+    # the local engine's step functions, unwrapped
+    step_prefill = local.program.artifacts["prefill"]
+    step_decode = local.program.artifacts["decode"]
+
+    # every attention call of each prefill group against the plain version
+    # on the same q, k, v; then, reported only, the end-to-end numbers a
+    # random-weight bf16 model at full depth scrambles (see the docstring)
+    layer_errs = []
+    for e in (e for e in local_log if e["step"] == "prefill"):
+        layer_errs += attention_in_model(
+            torch, lambda e=e: step_prefill(local.params,
+                                            {"inputs": e["tokens"]}))
+    worst_layer = max(c["rel_err"] for c in layer_errs)
+    if len(layer_errs) != cfg.num_layers * n_prefills \
+            or not worst_layer <= ENGINE_TOL:
+        raise AssertionError(f"engine: {len(layer_errs)} attention calls, "
+                             f"worst max |err| / max |plain| {worst_layer}, "
+                             f"beyond {ENGINE_TOL}")
+    logits_check = prefill_logits_vs_plain(torch, cfg, local.params,
+                                           local_log)
+    recompute = [greedy_recompute(torch, cfg, local.params, p, r.out_tokens)
+                 for p, r in zip(prompts, reqs)]
+    small = next(e for e in reversed(local_log) if e["step"] == "prefill")
+    fp32_cfg = dataclasses.replace(cfg, dtype="float32")
+    fp32 = tf.forward_full(fp32_cfg, {k: v.float() for k, v in
+                                      local.params.items()},
+                           small["tokens"], impl="ref")[0][:, -1]
+    bf16 = tf.forward_full(cfg, local.params, small["tokens"],
+                           impl="ref")[0][:, -1].float()
+    plain_bf16_vs_fp32 = {"shape": small["shape"], "rel_err": (
+        (bf16 - fp32).abs().max() / fp32.abs().max()).item()}
+    del fp32, bf16
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # where the time goes: one decode step at 4 live slots, one prefill of
+    # each group's shape
+    toks = torch.as_tensor(np.stack([r.out_tokens[:1] for r in reqs[:4]]),
+                           device="cuda")
+    pos = torch.as_tensor(np.asarray(ENGINE_PROMPTS[:4], np.int32),
+                          device="cuda")
+    decode_time = device_breakdown(
+        torch, lambda: step_decode(local.params, local._cache,
+                                   {"inputs": toks, "pos": pos}), top=8)
+    prefill_time = {}
+    for e in (e for e in local_log if e["step"] == "prefill"):
+        key = "x".join(map(str, e["shape"]))
+        prefill_time[key] = device_breakdown(
+            torch, lambda e=e: step_prefill(local.params,
+                                            {"inputs": e["tokens"]}), top=6)
+    walls = sorted(held_pass["walls"])
+    generated = n_req * (ENGINE_MAX_NEW + 1)
+    emit("slice_engine", model=cfg.name, layers=cfg.num_layers,
+         dtype=cfg.dtype, slots=ENGINE_SLOTS, max_seq=ENGINE_MAX_SEQ,
+         prompts=list(ENGINE_PROMPTS), max_new=ENGINE_MAX_NEW,
+         image_bytes=len(image), init_s=t_init, pack_s=t_pack,
+         pin_s=pin_s, kv_cache_bytes=sum(c.numel() * c.element_size()
+                                         for c in eng._cache.values()),
+         serve_peak_memory_allocated=serve_peak,
+         serve_base_memory_allocated=serve_base,
+         prefill_groups=groups, launches=launches,
+         fa_launches_per_prefill=cfg.num_layers,
+         fa_launches_per_decode_step=0,
+         request_wall_s=held_pass["walls"], latency_p50_s=walls[n_req // 2],
+         latency_max_s=walls[-1], burst_s=held_pass["burst_s"],
+         tokens_per_s=generated / held_pass["burst_s"],
+         decode_steps=sum(e["step"] == "decode" for e in held_pass["log"]),
+         engine_decode_step=telemetry.get("engine"),
+         served_prefills=[{k: e[k] for k in ("shape", "wall_s")}
+                          for e in held_pass["log"]
+                          if e["step"] == "prefill"],
+         served_decode_wall_s=sorted(e["wall_s"] for e in held_pass["log"]
+                                     if e["step"] == "decode"),
+         bit_identical_to_local=True,
+         attention_calls_checked=len(layer_errs),
+         attention_worst_rel_err=worst_layer, attention_tol=ENGINE_TOL,
+         reported_prefill_logits_vs_plain=logits_check,
+         reported_recompute=recompute,
+         reported_plain_bf16_vs_fp32_logits=plain_bf16_vs_fp32,
+         ungated_prefill_groups=prefill_groups(free_pass["log"]),
+         ungated_tokens_same=ungated_same,
+         ungated_request_wall_s=free_pass["walls"],
+         ungated_burst_s=free_pass["burst_s"],
+         decode_step_4_slots=decode_time, prefill_by_shape=prefill_time)
+    del eng, local, image, fs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"slice_engine": launches}
+
+
 def phase_graphs_gpu_tests() -> None:
     """The card-only tests of the compiled dispatch path
     (tests/test_torch_graphs_gpu.py), in a process of their own."""
@@ -1681,10 +2098,18 @@ def main() -> int:
     by_path.update(phase_slice_resnet(torch, args.seed, int8=False))
     by_path.update(phase_slice_resnet(torch, args.seed, int8=True))
 
+    # 7. the LM serving engine: at reduced depth, then served at full depth
+    prompts = engine_prompts(args.seed, get_config("qwen2-1.5b").vocab_size)
+    phase_engine_reduced_depth(torch, args.seed, prompts, 2, "bfloat16",
+                               gate_recompute=False)
+    phase_engine_reduced_depth(torch, args.seed, prompts, 1, "float32",
+                               gate_recompute=True)
+    by_path.update(phase_slice_engine(torch, args.seed))
+
     # the card-only tests of the fused and batched graphs
     phase_graphs_gpu_tests()
 
-    # 6. the kernels line, then the card, then the contract line
+    # 8. the kernels line, then the card, then the contract line
     for row in rows:
         row["launches_by_path"] = {model: n[row["name"]]
                                    for model, n in by_path.items()}

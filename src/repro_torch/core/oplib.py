@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.rcb import Op
+from repro_torch.models.common import apply_rope, rms_norm
 
 
 def gemm(a, b, attrs):
@@ -165,35 +166,6 @@ def reshape(x, attrs):
 
 def passthrough(x, attrs):
     return x
-
-
-def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5):
-    """fp32 math, cast back to x's dtype (models/common.py rms_norm)."""
-    dt = x.dtype
-    x = x.float()
-    var = torch.mean(torch.square(x), dim=-1, keepdim=True)
-    x = x * torch.rsqrt(var + eps)
-    return (x * w.float()).to(dt)
-
-
-def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
-    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
-                                         device=device) / head_dim))
-
-
-def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
-    """x: (..., seq, heads, head_dim); positions: (..., seq) int. fp32
-    math, rotation by half-split (models/common.py apply_rope)."""
-    dt = x.dtype
-    d = x.shape[-1]
-    freqs = rope_freqs(d, theta, x.device)                # (d/2,)
-    ang = positions.float()[..., None] * freqs            # (..., seq, d/2)
-    cos = torch.cos(ang)[..., None, :]                    # (..., seq, 1, d/2)
-    sin = torch.sin(ang)[..., None, :]
-    x = x.float()
-    x1, x2 = torch.chunk(x, 2, dim=-1)
-    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
-    return out.to(dt)
 
 
 def rmsnorm(x, w, attrs):

@@ -10,7 +10,8 @@ projection, norm and residual of the layer stack becomes its own RCB op —
 kernel registry, the glue (RMSNORM / ROPE / SILU_MUL / SCALE_SHIFT / GEMM /
 ADD / RESHAPE) through the generic vtable, and the Mamba branch's projections and the
 RWKV-6 token-shift mixes run as ``GRAPH_EXEC`` artifacts (plain torch
-callables) — and the weights flatten into a RIMFS image. From the same
+callables) — and the weights flatten into a RIMFS image; and the LM
+serving engine's service program (``compile_lm_service``). From the same
 parameters it emits the same program bytes and the same image bytes as the
 JAX package. Other LM families (experts, vision, audio) raise
 ``NotImplementedError``.
@@ -220,6 +221,39 @@ def compile_resnet18(cfg: ResNetConfig, folded: dict, batch: int = 1,
         prog = opt_mod.optimize(prog)
     image = rimfs_mod.pack(files)
     return prog, image
+
+
+# ---------------------------------------------------------------------------
+# LM service translation (compiled-graph artifacts, the paper's ADF ingestion)
+# ---------------------------------------------------------------------------
+
+def compile_lm_service(cfg, batch: int, seq_len: int,
+                       prefill_fn, decode_fn) -> RCBProgram:
+    """Wrap the serving engine's prefill and decode steps ("compiled ADF
+    graph artifacts") into an RCB service program: bind -> dispatch(prefill)
+    -> poll -> dispatch(decode) -> sync. The steps ride as the ``prefill``
+    and ``decode`` GRAPH_EXEC artifacts, outside the program's bytes, which
+    equal the JAX package's for the same config, batch and length."""
+    b = _Builder(f"lm_{cfg.name}")
+    tok_shape = (batch, seq_len) if cfg.input_kind == "tokens" \
+        else (batch, seq_len, cfg.d_model)
+    b.tensor("params", (0,), "float32", "input")       # pytree passthrough
+    b.tensor("tokens", tok_shape, "int32" if cfg.input_kind == "tokens"
+             else cfg.dtype, "input", ("batch", None))
+    b.tensor("cache", (0,), "float32", "scratch")
+    b.tensor("first_logits", (batch, cfg.vocab_size), "float32", "output")
+    b.emit(Op.GRAPH_EXEC, ["first_logits", "cache"], ["params", "tokens"],
+           artifact="prefill")
+    b.emit(Op.POLL, [], ["first_logits"])
+    b.close_block("prefill")
+    b.tensor("next_token", (batch, 1), "int32", "input", ("batch", None))
+    b.tensor("pos", (batch,), "int32", "input", ("batch",))
+    b.tensor("logits", (batch, cfg.vocab_size), "float32", "output")
+    b.emit(Op.GRAPH_EXEC, ["logits", "cache"],
+           ["params", "cache", "next_token", "pos"], artifact="decode")
+    b.emit(Op.POLL, [], ["logits"])
+    b.close_block("decode")
+    return b.build({"prefill": prefill_fn, "decode": decode_fn})
 
 
 def _ssm_pre_artifact(cfg, keys):

@@ -1,1 +1,1 @@
-"""Model parameter layouts and initialization."""
+"""Model parameter layouts, initialization and the LM forward passes."""

@@ -1,0 +1,128 @@
+"""GQA attention for the LM serving engine: prefill on the hand-written
+flash-attention kernel, one-token decode against a dense KV cache on stock
+torch ops.
+
+The port's counterpart of ``repro.models.attention``'s full-attention
+paths. ``_attend_full`` there is, for ``attention == "full"`` and S below
+16384, one chunk of causal GQA attention at scale 1/sqrt(D): the function
+the ``flash_attention`` kernel computes, so prefill runs the kernel (the
+plain version on a CPU tensor). Decode is plain ``jnp`` in the JAX package
+and stays on stock torch ops here, with its K/V written into the cache in
+place. Sliding windows and query chunking (S >= 16384) raise
+``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.oplib import f32_scalar
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ref import attention_ref_bshd
+from repro_torch.models.common import ParamSpec, apply_rope, rms_norm
+
+NEG_INF = -1e30
+CHUNKED_FROM = 16384          # _attend_full splits the queries from here on
+
+
+def cache_specs(cfg: ModelConfig, batch: int, seq_len: int) -> dict:
+    """KV-cache shape specs, (L, B, S, Hkv, D) each. (The JAX package's
+    ring buffer for sliding windows comes with their attention.)"""
+    _check_full(cfg)
+    shp = (cfg.num_layers, batch, seq_len, cfg.num_kv_heads, cfg.head_dim)
+    return {"k": ParamSpec(shp, cfg.dtype, "zeros"),
+            "v": ParamSpec(shp, cfg.dtype, "zeros")}
+
+
+def _check_full(cfg: ModelConfig, seq_len: int = 0) -> None:
+    if cfg.attention != "full" or seq_len >= CHUNKED_FROM:
+        raise NotImplementedError(
+            f"attention {cfg.attention!r} at S={seq_len} is not ported: "
+            f"full causal attention below S={CHUNKED_FROM} only")
+
+
+def _project(x, w, b):
+    """x (B,S,d) @ w (d,H,D) [+ b (H,D)] -> (B,S,H,D)."""
+    B, S, d = x.shape
+    _, H, D = w.shape
+    y = (x @ w.reshape(d, H * D)).view(B, S, H, D)
+    if b is not None:
+        y = y + b.to(y.dtype)
+    return y
+
+
+def _qkv(cfg: ModelConfig, p: dict, x, positions):
+    """Shared projection + qk-norm + RoPE for both full and decode paths."""
+    q = _project(x, p["wq"], p.get("bq"))
+    k = _project(x, p["wk"], p.get("bk"))
+    v = _project(x, p["wv"], p.get("bv"))
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    if cfg.use_rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _grouped_scores(q, k):
+    """q: (B,Sq,Hkv,G,D)  k: (B,Skv,Hkv,D) -> (B,Hkv,G,Sq,Skv) fp32."""
+    return torch.einsum("bqhgd,bkhd->bhgqk", q.float(), k.float())
+
+
+def _out_proj(o, wo):
+    """o (B,S,H,D) @ wo (H,D,d) -> (B,S,d)."""
+    B, S, H, D = o.shape
+    return o.reshape(B, S, H * D) @ wo.reshape(H * D, wo.shape[-1])
+
+
+def _attend_full(cfg: ModelConfig, p: dict, q, k, v, out_dtype, impl=None):
+    """Causal GQA attention over the whole sequence, then the output
+    projection. ``impl="ref"`` computes the attention with the kernel's
+    plain version whatever the device (the card-side check of the kernel
+    inside the model); by default it is the kernel on a CUDA tensor."""
+    _check_full(cfg, q.shape[1])
+    if impl == "ref":
+        o = attention_ref_bshd(q, k, v, causal=True)
+    elif impl is None:
+        o = flash_attention(q, k, v, causal=True)
+    else:
+        raise ValueError(f"unknown attention impl {impl!r} (None or 'ref')")
+    return _out_proj(o.to(out_dtype), p["wo"])
+
+
+def full_attention(cfg: ModelConfig, p: dict, x, positions, impl=None):
+    q, k, v = _qkv(cfg, p, x, positions)
+    return _attend_full(cfg, p, q, k, v, x.dtype, impl)
+
+
+def prefill_attention(cfg: ModelConfig, p: dict, x, positions, impl=None):
+    """Full attention that also returns the (layer-local) KV cache entry."""
+    q, k, v = _qkv(cfg, p, x, positions)
+    return _attend_full(cfg, p, q, k, v, x.dtype, impl), (k, v)
+
+
+def decode_attention(cfg: ModelConfig, p: dict, x, pos, k_cache, v_cache):
+    """One-token decode: x (B,1,d), pos (B,) with 0 <= pos < S, caches
+    (B,S,Hkv,D) holding ``pos`` valid tokens each.
+
+    The new token's K/V is written at ``pos`` in place; scores in fp32
+    over every cache row, masked to ``idx <= pos`` with NEG_INF, softmax
+    in fp32, cast to x's dtype before the product with V. Returns (out
+    (B,1,d), k_cache, v_cache)."""
+    _check_full(cfg)
+    B, S, Hkv, D = k_cache.shape
+    H = cfg.num_heads
+    q, k, v = _qkv(cfg, p, x, pos[:, None])
+    rows = torch.arange(B, device=x.device)
+    slot = pos.long()
+    k_cache[rows, slot] = k[:, 0].to(k_cache.dtype)
+    v_cache[rows, slot] = v[:, 0].to(v_cache.dtype)
+
+    qg = q.reshape(B, 1, Hkv, H // Hkv, D)
+    s_ = _grouped_scores(qg, k_cache) / f32_scalar(D ** 0.5, x)
+    valid = torch.arange(S, device=x.device)[None, :] <= slot[:, None]
+    s_ = torch.where(valid[:, None, None, None, :], s_, NEG_INF)
+    a = torch.softmax(s_, dim=-1).to(x.dtype)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", a, v_cache).reshape(B, 1, H, D)
+    return _out_proj(o, p["wo"]), k_cache, v_cache

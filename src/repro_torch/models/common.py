@@ -1,7 +1,8 @@
-"""Parameter specs and norms shared by the model modules (the port's
-counterpart of ``repro.models.common``: ``ParamSpec`` without the sharding
-axes, since the port runs on one device, ``draw_param`` and
-``group_norm``)."""
+"""Parameter specs, norms and RoPE shared by the model modules and the RCB
+op library (the port's counterpart of ``repro.models.common``: ``ParamSpec``
+without the sharding axes, since the port runs on one device,
+``draw_param``, ``rms_norm``, ``group_norm``, ``rope_freqs`` and
+``apply_rope``)."""
 from __future__ import annotations
 
 import math
@@ -59,3 +60,32 @@ def group_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     x = (x - mu) * torch.rsqrt(var + eps)
     x = x.reshape(*lead, d)
     return (x * w.float() + b.float()).to(dt)
+
+
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5):
+    """fp32 math, cast back to x's dtype."""
+    dt = x.dtype
+    x = x.float()
+    var = torch.mean(torch.square(x), dim=-1, keepdim=True)
+    x = x * torch.rsqrt(var + eps)
+    return (x * w.float()).to(dt)
+
+
+def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
+    """x: (..., seq, heads, head_dim); positions: (..., seq) int. fp32
+    math, rotation by half-split."""
+    dt = x.dtype
+    d = x.shape[-1]
+    freqs = rope_freqs(d, theta, x.device)                # (d/2,)
+    ang = positions.float()[..., None] * freqs            # (..., seq, d/2)
+    cos = torch.cos(ang)[..., None, :]                    # (..., seq, 1, d/2)
+    sin = torch.sin(ang)[..., None, :]
+    x = x.float()
+    x1, x2 = torch.chunk(x, 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(dt)

@@ -1,11 +1,17 @@
 """Parameter layout, initialization and input embedding of the LM families
-ported so far (dense; hybrid: attention + Mamba + SwiGLU; ssm: RWKV-6).
+ported so far (dense; hybrid: attention + Mamba + SwiGLU; ssm: RWKV-6), and
+the dense family's forward passes for the serving engine.
 
 The port's counterpart of the parts of ``repro.models.transformer`` and
-``repro.models.common`` that the per-layer RCB lowering needs: the stacked
-parameter specs (leading ``num_layers`` dim on block entries), their
-initialization from a seed on a device, ``split_params``, ``embed_inputs``,
-and ``params_from_jax`` to carry the JAX package's parameters across.
+``repro.models.common`` that the per-layer RCB lowering and the engine
+need: the stacked parameter specs (leading ``num_layers`` dim on block
+entries), their initialization from a seed on a device, ``split_params``,
+``embed_inputs``, ``params_from_jax`` to carry the JAX package's parameters
+across, the KV ``cache_specs``, ``forward_full`` (prefill: attention on the
+flash-attention kernel) and ``forward_decode`` (one token against the
+cache). The reference scans its layers with ``lax.scan``; here they run in
+a Python loop, which computes the same thing. The engine path is the dense
+family's only: hybrid and ssm raise ``NotImplementedError`` there.
 """
 from __future__ import annotations
 
@@ -15,18 +21,30 @@ import torch
 from repro_torch import device as device_mod
 from repro_torch.configs.base import ModelConfig
 from repro_torch.dtypes import as_tensor
-from repro_torch.models.common import ParamSpec, draw_param
+from repro_torch.models import attention as attn
+from repro_torch.models.common import ParamSpec, draw_param, rms_norm
 from repro_torch.models.mamba import mamba_specs
+from repro_torch.models.mlp import swiglu
 from repro_torch.models.rwkv6 import rwkv_specs
 
 PORTED_FAMILIES = ("dense", "hybrid", "ssm")
+ENGINE_FAMILIES = ("dense",)       # the forward passes below
 
 
-def check_ported(cfg: ModelConfig) -> None:
+def check_ported(cfg: ModelConfig, engine: bool = False) -> None:
+    """Refuse what the port lacks: experts and families other than dense,
+    hybrid and ssm everywhere; with ``engine``, every family but dense
+    (the forward passes of the serving engine)."""
     if cfg.family not in PORTED_FAMILIES or cfg.num_experts:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported to PyTorch yet (dense, "
             f"hybrid and ssm only, no experts)")
+    if engine and (cfg.family not in ENGINE_FAMILIES
+                   or cfg.input_kind != "tokens"):
+        raise NotImplementedError(
+            f"the serving engine's forward passes are ported for the "
+            f"{'/'.join(ENGINE_FAMILIES)} family on tokens only, not "
+            f"{cfg.family!r}")
 
 
 def model_specs(cfg: ModelConfig) -> dict:
@@ -102,3 +120,103 @@ def embed_inputs(cfg: ModelConfig, glob: dict, tokens) -> torch.Tensor:
     """tokens (B,S) -> hidden (B,S,d) on the embedding's device."""
     emb = glob["embed"]
     return emb[as_tensor(tokens, emb.device).long()]
+
+
+def cache_specs(cfg: ModelConfig, batch: int, seq_len: int) -> dict:
+    """Decode-state specs: the dense family's KV cache."""
+    check_ported(cfg, engine=True)
+    return attn.cache_specs(cfg, batch, seq_len)
+
+
+# ---------------------------------------------------------------------------
+# Blocks (per-layer params, the leading L dim already sliced away)
+# ---------------------------------------------------------------------------
+
+def block_full(cfg: ModelConfig, p: dict, x, positions, want_cache: bool,
+               impl=None):
+    """Full-sequence dense block. Returns (x, cache_entry)."""
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    cache: dict = {}
+    if want_cache:
+        ya, (kc, vc) = attn.prefill_attention(cfg, p, h, positions, impl)
+        cache = {"k": kc, "v": vc}
+    else:
+        ya = attn.full_attention(cfg, p, h, positions, impl)
+    x = x + ya
+    h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
+    return x + swiglu(p, h2), cache
+
+
+def block_decode(cfg: ModelConfig, p: dict, x, pos, cache: dict):
+    """One-token dense block. x (B,1,d); cache entries are per-layer
+    slices, written in place."""
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    ya, kc, vc = attn.decode_attention(cfg, p, h, pos, cache["k"],
+                                       cache["v"])
+    x = x + ya
+    h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
+    return x + swiglu(p, h2), {"k": kc, "v": vc}
+
+
+def _slice_layer(tree: dict, i: int) -> dict:
+    return {k: v[i] for k, v in tree.items()}
+
+
+def run_blocks_full(cfg: ModelConfig, blocks: dict, x, positions,
+                    want_cache: bool, impl=None):
+    caches = []
+    for i in range(cfg.num_layers):
+        x, c = block_full(cfg, _slice_layer(blocks, i), x, positions,
+                          want_cache, impl)
+        caches.append(c)
+    if not want_cache:
+        return x, {}
+    return x, {k: torch.stack([c[k] for c in caches]) for k in caches[0]}
+
+
+def run_blocks_decode(cfg: ModelConfig, blocks: dict, x, pos, cache: dict):
+    """Every layer against its slice of ``cache``, which is updated in
+    place; returns (x, cache)."""
+    for i in range(cfg.num_layers):
+        x, _ = block_decode(cfg, _slice_layer(blocks, i), x, pos,
+                            _slice_layer(cache, i))
+    return x, cache
+
+
+# ---------------------------------------------------------------------------
+# Model entry points
+# ---------------------------------------------------------------------------
+
+def logits_head(cfg: ModelConfig, glob: dict, x):
+    x = rms_norm(x, glob["final_norm"], cfg.norm_eps)
+    if cfg.tie_embeddings:
+        return x @ glob["embed"].T
+    return x @ glob["lm_head"]
+
+
+def forward_full(cfg: ModelConfig, params: dict, inputs,
+                 want_cache: bool = False, impl=None):
+    """Prefill forward. inputs: (B,S) int tokens. Returns (logits (B,S,V),
+    cache), the cache stacked (L,B,S,Hkv,D) when ``want_cache``. The
+    reference also returns the MoE auxiliary loss, which is zero for every
+    family ported here. ``impl="ref"`` runs attention on the kernel's plain
+    version: a check of the kernel inside the model, which the engine never
+    asks for."""
+    check_ported(cfg, engine=True)
+    glob, blocks = split_params(params)
+    x = embed_inputs(cfg, glob, inputs)
+    B, S = x.shape[:2]
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=x.device)[None].expand(B, S)
+    x, cache = run_blocks_full(cfg, blocks, x, positions, want_cache, impl)
+    return logits_head(cfg, glob, x), cache
+
+
+def forward_decode(cfg: ModelConfig, params: dict, inputs, pos, cache: dict):
+    """One-token decode. inputs (B,1) tokens; pos (B,) int32 in [0, S).
+    Returns (logits (B,1,V), cache), the cache updated in place."""
+    check_ported(cfg, engine=True)
+    glob, blocks = split_params(params)
+    x = embed_inputs(cfg, glob, inputs)
+    x, cache = run_blocks_decode(cfg, blocks, x, pos, cache)
+    return logits_head(cfg, glob, x), cache

@@ -1,1 +1,2 @@
-"""Network serving: wire protocol, admission scheduler, inference server."""
+"""Network serving: wire protocol, admission scheduler, LM serving engine,
+inference server."""

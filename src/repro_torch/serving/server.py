@@ -2,14 +2,15 @@
 
 The port's counterpart of ``repro.serving.server``: a socket server speaking
 the CRC-framed protocol (v1 + v2), serving a provisioned RCB program through
-the plain-RCB route. The v2 frame extension (per-frame ``request_id`` +
+the plain-RCB route and, when built with a ``ServingEngine``, LM prompts
+through the engine's continuous batching. The v2 frame extension (per-frame ``request_id`` +
 flags) lets one connection pipeline many INFER_REQUESTs and receive the
 responses out of order.
 
 Concurrency model — **all device state behind one thread**: connection
 handler threads only parse frames and enqueue work; a single dispatcher
 thread (an ``rtpm.ServiceLoop`` worker, heartbeat-monitored) owns the
-``Platform``, the ``Executor`` and the bound program.
+``Platform``, the ``Executor``, the bound program and the engine.
 
 Flow per request:
 
@@ -18,6 +19,8 @@ Flow per request:
                       (deadline anchored HERE, so queue wait counts against
                       it) + a dispatcher kick; admission-cap overflow ->
                       immediate ERROR/F_BUSY
+                   -> an LM prompt (engine attached): the parsed prompt
+                      to the dispatcher, where it enters the engine
                    -> everything else: ServiceLoop.submit
                       (queue full -> immediate ERROR/F_BUSY)
   dispatcher:      drains the scheduler through admit(1) in priority/EDF
@@ -29,6 +32,9 @@ Flow per request:
                    ``batch_window`` requests of one shape) into one
                    ``Executor.run_batched`` dispatch: one CUDA graph
                    replay per batch bucket
+  idle hook:       after the plain backlog, one engine step (admission,
+                   grouped prefill, one decode across the live slots);
+                   finished prompts reply ``tokens`` by request id
   SHUTDOWN:        graceful drain — queued work is answered, then stop.
 
 PROVISION binds with the executor's driver, so the weight image is pinned
@@ -153,6 +159,8 @@ class _Route:
 class _Work:
     frame: Optional[proto.Frame]        # None == dispatcher kick
     route: Optional[_Route]
+    tensors: Optional[dict] = None      # parsed npz (INFER, LM path)
+    meta: Optional[dict] = None         # admission metadata (LM path)
 
 
 _KICK = _Work(frame=None, route=None)   # wake the dispatcher to drain
@@ -161,6 +169,7 @@ _KICK = _Work(frame=None, route=None)   # wake the dispatcher to drain
 class InferenceServer:
     def __init__(self, host: str = "127.0.0.1", port: int = 0,
                  device="cuda", artifacts: Optional[dict] = None,
+                 engine=None,
                  scheduler: Optional[DeadlineScheduler] = None,
                  max_queue: int = 128, max_frame: int = proto.MAX_FRAME,
                  send_timeout: float = 30.0, batch_window: int = 8,
@@ -171,7 +180,15 @@ class InferenceServer:
                                  rtpm=self.platform)
         # GRAPH_EXEC callables, attached to every provisioned program by id
         self.artifacts = artifacts or {}
+        self.engine = engine            # optional ServingEngine (LM path)
+        if engine is not None and engine.device != self.platform.driver.device:
+            raise ValueError(f"engine on {engine.device}, server on "
+                             f"{self.platform.driver.device}")
+        # the plain-RCB path and the engine each get their OWN scheduler: a
+        # shared heap would let admit(1) pop the other path's entries
         self.scheduler = scheduler or DeadlineScheduler()
+        if engine is not None and engine.scheduler is None:
+            engine.scheduler = DeadlineScheduler()
         self.max_frame = max_frame
         self.max_queue = max_queue
         self.send_timeout = send_timeout
@@ -191,6 +208,8 @@ class InferenceServer:
         self._sock.listen(16)
         self.address = self._sock.getsockname()
         self._bound = None
+        self._inflight: dict = {}       # iid -> (Request, _Route, rid, ver)
+        self._iid = itertools.count(1)
         self._stop = threading.Event()
         self._stop_lock = threading.Lock()
         self._thread: Optional[threading.Thread] = None
@@ -204,7 +223,7 @@ class InferenceServer:
         self._loop = ServiceLoop(
             self.platform, self._dispatch_one,
             name="dispatcher", max_queue=max_queue,
-            on_idle=self._drain_plain, on_drop=self._drop_work,
+            on_idle=self._on_idle, on_drop=self._drop_work,
             watchdog_budget=self._watchdog_budget if watchdog else None,
             on_hang=self._preempt_hung if watchdog else None,
             watchdog_poll=watchdog_poll)
@@ -231,6 +250,13 @@ class InferenceServer:
                     r, srid, sver, _ = s.payload
                     r.send(proto.Msg.ERROR, payload, rid=srid,
                            flags=proto.F_DRAINING, version=sver)
+                if not self._loop.alive():
+                    # only touch dispatcher-owned state once the worker is
+                    # really gone (a wedged worker may still resume)
+                    for req, route, rid, ver in self._inflight.values():
+                        route.send(proto.Msg.ERROR, payload, rid=rid,
+                                   flags=proto.F_DRAINING, version=ver)
+                    self._inflight.clear()
                 self._sock.close()
                 if self._bound is not None and not self._loop.alive():
                     # the batch buckets hold the bound weights: the
@@ -303,8 +329,10 @@ class InferenceServer:
 
     def _enqueue_infer(self, frame: proto.Frame, route: _Route) -> None:
         """Handler-thread half of an INFER_REQUEST: parse the npz and the
-        admission metadata, then enqueue a ScheduledRequest (deadline
-        anchored NOW). No device state is touched here."""
+        admission metadata, then either enqueue a ScheduledRequest (plain
+        RCB, deadline anchored NOW) or ship the parsed prompt to the
+        dispatcher (LM path: the engine's state has one owner). No device
+        state is touched here."""
         tensors = proto.unpack_tensors(frame.payload)
         meta = {k: tensors.pop(k) for k in list(tensors)
                 if k.startswith("__")}
@@ -313,6 +341,15 @@ class InferenceServer:
         if "__deadline_ms" in meta:
             deadline = time.monotonic() + float(meta["__deadline_ms"]) / 1e3
         rid, ver = frame.request_id, frame.version
+        if self.engine is not None and "prompt" in tensors:
+            admission = {"priority": priority, "deadline": deadline,
+                         "max_new": int(meta.get("__max_new", 16))}
+            if not self._loop.submit(_Work(frame, route, tensors=tensors,
+                                           meta=admission)):
+                route.send(proto.Msg.ERROR,
+                           self._busy_payload("busy: dispatch queue full"),
+                           rid=rid, flags=proto.F_BUSY, version=ver)
+            return
         if self.scheduler.pending() >= self.max_queue:
             self._loop.reject()
             route.send(proto.Msg.ERROR,
@@ -360,9 +397,13 @@ class InferenceServer:
         depth = self._loop.depth() + self.scheduler.pending()
         return int(min(2000.0, max(1.0, est * (depth + 1) * 1000.0)))
 
-    def _shed_payload(self, kind: str, verdict: str) -> bytes:
+    def _shed_payload(self, kind: str, verdict: str,
+                      retryable: Optional[bool] = None) -> bytes:
+        """Machine-readable shed reply: ``kind`` tells the client why, so
+        it can tell retryable pressure from terminal verdicts."""
         kind = kind or "shed"
-        retryable = kind in RETRYABLE_KINDS
+        if retryable is None:
+            retryable = kind in RETRYABLE_KINDS
         return proto.pack_json(
             {"error": "shed", "kind": kind, "verdict": verdict,
              "retryable": retryable,
@@ -387,6 +428,8 @@ class InferenceServer:
                 route.send(proto.Msg.TELEMETRY,
                            proto.pack_json({"status": "ready"}),
                            rid=rid, version=ver)
+            elif frame.kind == proto.Msg.INFER_REQUEST:
+                self._infer_lm(work)
             elif frame.kind == proto.Msg.TELEMETRY:
                 route.send(proto.Msg.TELEMETRY,
                            proto.pack_json(self._telemetry_summary()),
@@ -553,6 +596,81 @@ class InferenceServer:
             r.send_final(s, proto.Msg.INFER_RESPONSE,
                          proto.pack_tensors(out), rid=srid, version=sver)
 
+    def _infer_lm(self, work: _Work) -> None:
+        """An LM prompt into the engine's continuous batching; the reply
+        goes back by request id when its slot finishes (``_pump_engine``).
+        The in-flight prompts are capped like the dispatch queue:
+        pipelining past the cap gets backpressure, not unbounded
+        buffering."""
+        from repro_torch.serving.engine import Request
+        frame, route = work.frame, work.route
+        rid, ver = frame.request_id, frame.version
+        if len(self._inflight) >= self.max_queue:
+            self._loop.reject()
+            route.send(proto.Msg.ERROR,
+                       self._busy_payload(
+                           "busy: too many in-flight prompts",
+                           inflight=len(self._inflight)),
+                       rid=rid, flags=proto.F_BUSY, version=ver)
+            return
+        max_new = work.meta["max_new"]
+        prompt = np.asarray(work.tensors["prompt"]).astype(
+            np.int32).reshape(-1)
+        if prompt.size + max_new >= self.engine.max_seq:
+            raise RuntimeError(
+                f"prompt ({prompt.size} tokens) + max_new ({max_new}) "
+                f"exceeds engine max_seq {self.engine.max_seq}")
+        iid = next(self._iid)
+        req = Request(rid=iid, prompt=prompt, max_new=max_new,
+                      priority=work.meta["priority"],
+                      deadline=work.meta["deadline"])
+        self.engine.submit(req)
+        self._inflight[iid] = (req, route, rid, ver)
+
+    def _on_idle(self) -> bool:
+        plain = self._drain_plain()
+        lm = self._pump_engine()
+        return plain or lm
+
+    def _pump_engine(self) -> bool:
+        """Idle hook: one continuous-batching step, then route finished (or
+        shed) prompts back by id. Returns True while prompts are in flight,
+        so the loop keeps spinning."""
+        if self.engine is None or not self._inflight:
+            return False
+        try:
+            self.engine.step()
+        except Exception as e:
+            # poisoned engine state would re-raise on every pump and hang
+            # every in-flight client: fail them all explicitly instead
+            for req, route, rid, ver in self._inflight.values():
+                route.send(proto.Msg.ERROR,
+                           proto.pack_json({"error": f"engine: {e}"}),
+                           rid=rid, version=ver)
+            self._inflight.clear()
+            raise
+        for iid, (req, route, rid, ver) in list(self._inflight.items()):
+            if not req.done:
+                continue
+            del self._inflight[iid]
+            if req.shed:
+                # an LM request that already sampled tokens is NOT safe to
+                # retry blindly (a re-run would draw fresh samples);
+                # admission-time sheds always are
+                kind = req.verdict_kind
+                retryable = kind in RETRYABLE_KINDS and not req.out_tokens
+                route.send(proto.Msg.ERROR,
+                           self._shed_payload(kind, req.verdict,
+                                              retryable=retryable),
+                           rid=rid, flags=proto.F_SHED, version=ver)
+            else:
+                route.send(proto.Msg.INFER_RESPONSE,
+                           proto.pack_tensors(
+                               {"tokens": np.asarray(req.out_tokens,
+                                                     np.int32)}),
+                           rid=rid, version=ver)
+        return bool(self._inflight)
+
     def _drop_work(self, work: _Work) -> None:
         """close(drain=False) hand-back: refuse explicitly, never drop a
         request whose submit was already acknowledged."""
@@ -583,11 +701,16 @@ class InferenceServer:
             verdict = linker_mod.batch_analysis(self._bound)
             batched.update(batchable=verdict.batchable,
                            reason=verdict.reason)
-        s["serving"] = {**self._loop.summary(),
-                        "shed": self.scheduler.shed_count,
+        shed = self.scheduler.shed_count
+        if self.engine is not None:
+            shed += self.engine.scheduler.shed_count
+        s["serving"] = {**self._loop.summary(), "shed": shed,
+                        "inflight": len(self._inflight),
                         "batched": batched}
         s["counters"] = self.platform.telemetry.counters()
         s["device"] = str(self.platform.driver.device)
+        if self.engine is not None:
+            s["engine"] = self.engine.telemetry.summary(warmup=1)
         return s
 
     def _provision(self, payload) -> None:
@@ -755,15 +878,19 @@ class Client:
             self._rpc(proto.Msg.PROVISION, inner).payload)
 
     def infer_async(self, deadline_ms: Optional[float] = None,
-                    priority: Optional[int] = None, **tensors) -> int:
+                    priority: Optional[int] = None,
+                    max_new: Optional[int] = None, **tensors) -> int:
         """Send one pipelined INFER_REQUEST; returns its request id.
-        Admission metadata rides as reserved ``__``-prefixed npz entries."""
+        Admission metadata rides as reserved ``__``-prefixed npz entries
+        (``max_new``: the decode tokens an LM ``prompt`` asks for)."""
         rid = next(self._rids)
         meta: dict = {}
         if deadline_ms is not None:
             meta["__deadline_ms"] = np.float64(deadline_ms)
         if priority is not None:
             meta["__priority"] = np.int32(priority)
+        if max_new is not None:
+            meta["__max_new"] = np.int32(max_new)
         self._send(proto.Msg.INFER_REQUEST,
                    proto.pack_tensors({**tensors, **meta}), rid=rid)
         return rid
@@ -779,6 +906,7 @@ class Client:
 
     def infer(self, deadline_ms: Optional[float] = None,
               priority: Optional[int] = None,
+              max_new: Optional[int] = None,
               timeout: Optional[float] = None, **tensors) -> dict:
         """One-shot inference; with ``retries`` set, bounded re-send on
         backpressure refusals (a refused request was never executed, so
@@ -787,8 +915,8 @@ class Client:
         while True:
             try:
                 return self.result(self.infer_async(
-                    deadline_ms=deadline_ms, priority=priority, **tensors),
-                    timeout=timeout)
+                    deadline_ms=deadline_ms, priority=priority,
+                    max_new=max_new, **tensors), timeout=timeout)
             except (ServerBusy, RequestShed) as e:
                 kind = "busy" if isinstance(e, ServerBusy) else "shed"
                 self.retry_stats[kind] += 1

@@ -28,7 +28,10 @@ def test_port_imports_no_jax_no_ml_dtypes_no_reference_package():
     assert "repro_torch.kernels.wkv6.ops" in modules
     assert "repro_torch.models.rwkv6" in modules
     for name in ("kernels.int8_matmul.ops", "kernels.int8_matmul.ref",
-                 "models.resnet", "core.quant", "configs.resnet18"):
+                 "models.resnet", "core.quant", "configs.resnet18",
+                 "models.attention", "models.mlp", "launch",
+                 "launch.steps", "checkpoint", "checkpoint.ckpt",
+                 "serving.engine"):
         assert "repro_torch." + name in modules
     code = (
         "import importlib, sys\n"
@@ -66,9 +69,13 @@ def _entry_points():
     from repro_torch.core.quant import quantize_resnet
     from repro_torch.models.resnet import init_resnet
     from repro_torch.models.transformer import init_params
+    from repro_torch.serving.engine import ServingEngine
     from repro_torch.serving.server import InferenceServer
     cfg = get_config("qwen2-1.5b-smoke")
     return {
+        "ServingEngine": lambda: ServingEngine(cfg, {}),
+        "ServingEngine.from_rimfs": lambda: ServingEngine.from_rimfs(
+            cfg, None),
         "make_eager_driver": make_eager_driver,
         "Executor": Executor,
         "Platform": Platform,
@@ -82,7 +89,8 @@ def _entry_points():
 @pytest.mark.parametrize("name", ["make_eager_driver", "Executor",
                                   "Platform", "InferenceServer",
                                   "init_params", "init_resnet",
-                                  "quantize_resnet"])
+                                  "quantize_resnet", "ServingEngine",
+                                  "ServingEngine.from_rimfs"])
 def test_default_device_is_cuda_and_raises_without_it(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default does not raise")

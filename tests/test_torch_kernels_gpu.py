@@ -69,6 +69,25 @@ def test_flash_attention_kernel_matches_plain_version(shape, causal, dtype,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("b,s", [(2, 512), (2, 256), (1, 512), (1, 100),
+                                 (1, 37)])
+def test_flash_attention_kernel_at_the_engine_prefill_shapes(b, s, cuda,
+                                                             rng):
+    """The serving engine's prefill groups on qwen2-1.5B (12/2 heads,
+    D = 128, bf16, causal): two prompts of one length in one launch, and
+    ragged lengths off the kernel's 64-row and 128-key steps."""
+    q, k, v = (torch.from_numpy(rng.randn(b, s, h, 128).astype(np.float32))
+               .to(cuda, torch.bfloat16) for h in (12, 2, 2))
+    before = ops.flash_attention.launches
+    got = ops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert ops.flash_attention.launches == before + 1
+    want = attention_ref_bshd(q, k, v, causal=True)
+    tol = TOL["bfloat16"]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_flash_attention_kernel_is_deterministic(dtype, cuda, rng):
     """Two launches on the same inputs give the same bits: the served logits
