@@ -59,21 +59,26 @@ Phases, each printing one JSON line with its times:
      device time);
   7. the LM serving engine: first at qwen2-1.5B's full width cut to 2
      layers in bf16 and 1 layer in fp32 (two ``engine_reduced_depth``
-     lines: each prefill group's last-position logits on the kernel
+     lines: each prefill's last-position logits on the kernel
      against the plain attention, each greedy stream against an offline
      recompute, gated on the fp32 layer), then at full depth
      (``slice_engine``):
      packed into a RIMFS image, pinned by ``ServingEngine.from_rimfs`` (4
-     slots of 640 rows) and served by the InferenceServer: six greedy
-     prompts of 512, 512, 256, 256, 100 and 37 tokens with 32 new tokens
-     each, held until all are queued; the tokens against a local engine fed
-     the same prefill groups (bit for bit), every attention call of each
-     prefill against the plain version on the same q, k, v, 28
-     ``flash_attention`` launches a prefill and none a decode step; the
-     same prompts again, not held; the host wall and device time of a
-     decode step and of each prefill shape; then the card-only tests of the
-     fused and batched graphs (``tests/test_torch_graphs_gpu.py``, in a
-     process of their own);
+     slots of 640 rows, the decode step captured as one CUDA graph) and
+     served by the InferenceServer: six greedy prompts of 512, 512, 256,
+     256, 100 and 37 tokens with 32 new tokens each, held until all are
+     queued, each prompt prefilled alone; the tokens against a local engine
+     on the eager decode step fed the same prefills (bit for bit), one
+     replay against the eager step (logits and cache bit for bit), the
+     same prompts again not held and each admitted alone (the same
+     streams), every attention call of each prefill against the plain
+     version on the same q, k, v, 28 ``flash_attention`` launches a
+     prefill and none a decode step; the capture's seconds, the host wall
+     and device time of a replayed and an eager decode step and of each
+     prefill shape; then the card-only tests of the fused and batched
+     graphs (``tests/test_torch_graphs_gpu.py``) and of the engine's
+     compiled steps (``tests/test_torch_engine_gpu.py``, with the per-op
+     diagnosis of a grouped prefill), each in a process of its own;
   8. one ``kernels`` line: per kernel its launches on every served path
      (and on each one's fused and batched paths), its error against its
      plain version, its time, its bound and the library's.
@@ -233,10 +238,11 @@ def device_breakdown(torch, fn, top: int = 12) -> dict:
     """One call of ``fn`` under ``torch.profiler``: its host time, the
     device time from CUDA events recorded before and after it on the
     current stream (first to last op, idle gaps included), the device time
-    summed over its kernels (the busy share is their ratio), the kernels
-    that took the most device time, by name, and the host-side events
-    (torch ops, CUDA runtime calls) that took the most host time of their
-    own."""
+    summed over its kernels (the busy share is their ratio), how many
+    kernels and copies ran and how many ``cudaLaunchKernel`` calls the host
+    made (a graph replay makes none), the kernels that took the most device
+    time, by name, and the host-side events (torch ops, CUDA runtime calls)
+    that took the most host time of their own."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -256,10 +262,14 @@ def device_breakdown(torch, fn, top: int = 12) -> dict:
         if e.device_type == DeviceType.CUDA:
             n, us = by_name.get(e.name, (0, 0.0))
             by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
-    host = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)
+    averages = prof.key_averages()
+    host_launches = sum(a.count for a in averages
+                        if a.key.startswith("cudaLaunchKernel"))
+    host = sorted(averages, key=lambda a: -a.self_cpu_time_total)
     host_top = [{"name": a.key[:90], "calls": a.count,
                  "self_s": a.self_cpu_time_total / 1e6} for a in host[:top]]
     busy_us = sum(us for _, us in by_name.values())
+    n_device = sum(n for n, _ in by_name.values())
     if not busy_us:
         return {"wall_s": wall_us / 1e6, "device_elapsed_s": elapsed_s,
                 "device": "no kernel in the profiler's trace",
@@ -268,6 +278,7 @@ def device_breakdown(torch, fn, top: int = 12) -> dict:
     return {"wall_s": wall_us / 1e6, "device_elapsed_s": elapsed_s,
             "device_busy_s": busy_us / 1e6,
             "device_busy_share": busy_us / wall_us,
+            "device_ops": n_device, "host_kernel_launches": host_launches,
             "kernels": [{"name": name[:90], "launches": n, "s": us / 1e6}
                         for name, (n, us) in ranked],
             "host_top": host_top}
@@ -324,9 +335,11 @@ def phase_attention(torch, seed: int) -> dict:
                   (1, 100, 300, 12, 2, 128, dtype, False),
                   (1, 300, 100, 12, 2, 128, dtype, True),   # Sk < S
                   (1, 300, 100, 12, 2, 128, dtype, False)]
-    # the serving engine's prefill groups (qwen2-1.5B)
+    # the serving engine's prefill shapes (qwen2-1.5B), and B = 2 as a
+    # grouped prefill would give them
     cases += [(b, n, n, 12, 2, 128, "bfloat16", True)
-              for b, n in ((2, 512), (2, 256), (1, 512), (1, 100), (1, 37))]
+              for b, n in ((2, 512), (2, 256), (1, 512), (1, 256), (1, 100),
+                           (1, 37))]
     worst = 0.0
     results = []
     for case in cases:
@@ -1632,7 +1645,7 @@ def phase_slice_resnet(torch, seed: int, int8: bool) -> dict:
 
 
 # the LM serving engine: qwen2-1.5B, 4 slots of 640 rows; six prompts, the
-# first four fill the slots (two prefill groups of B = 2), the last two wait
+# first four fill the slots (each prefilled alone), the last two wait
 ENGINE_PROMPTS = (512, 512, 256, 256, 100, 37)
 ENGINE_MAX_NEW = 32
 ENGINE_SLOTS, ENGINE_MAX_SEQ = 4, 640
@@ -1753,7 +1766,7 @@ def phase_engine_reduced_depth(torch, seed: int, prompts: list, layers: int,
                                dtype: str, gate_recompute: bool) -> None:
     """Phase 7a: a local engine at qwen2-1.5B's full width cut to
     ``layers`` layers in ``dtype``, the same prompts and slots as
-    ``slice_engine``. Gates: each prefill group's last-position logits on
+    ``slice_engine``. Gates: each prefill's last-position logits on
     the kernel within ENGINE_TOL of the largest |logit| of the same
     forward on the plain attention; with ``gate_recompute``, each greedy
     stream equal to the offline recompute up to its first near tie
@@ -1806,14 +1819,19 @@ def engine_prompts(seed: int, vocab: int) -> list:
 def phase_slice_engine(torch, seed: int) -> dict:
     """Phase 7b: the LM serving engine. qwen2-1.5B at full width and depth
     (bf16, random weights from ``seed``) packed into a RIMFS image, pinned
-    on the card by ``ServingEngine.from_rimfs`` and served by the port's
-    InferenceServer: six greedy prompts, sent while the engine is held
-    until all six are queued, answered with tokens through continuous
-    batching. Gates: the served tokens equal a local engine's on the card
-    fed the same prefill groups bit for bit; every attention call of every
-    prefill group agrees with the plain version on the same q, k, v within
-    ENGINE_TOL of its largest |value|; 28 ``flash_attention`` launches a
-    prefill dispatch and none a decode step.
+    on the card by ``ServingEngine.from_rimfs`` (its decode step captured
+    as one CUDA graph) and served by the port's InferenceServer: six
+    greedy prompts, sent while the engine is held until all six are
+    queued, answered with tokens through continuous batching, each prompt
+    prefilled alone. Gates: the served tokens equal those of a local
+    engine on the card whose decode step is the eager one, fed the same
+    prefills, bit for bit; one replay at 4 live slots equals the eager
+    step from a copy of the same cache (logits and cache bit for bit); the
+    six streams are the same held, unheld and with each prompt admitted
+    alone; every attention call of every prefill agrees with the plain
+    version on the same q, k, v within ENGINE_TOL of its largest |value|;
+    28 ``flash_attention`` launches a prefill dispatch and none a decode
+    step.
 
     Reported, not gated: each group's last-position logits against the
     same forward on the plain attention, each stream against a greedy
@@ -1823,13 +1841,13 @@ def phase_slice_engine(torch, seed: int) -> dict:
     is nearly one-hot: a bf16 rounding anywhere moves which key wins in
     some rows, and after a few of the 28 layers any two bf16 orders of
     arithmetic give unrelated logits (``phase_engine_reduced_depth`` holds
-    them at 1 and 2 layers). Then the same prompts again, not held, to see
-    whether arrival moved a token; and where a decode step's and a
-    prefill's time goes. Returns the launches of the held run, the main
-    path's."""
+    them at 1 and 2 layers). Then where a decode step's time goes,
+    replayed and eager, and a prefill's. Returns the launches of the held
+    run, the main path's."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.core import rhal, rimfs
+    from repro_torch.launch.steps import make_decode_step
     from repro_torch.models import transformer as tf
     from repro_torch.serving.engine import (Request, ServingEngine,
                                             pack_params_image)
@@ -1907,22 +1925,28 @@ def phase_slice_engine(torch, seed: int) -> dict:
     n_prefills = len(groups)
     want = {**dict.fromkeys(launches, 0),
             "flash_attention": cfg.num_layers * n_prefills}
-    if launches != want:
+    if n_prefills != n_req or launches != want:
         raise AssertionError(f"engine: the held burst launched {launches}, "
-                             f"not {want} ({n_prefills} prefills)")
+                             f"not {want} ({n_prefills} prefills for "
+                             f"{n_req} prompts)")
     for i, tok in enumerate(held_pass["tokens"]):
         if tok.shape != (ENGINE_MAX_NEW + 1,) or tok.dtype != np.int32 \
                 or tok.min() < 0 or tok.max() >= cfg.vocab_size:
             raise AssertionError(f"engine: request {i} replied {tok}")
+    served_step = eng.program.artifacts["decode"]
 
-    # a local engine over the same pinned weights (zero bytes moved), fed
-    # the same groups: the served tokens bit for bit
+    # a local engine over the same pinned weights (zero bytes moved), its
+    # decode step swapped for the eager one, fed the same prefills: the
+    # served tokens bit for bit
     dma_before = dict(driver.stats)
     local = ServingEngine.from_rimfs(cfg, fs, driver=driver,
                                      max_batch=ENGINE_SLOTS,
                                      max_seq=ENGINE_MAX_SEQ)
     if driver.stats.get("dma_bytes", 0) != dma_before.get("dma_bytes", 0):
         raise AssertionError("engine: a second from_rimfs moved bytes")
+    compiled = local.program.artifacts["decode"]     # its captured step
+    eager = make_decode_step(cfg)
+    local._decode = eager
     local_log = instrument_engine(torch, local, keep=True)
     reqs = [Request(rid=i, prompt=p, max_new=ENGINE_MAX_NEW)
             for i, p in enumerate(prompts)]
@@ -1935,16 +1959,45 @@ def phase_slice_engine(torch, seed: int) -> dict:
     for i, (r, tok) in enumerate(zip(reqs, held_pass["tokens"])):
         if r.out_tokens != tok.tolist():
             raise AssertionError(f"engine: request {i} served {tok.tolist()}"
-                                 f", the local engine {r.out_tokens}")
+                                 f", the eager-step engine {r.out_tokens}")
     engine_launch_check(local_log, cfg.num_layers, "local")
+
+    # the graph against the eager step: one step at 4 live slots from two
+    # copies of the cache, the logits and the whole cache bit for bit
+    toks = torch.as_tensor(np.asarray([r.out_tokens[:1] for r in reqs[:4]],
+                                      np.int32), device="cuda")
+    pos = torch.as_tensor(np.asarray(ENGINE_PROMPTS[:4], np.int32),
+                          device="cuda")
+    batch = {"inputs": toks, "pos": pos}
+    mirror = {k: v.clone() for k, v in local._cache.items()}
+    got, _ = compiled(local.params, local._cache, batch)
+    ref, _ = eager(local.params, mirror, batch)
+    if not (torch.equal(got, ref) and all(torch.equal(local._cache[k], v)
+                                          for k, v in mirror.items())):
+        raise AssertionError("engine: the decode graph's replay differs "
+                             "from the eager step")
+    del mirror, got, ref
+
+    # arrival order: the same six streams held, unheld, and each prompt
+    # admitted alone into the local engine, on its own steps again
+    step_prefill = local.program.artifacts["prefill"]
+    local._prefill, local._decode = step_prefill, compiled
+    alone = []
+    for i, p in enumerate(prompts):
+        r = Request(rid=i, prompt=p, max_new=ENGINE_MAX_NEW)
+        local.submit(r)
+        local.run_until_drained()
+        alone.append(r.out_tokens)
     ungated_same = [a.tolist() == b.tolist()
                     for a, b in zip(held_pass["tokens"], free_pass["tokens"])]
-    # the local engine's step functions, unwrapped
-    step_prefill = local.program.artifacts["prefill"]
-    step_decode = local.program.artifacts["decode"]
+    alone_same = [a.tolist() == b
+                  for a, b in zip(held_pass["tokens"], alone)]
+    if not (all(ungated_same) and all(alone_same)):
+        raise AssertionError(f"engine: arrival moved tokens: unheld same "
+                             f"{ungated_same}, alone same {alone_same}")
 
-    # every attention call of each prefill group against the plain version
-    # on the same q, k, v; then, reported only, the end-to-end numbers a
+    # every attention call of each prefill against the plain version on
+    # the same q, k, v; then, reported only, the end-to-end numbers a
     # random-weight bf16 model at full depth scrambles (see the docstring)
     layer_errs = []
     for e in (e for e in local_log if e["step"] == "prefill"):
@@ -1974,15 +2027,21 @@ def phase_slice_engine(torch, seed: int) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # where the time goes: one decode step at 4 live slots, one prefill of
-    # each group's shape
-    toks = torch.as_tensor(np.stack([r.out_tokens[:1] for r in reqs[:4]]),
-                           device="cuda")
-    pos = torch.as_tensor(np.asarray(ENGINE_PROMPTS[:4], np.int32),
-                          device="cuda")
-    decode_time = device_breakdown(
-        torch, lambda: step_decode(local.params, local._cache,
-                                   {"inputs": toks, "pos": pos}), top=8)
+    # where the time goes: one decode step at 4 live slots, replayed and
+    # eager; the replay's host wall to a sync and its device time over 20;
+    # one prefill of each served shape
+    def replay():
+        compiled(local.params, local._cache, batch)
+    decode_time = device_breakdown(torch, replay, top=8)
+    decode_eager_time = device_breakdown(
+        torch, lambda: eager(local.params, local._cache, batch), top=8)
+    replay_walls = []
+    for _ in range(20):
+        t2 = time.perf_counter()
+        replay()
+        torch.cuda.synchronize()
+        replay_walls.append(time.perf_counter() - t2)
+    replay_device_ms = cuda_ms(torch, replay, iters=20)
     prefill_time = {}
     for e in (e for e in local_log if e["step"] == "prefill"):
         key = "x".join(map(str, e["shape"]))
@@ -1995,13 +2054,15 @@ def phase_slice_engine(torch, seed: int) -> dict:
          dtype=cfg.dtype, slots=ENGINE_SLOTS, max_seq=ENGINE_MAX_SEQ,
          prompts=list(ENGINE_PROMPTS), max_new=ENGINE_MAX_NEW,
          image_bytes=len(image), init_s=t_init, pack_s=t_pack,
-         pin_s=pin_s, kv_cache_bytes=sum(c.numel() * c.element_size()
-                                         for c in eng._cache.values()),
+         pin_s=pin_s, decode_capture_s=served_step.graph.capture_s,
+         kv_cache_bytes=sum(c.numel() * c.element_size()
+                            for c in eng._cache.values()),
          serve_peak_memory_allocated=serve_peak,
          serve_base_memory_allocated=serve_base,
          prefill_groups=groups, launches=launches,
          fa_launches_per_prefill=cfg.num_layers,
          fa_launches_per_decode_step=0,
+         replay_hand_kernel_launches=served_step.graph.launches,
          request_wall_s=held_pass["walls"], latency_p50_s=walls[n_req // 2],
          latency_max_s=walls[-1], burst_s=held_pass["burst_s"],
          tokens_per_s=generated / held_pass["burst_s"],
@@ -2012,39 +2073,73 @@ def phase_slice_engine(torch, seed: int) -> dict:
                           if e["step"] == "prefill"],
          served_decode_wall_s=sorted(e["wall_s"] for e in held_pass["log"]
                                      if e["step"] == "decode"),
-         bit_identical_to_local=True,
+         bit_identical_to_eager_step_engine=True,
+         graph_equals_eager_step=True,
          attention_calls_checked=len(layer_errs),
          attention_worst_rel_err=worst_layer, attention_tol=ENGINE_TOL,
          reported_prefill_logits_vs_plain=logits_check,
          reported_recompute=recompute,
          reported_plain_bf16_vs_fp32_logits=plain_bf16_vs_fp32,
          ungated_prefill_groups=prefill_groups(free_pass["log"]),
-         ungated_tokens_same=ungated_same,
+         ungated_tokens_same=ungated_same, alone_tokens_same=alone_same,
          ungated_request_wall_s=free_pass["walls"],
          ungated_burst_s=free_pass["burst_s"],
-         decode_step_4_slots=decode_time, prefill_by_shape=prefill_time)
-    del eng, local, image, fs
+         decode_replay_wall_s=sorted(replay_walls)[len(replay_walls) // 2],
+         decode_replay_device_ms=replay_device_ms,
+         decode_step_4_slots=decode_time,
+         decode_step_4_slots_eager=decode_eager_time,
+         prefill_by_shape=prefill_time)
+    del eng, local, compiled, served_step, replay, image, fs
     gc.collect()
     torch.cuda.empty_cache()
     return {"slice_engine": launches}
 
 
-def phase_graphs_gpu_tests() -> None:
-    """The card-only tests of the compiled dispatch path
-    (tests/test_torch_graphs_gpu.py), in a process of their own."""
+GPU_TESTS = {"graphs_gpu_tests": "tests/test_torch_graphs_gpu.py",
+             "engine_gpu_tests": "tests/test_torch_engine_gpu.py"}
+
+
+def start_gpu_tests(phase: str):
+    """Start one card-only test file (the compiled dispatch path's, or the
+    engine's compiled steps') in a process of its own; ``-s`` lets the
+    engine's per-op diagnosis print its ``GROUPED_PREFILL`` lines."""
     root = Path(__file__).resolve().parent
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "pytest", "-q", "-m", "gpu",
-         "-p", "no:cacheprovider", "tests/test_torch_graphs_gpu.py"],
+    return subprocess.Popen(
+        [sys.executable, "-m", "pytest", "-q", "-s", "-m", "gpu",
+         "-p", "no:cacheprovider", GPU_TESTS[phase]],
         cwd=root, env={**os.environ, "PYTHONPATH": str(root / "src")},
-        capture_output=True, text=True, timeout=600)
-    tail = proc.stdout.strip().splitlines()[-1:] if proc.stdout else []
-    emit("graphs_gpu_tests", rc=proc.returncode,
-         seconds=time.perf_counter() - t0, summary=tail)
-    if proc.returncode != 0:
-        raise AssertionError("tests/test_torch_graphs_gpu.py failed:\n"
-                             + proc.stdout[-6000:] + proc.stderr[-3000:])
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def phase_gpu_tests() -> None:
+    """The card-only test files, each in a process of its own, both at
+    once (each is small beside the card); one phase line a file, with the
+    ``GROUPED_PREFILL`` lines kept. A failure, or 600 s passed, raises, and
+    no process outlives the phase."""
+    t0 = time.perf_counter()
+    procs = {phase: start_gpu_tests(phase) for phase in GPU_TESTS}
+    try:
+        for phase, proc in procs.items():
+            left = max(1.0, t0 + 600 - time.perf_counter())
+            try:
+                out, err = proc.communicate(timeout=left)
+            except subprocess.TimeoutExpired:
+                raise AssertionError(f"{GPU_TESTS[phase]} ran past 600 s")
+            lines = out.strip().splitlines()
+            mark = "GROUPED_PREFILL "    # after a test's progress dot, maybe
+            marked = [json.loads(ln[ln.index(mark) + len(mark):])
+                      for ln in lines if mark in ln]
+            emit(phase, rc=proc.returncode,
+                 seconds=time.perf_counter() - t0, summary=lines[-1:],
+                 **({"grouped_prefill": marked} if marked else {}))
+            if proc.returncode != 0:
+                raise AssertionError(f"{GPU_TESTS[phase]} failed:\n"
+                                     + out[-6000:] + err[-3000:])
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
 
 
 def main() -> int:
@@ -2106,8 +2201,9 @@ def main() -> int:
                                gate_recompute=True)
     by_path.update(phase_slice_engine(torch, args.seed))
 
-    # the card-only tests of the fused and batched graphs
-    phase_graphs_gpu_tests()
+    # the card-only tests of the fused and batched graphs and of the
+    # engine's compiled steps
+    phase_gpu_tests()
 
     # 8. the kernels line, then the card, then the contract line
     for row in rows:

@@ -69,22 +69,27 @@ def _check_weights(weights: dict, device: torch.device) -> None:
         if not isinstance(w, torch.Tensor) or w.device != device:
             raise ValueError(f"weight {k!r} is not a tensor on {device}: a "
                              f"captured graph reads it in place (bind with "
-                             f"the executor's driver)")
+                             f"the executor's driver, or allocate it on the "
+                             f"device)")
 
 
 class CapturedGraph:
     """A staged callable captured as one ``torch.cuda.CUDAGraph``.
 
     ``inputs`` are the graph's static input buffers on the device, filled
-    before each replay; ``weights`` are read in place, so the graph holds
-    them (their addresses are baked into it). Capture runs the callable
-    once on a side stream first: that first run builds the kernel library,
-    sets each kernel's shared-memory attribute at its first launch and lets
-    cuBLAS and cuDNN pick their algorithms, none of which a capture can
-    hold. The capture itself uses ``capture_error_mode="thread_local"``, so
-    the server's handler threads stay free to run while the dispatcher
-    captures. Anything in the callable that syncs or reads the host makes
-    the capture raise; nothing falls back to an uncaptured run.
+    before each replay; ``weights`` are the tensors the callable reads in
+    place (a bound program's weights) or also writes in place (the serving
+    engine's KV cache, for its decode step): their addresses are baked into
+    the graph, so it holds them and the caller must never rebind them.
+    Capture runs the callable once on a side stream first (so it writes, on
+    the warm-up inputs, what a replay would write): that first run builds
+    the kernel library, sets each kernel's shared-memory attribute at its
+    first launch and lets cuBLAS and cuDNN pick their algorithms, none of
+    which a capture can hold. The capture itself uses
+    ``capture_error_mode="thread_local"``, so the server's handler threads
+    stay free to run while the dispatcher captures. Anything in the
+    callable that syncs or reads the host makes the capture raise; nothing
+    falls back to an uncaptured run.
 
     The kernel wrappers' ``launches`` counts move at capture but nothing
     runs then: the capture's counts are recorded as ``launches`` (a

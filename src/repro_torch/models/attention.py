@@ -8,10 +8,15 @@ paths. ``_attend_full`` there is, for ``attention == "full"`` and S below
 the ``flash_attention`` kernel computes, so prefill runs the kernel (the
 plain version on a CPU tensor). Decode is plain ``jnp`` in the JAX package
 and stays on stock torch ops here, with its K/V written into the cache in
-place. Sliding windows and query chunking (S >= 16384) raise
+place. What every layer of a pass shares (RoPE's cos and sin; in decode
+also the row indices, the cache slots, the ``idx <= pos`` mask and the
+scale) is built once a pass by ``rope_for`` and ``decode_consts`` and handed
+to each layer. Sliding windows and query chunking (S >= 16384) raise
 ``NotImplementedError``.
 """
 from __future__ import annotations
+
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -19,7 +24,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.oplib import f32_scalar
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import attention_ref_bshd
-from repro_torch.models.common import ParamSpec, apply_rope, rms_norm
+from repro_torch.models.common import (ParamSpec, apply_rope, rms_norm,
+                                       rope_table)
 
 NEG_INF = -1e30
 CHUNKED_FROM = 16384          # _attend_full splits the queries from here on
@@ -51,8 +57,41 @@ def _project(x, w, b):
     return y
 
 
-def _qkv(cfg: ModelConfig, p: dict, x, positions):
-    """Shared projection + qk-norm + RoPE for both full and decode paths."""
+def rope_for(cfg: ModelConfig, positions):
+    """RoPE's (cos, sin) of ``positions`` (B, S) for every layer of a
+    pass, or None when the config has no RoPE."""
+    if not cfg.use_rope:
+        return None
+    return rope_table(positions, cfg.head_dim, cfg.rope_theta)
+
+
+class DecodeConsts(NamedTuple):
+    """What every layer of one decode step shares, built once a step from
+    the device tensor ``pos`` (no host read): the lanes' row indices, their
+    cache slots, the (B, 1, 1, 1, S) ``idx <= pos`` mask, the 0-d fp32
+    sqrt(D) the scores are divided by, and RoPE's table at ``pos``."""
+    rows: torch.Tensor
+    slot: torch.Tensor
+    valid: torch.Tensor
+    scale: torch.Tensor
+    rope: Optional[tuple]
+
+
+def decode_consts(cfg: ModelConfig, pos, seq_len: int) -> DecodeConsts:
+    """The step's ``DecodeConsts`` for pos (B,) against caches of
+    ``seq_len`` rows."""
+    dev = pos.device
+    slot = pos.long()
+    valid = torch.arange(seq_len, device=dev)[None, :] <= slot[:, None]
+    return DecodeConsts(rows=torch.arange(pos.shape[0], device=dev),
+                        slot=slot, valid=valid[:, None, None, None, :],
+                        scale=f32_scalar(cfg.head_dim ** 0.5, pos),
+                        rope=rope_for(cfg, pos[:, None]))
+
+
+def _qkv(cfg: ModelConfig, p: dict, x, positions, rope=None):
+    """Shared projection + qk-norm + RoPE for both full and decode paths;
+    ``rope`` is ``rope_for(cfg, positions)`` when the caller has it."""
     q = _project(x, p["wq"], p.get("bq"))
     k = _project(x, p["wk"], p.get("bk"))
     v = _project(x, p["wv"], p.get("bv"))
@@ -60,8 +99,10 @@ def _qkv(cfg: ModelConfig, p: dict, x, positions):
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
     if cfg.use_rope:
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+        if rope is None:
+            rope = rope_for(cfg, positions)
+        q = apply_rope(q, positions, cfg.rope_theta, rope)
+        k = apply_rope(k, positions, cfg.rope_theta, rope)
     return q, k, v
 
 
@@ -91,20 +132,24 @@ def _attend_full(cfg: ModelConfig, p: dict, q, k, v, out_dtype, impl=None):
     return _out_proj(o.to(out_dtype), p["wo"])
 
 
-def full_attention(cfg: ModelConfig, p: dict, x, positions, impl=None):
-    q, k, v = _qkv(cfg, p, x, positions)
+def full_attention(cfg: ModelConfig, p: dict, x, positions, impl=None,
+                   rope=None):
+    q, k, v = _qkv(cfg, p, x, positions, rope)
     return _attend_full(cfg, p, q, k, v, x.dtype, impl)
 
 
-def prefill_attention(cfg: ModelConfig, p: dict, x, positions, impl=None):
+def prefill_attention(cfg: ModelConfig, p: dict, x, positions, impl=None,
+                      rope=None):
     """Full attention that also returns the (layer-local) KV cache entry."""
-    q, k, v = _qkv(cfg, p, x, positions)
+    q, k, v = _qkv(cfg, p, x, positions, rope)
     return _attend_full(cfg, p, q, k, v, x.dtype, impl), (k, v)
 
 
-def decode_attention(cfg: ModelConfig, p: dict, x, pos, k_cache, v_cache):
+def decode_attention(cfg: ModelConfig, p: dict, x, pos, k_cache, v_cache,
+                     consts: Optional[DecodeConsts] = None):
     """One-token decode: x (B,1,d), pos (B,) with 0 <= pos < S, caches
-    (B,S,Hkv,D) holding ``pos`` valid tokens each.
+    (B,S,Hkv,D) holding ``pos`` valid tokens each; ``consts`` is
+    ``decode_consts(cfg, pos, S)`` when the caller has it.
 
     The new token's K/V is written at ``pos`` in place; scores in fp32
     over every cache row, masked to ``idx <= pos`` with NEG_INF, softmax
@@ -113,16 +158,14 @@ def decode_attention(cfg: ModelConfig, p: dict, x, pos, k_cache, v_cache):
     _check_full(cfg)
     B, S, Hkv, D = k_cache.shape
     H = cfg.num_heads
-    q, k, v = _qkv(cfg, p, x, pos[:, None])
-    rows = torch.arange(B, device=x.device)
-    slot = pos.long()
-    k_cache[rows, slot] = k[:, 0].to(k_cache.dtype)
-    v_cache[rows, slot] = v[:, 0].to(v_cache.dtype)
+    c = consts if consts is not None else decode_consts(cfg, pos, S)
+    q, k, v = _qkv(cfg, p, x, pos[:, None], c.rope)
+    k_cache[c.rows, c.slot] = k[:, 0].to(k_cache.dtype)
+    v_cache[c.rows, c.slot] = v[:, 0].to(v_cache.dtype)
 
     qg = q.reshape(B, 1, Hkv, H // Hkv, D)
-    s_ = _grouped_scores(qg, k_cache) / f32_scalar(D ** 0.5, x)
-    valid = torch.arange(S, device=x.device)[None, :] <= slot[:, None]
-    s_ = torch.where(valid[:, None, None, None, :], s_, NEG_INF)
+    s_ = _grouped_scores(qg, k_cache) / c.scale
+    s_ = torch.where(c.valid, s_, NEG_INF)
     a = torch.softmax(s_, dim=-1).to(x.dtype)
     o = torch.einsum("bhgqk,bkhd->bqhgd", a, v_cache).reshape(B, 1, H, D)
     return _out_proj(o, p["wo"]), k_cache, v_cache

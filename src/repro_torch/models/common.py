@@ -2,7 +2,8 @@
 op library (the port's counterpart of ``repro.models.common``: ``ParamSpec``
 without the sharding axes, since the port runs on one device,
 ``draw_param``, ``rms_norm``, ``group_norm``, ``rope_freqs`` and
-``apply_rope``)."""
+``apply_rope``, plus ``rope_table``, RoPE's cos and sin built once a
+forward pass)."""
 from __future__ import annotations
 
 import math
@@ -76,15 +77,23 @@ def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
                                          device=device) / head_dim))
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
+def rope_table(positions: torch.Tensor, head_dim: int, theta: float):
+    """RoPE's (cos, sin) of ``positions`` (..., seq), each (..., seq, 1,
+    head_dim/2) fp32: computed once a forward pass and shared by every
+    layer's q and k."""
+    freqs = rope_freqs(head_dim, theta, positions.device)   # (d/2,)
+    ang = positions.float()[..., None] * freqs              # (..., seq, d/2)
+    return torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               table=None):
     """x: (..., seq, heads, head_dim); positions: (..., seq) int. fp32
-    math, rotation by half-split."""
+    math, rotation by half-split. ``table`` is ``rope_table(positions,
+    head_dim, theta)`` when the caller already has it: the same bits."""
     dt = x.dtype
-    d = x.shape[-1]
-    freqs = rope_freqs(d, theta, x.device)                # (d/2,)
-    ang = positions.float()[..., None] * freqs            # (..., seq, d/2)
-    cos = torch.cos(ang)[..., None, :]                    # (..., seq, 1, d/2)
-    sin = torch.sin(ang)[..., None, :]
+    cos, sin = table if table is not None else \
+        rope_table(positions, x.shape[-1], theta)
     x = x.float()
     x1, x2 = torch.chunk(x, 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)

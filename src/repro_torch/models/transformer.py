@@ -10,8 +10,10 @@ entries), their initialization from a seed on a device, ``split_params``,
 across, the KV ``cache_specs``, ``forward_full`` (prefill: attention on the
 flash-attention kernel) and ``forward_decode`` (one token against the
 cache). The reference scans its layers with ``lax.scan``; here they run in
-a Python loop, which computes the same thing. The engine path is the dense
-family's only: hybrid and ssm raise ``NotImplementedError`` there.
+a Python loop, which computes the same thing; what the layers share (RoPE's
+table, decode's per-step invariants) is built once a pass, before it. The
+engine path is the dense family's only: hybrid and ssm raise
+``NotImplementedError`` there.
 """
 from __future__ import annotations
 
@@ -133,26 +135,29 @@ def cache_specs(cfg: ModelConfig, batch: int, seq_len: int) -> dict:
 # ---------------------------------------------------------------------------
 
 def block_full(cfg: ModelConfig, p: dict, x, positions, want_cache: bool,
-               impl=None):
+               impl=None, rope=None):
     """Full-sequence dense block. Returns (x, cache_entry)."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     cache: dict = {}
     if want_cache:
-        ya, (kc, vc) = attn.prefill_attention(cfg, p, h, positions, impl)
+        ya, (kc, vc) = attn.prefill_attention(cfg, p, h, positions, impl,
+                                              rope)
         cache = {"k": kc, "v": vc}
     else:
-        ya = attn.full_attention(cfg, p, h, positions, impl)
+        ya = attn.full_attention(cfg, p, h, positions, impl, rope)
     x = x + ya
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
     return x + swiglu(p, h2), cache
 
 
-def block_decode(cfg: ModelConfig, p: dict, x, pos, cache: dict):
+def block_decode(cfg: ModelConfig, p: dict, x, pos, cache: dict,
+                 consts=None):
     """One-token dense block. x (B,1,d); cache entries are per-layer
-    slices, written in place."""
+    slices, written in place; ``consts`` the step's
+    ``attn.DecodeConsts``."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     ya, kc, vc = attn.decode_attention(cfg, p, h, pos, cache["k"],
-                                       cache["v"])
+                                       cache["v"], consts)
     x = x + ya
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
     return x + swiglu(p, h2), {"k": kc, "v": vc}
@@ -164,10 +169,11 @@ def _slice_layer(tree: dict, i: int) -> dict:
 
 def run_blocks_full(cfg: ModelConfig, blocks: dict, x, positions,
                     want_cache: bool, impl=None):
+    rope = attn.rope_for(cfg, positions)
     caches = []
     for i in range(cfg.num_layers):
         x, c = block_full(cfg, _slice_layer(blocks, i), x, positions,
-                          want_cache, impl)
+                          want_cache, impl, rope)
         caches.append(c)
     if not want_cache:
         return x, {}
@@ -176,10 +182,12 @@ def run_blocks_full(cfg: ModelConfig, blocks: dict, x, positions,
 
 def run_blocks_decode(cfg: ModelConfig, blocks: dict, x, pos, cache: dict):
     """Every layer against its slice of ``cache``, which is updated in
-    place; returns (x, cache)."""
+    place; returns (x, cache). The step's invariants are built once, for
+    every layer."""
+    consts = attn.decode_consts(cfg, pos, cache["k"].shape[2])
     for i in range(cfg.num_layers):
         x, _ = block_decode(cfg, _slice_layer(blocks, i), x, pos,
-                            _slice_layer(cache, i))
+                            _slice_layer(cache, i), consts)
     return x, cache
 
 

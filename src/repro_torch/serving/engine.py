@@ -8,7 +8,9 @@ requests with a continuous-batching slot table over a dense KV cache that
 lives on the device and is updated in place.
 
 Prefill attention runs the hand-written ``flash_attention`` kernel on
-CUDA tensors (its plain version on CPU ones); decode runs stock torch ops.
+CUDA tensors (its plain version on CPU ones), eagerly, one prompt a
+dispatch; decode runs stock torch ops, on CUDA as one CUDA graph a step
+(``CompiledDecodeStep``), captured when the engine is built.
 Entry points take ``device=`` (default ``"cuda"``) and raise without CUDA
 unless ``device="cpu"`` is given; parameters on another device raise too.
 The JAX package's ``mesh=`` / ``TileMesh`` arguments are absent until tile
@@ -30,7 +32,7 @@ from repro_torch.core import rctc
 from repro_torch.core import rimfs as rimfs_mod
 from repro_torch.core.rtpm import Telemetry
 from repro_torch.dtypes import as_tensor, torch_dtype
-from repro_torch.launch.steps import (make_decode_step, make_prefill_step,
+from repro_torch.launch.steps import (CompiledDecodeStep, make_prefill_step,
                                       sample_tokens)
 from repro_torch.models import transformer as tf
 from repro_torch.serving.scheduler import ScheduledRequest
@@ -192,7 +194,11 @@ class EngineBase:
 class ServingEngine(EngineBase):
     """Fixed-slot continuous batching (decode batch = ``max_batch`` lanes)
     against a dense (L, B, max_seq, Hkv, D) cache on the device — every slot
-    holds worst-case sequence memory. Dense family only."""
+    holds worst-case sequence memory. Dense family only.
+
+    The cache is allocated once and never rebound: the compiled decode step
+    (one CUDA graph on the card, captured here while every slot is free)
+    writes it in place at addresses baked into the graph."""
 
     def __init__(self, cfg: ModelConfig, params: dict, max_batch: int = 4,
                  max_seq: int = 256, greedy: bool = True, scheduler=None,
@@ -200,11 +206,12 @@ class ServingEngine(EngineBase):
         super().__init__(cfg, params, max_batch, max_seq, greedy, scheduler,
                          temperature, seed, device)
         self._prefill = make_prefill_step(cfg)
-        self._decode = make_decode_step(cfg)
         self._cache = {
             k: torch.zeros(s.shape, dtype=torch_dtype(s.dtype),
                            device=self.device)
             for k, s in tf.cache_specs(cfg, max_batch, max_seq).items()}
+        self._decode = CompiledDecodeStep(cfg, self.params, self._cache,
+                                          max_batch)
         # The RCB program view of this service (paper-faithful packaging).
         self.program = rctc.compile_lm_service(
             cfg, max_batch, max_seq, self._prefill, self._decode)
@@ -214,34 +221,28 @@ class ServingEngine(EngineBase):
         placed = list(zip(free, self._pop_admitted(len(free))))
         if not placed:
             return
-        # Batched prefill: requests admitted together prefill as ONE
-        # dispatch per (prompt length, power-of-two chunk). Same-shape
-        # grouping keeps each prompt's numerics those of its single-prompt
-        # prefill (batching over a leading axis reorders no per-sample
-        # reduction); power-of-two chunks bound the prefill shapes at
-        # O(#lengths x log2(max_batch)).
-        by_len: dict = {}
+        # One prompt a prefill dispatch, B = 1, in admission order. The JAX
+        # package prefills a same-length group as one (k, S) dispatch, and
+        # XLA gives each row the bits of its single-prompt prefill. On the
+        # card cuBLAS picks each GEMM for M = k * S rows, and a row's bits
+        # depend on that pick: on an H100 the MLP's down projection (K =
+        # 8960) at M = 2 x 256 rounds otherwise than at M = 256
+        # (tests/test_torch_engine_gpu.py finds the op), so a grouped
+        # prompt would be answered otherwise than the same prompt admitted
+        # alone. A B = 1 dispatch is the one sequential admission runs, so
+        # what a prompt is answered never depends on what arrived with it.
         for i, req in placed:
-            by_len.setdefault(len(req.prompt), []).append((i, req))
-        groups = []
-        for plen, members in by_len.items():
-            while members:
-                k = 1 << (len(members).bit_length() - 1)   # pow2 <= len
-                groups.append((plen, members[:k]))
-                members = members[k:]
-        for plen, group in groups:
-            prompts = as_tensor(np.stack([r.prompt for _, r in group]),
-                                self.device)
-            logits, cache = self._prefill(self.params, {"inputs": prompts})
-            picks = self._sample(logits)
-            for j, (i, req) in enumerate(group):
-                self._slots[i] = req
-                # splice this prompt's KV into slot i over [0, plen); the
-                # tail keeps the last occupant's rows, masked by idx <= pos
-                for key, c in self._cache.items():
-                    c[:, i, :plen].copy_(cache[key][:, j])
-                self._pos[i] = plen
-                req.out_tokens.append(int(picks[j]))
+            plen = len(req.prompt)
+            logits, cache = self._prefill(
+                self.params, {"inputs": as_tensor(req.prompt[None],
+                                                  self.device)})
+            self._slots[i] = req
+            # splice the prompt's KV into slot i over [0, plen); the tail
+            # keeps the last occupant's rows, masked by idx <= pos
+            for key, c in self._cache.items():
+                c[:, i, :plen].copy_(cache[key][:, 0])
+            self._pos[i] = plen
+            req.out_tokens.append(int(self._sample(logits)[0]))
 
     def step(self) -> int:
         """One decode step across all live slots. Returns #live."""
@@ -255,7 +256,7 @@ class ServingEngine(EngineBase):
             toks[i, 0] = self._slots[i].out_tokens[-1]
             pos[i] = self._pos[i]
         t0 = time.perf_counter()
-        logits, self._cache = self._decode(
+        logits, _ = self._decode(
             self.params, self._cache,
             {"inputs": as_tensor(toks, self.device),
              "pos": as_tensor(pos, self.device)})

@@ -234,8 +234,9 @@ def test_engine_matches_an_offline_greedy_recompute(rng):
 
 
 def test_grouped_admission_matches_sequential_admission(rng):
-    """Prompts that prefill together as one (k, S) dispatch give the same
-    tokens as the same prompts admitted one at a time."""
+    """Prompts admitted together (each prefilled at B = 1, in admission
+    order) give the same tokens as the same prompts admitted one at a
+    time."""
     _, _, cfg, _ = _params()
     params = _port_params()
     prompts = _prompts(rng, (6, 6, 6), cfg.vocab_size)
