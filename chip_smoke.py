@@ -59,8 +59,8 @@ Phases, each printing one JSON line with its times:
      device time);
   7. the LM serving engine: first at qwen2-1.5B's full width cut to 2
      layers in bf16 and 1 layer in fp32 (two ``engine_reduced_depth``
-     lines: each prefill's last-position logits on the kernel
-     against the plain attention, each greedy stream against an offline
+     lines: each prefill's last-position logits on the kernels
+     against the plain versions, each greedy stream against an offline
      recompute, gated on the fp32 layer), then at full depth
      (``slice_engine``):
      packed into a RIMFS image, pinned by ``ServingEngine.from_rimfs`` (4
@@ -71,14 +71,23 @@ Phases, each printing one JSON line with its times:
      on the eager decode step fed the same prefills (bit for bit), one
      replay against the eager step (logits and cache bit for bit), the
      same prompts again not held and each admitted alone (the same
-     streams), every attention call of each prefill against the plain
-     version on the same q, k, v, 28 ``flash_attention`` launches a
+     streams), every hand-kernel call of each prefill against its plain
+     version on the same operands, 28 ``flash_attention`` launches a
      prefill and none a decode step; the capture's seconds, the host wall
      and device time of a replayed and an eager decode step and of each
-     prefill shape; then the card-only tests of the fused and batched
-     graphs (``tests/test_torch_graphs_gpu.py``) and of the engine's
-     compiled steps (``tests/test_torch_engine_gpu.py``, with the per-op
-     diagnosis of a grouped prefill), each in a process of its own;
+     prefill shape. Then the recurrent families the same way: hymba-1.5B
+     (an ``engine_reduced_depth`` line at 1 fp32 layer with 1280 rows, so
+     a ring of W = 1024, and prompts of 1100 tokens, prefilled past the
+     window, and 1000, whose decode wraps the ring; then
+     ``slice_engine_hybrid``, 32 ``flash_attention`` and 32 ``ssm_scan``
+     launches a prefill, the KV ring and the SSM state in the replay's
+     check) and rwkv6-1.6B (the same at 1 fp32 layer, then
+     ``slice_engine_ssm``, 24 ``wkv6`` launches a prefill, the WKV state
+     and token-shift rows in the replay's check). Then the card-only
+     tests of the fused and batched graphs
+     (``tests/test_torch_graphs_gpu.py``) and of the engine's compiled
+     steps (``tests/test_torch_engine_gpu.py``, with the per-op diagnosis
+     of a grouped prefill), each in a process of its own;
   8. one ``kernels`` line: per kernel its launches on every served path
      (and on each one's fused and batched paths), its error against its
      plain version, its time, its bound and the library's.
@@ -1644,31 +1653,42 @@ def phase_slice_resnet(torch, seed: int, int8: bool) -> dict:
     return paths
 
 
-# the LM serving engine: qwen2-1.5B, 4 slots of 640 rows; six prompts, the
-# first four fill the slots (each prefilled alone), the last two wait
+# the LM serving engine: 4 slots of 640 rows; six prompts, the first four
+# fill the slots (each prefilled alone), the last two wait
 ENGINE_PROMPTS = (512, 512, 256, 256, 100, 37)
 ENGINE_MAX_NEW = 32
 ENGINE_SLOTS, ENGINE_MAX_SEQ = 4, 640
 ENGINE_TOL = TOLERANCE["bfloat16"]           # of max |logit|, as bf16 is held
+# the served engine phases, each at full width and depth
+ENGINE_MODELS = {"slice_engine": "qwen2-1.5b",
+                 "slice_engine_hybrid": "hymba-1.5b",
+                 "slice_engine_ssm": "rwkv6-1.6b"}
+# hymba's ring at full width: 1280 rows keep a ring of W = 1024 rows; a
+# prompt of 1100 tokens prefills on the windowed route (S > W, not a
+# multiple of W) and one of 1000 on flash_attention, its decode crossing W
+RING_MAX_SEQ = 1280
+RING_PROMPTS = (1100, 1000)
 
 
 def instrument_engine(torch, eng, keep: bool = False) -> list:
     """Record every prefill and decode step of ``eng`` as it runs: the
-    step, its (B, S) input, the ``flash_attention`` launches it made and
-    its host wall to a sync; with ``keep``, also the prefill's tokens and
+    step, its (B, S) input, each hand kernel's launches in it and its host
+    wall to a sync; with ``keep``, also the prefill's tokens and
     last-position logits. The engine's own code is not changed: its step
     functions are wrapped."""
-    from repro_torch.kernels.flash_attention.ops import flash_attention
+    counters = kernel_counters()
     log: list = []
 
     def wrap(kind, fn):
         def step(*args):
             batch = args[-1]
-            n0, t0 = flash_attention.launches, time.perf_counter()
+            n0 = {name: w.launches for name, w in counters.items()}
+            t0 = time.perf_counter()
             out = fn(*args)
             torch.cuda.synchronize()
             entry = {"step": kind, "shape": list(batch["inputs"].shape),
-                     "fa_launches": flash_attention.launches - n0,
+                     "launches": {name: w.launches - n0[name]
+                                  for name, w in counters.items()},
                      "wall_s": time.perf_counter() - t0}
             if keep and kind == "prefill":
                 entry.update(tokens=batch["inputs"].clone(),
@@ -1682,15 +1702,29 @@ def instrument_engine(torch, eng, keep: bool = False) -> list:
     return log
 
 
-def engine_launch_check(log: list, layers: int, what: str) -> None:
-    """``flash_attention`` launches: one a layer in every prefill dispatch,
-    none in any decode step."""
+def prefill_launches(cfg, seq: int) -> dict:
+    """Each hand kernel's launches in one prefill of ``seq`` tokens: one a
+    layer of ``flash_attention`` where the model attends and its window
+    masks nothing (S <= W), of ``ssm_scan`` in the hybrid family and of
+    ``wkv6`` in the ssm family; none of any other."""
+    layers = cfg.num_layers
+    attends = cfg.family != "ssm" and (cfg.attention != "sliding"
+                                       or seq <= cfg.sliding_window)
+    return {name: 0 for name in kernel_counters()} | {
+        "flash_attention": layers if attends else 0,
+        "ssm_scan": layers if cfg.family == "hybrid" else 0,
+        "wkv6": layers if cfg.family == "ssm" else 0}
+
+
+def engine_launch_check(log: list, cfg, what: str) -> None:
+    """Each prefill dispatch launches ``prefill_launches`` and no decode
+    step launches a hand kernel."""
     for e in log:
-        want = layers if e["step"] == "prefill" else 0
-        if e["fa_launches"] != want:
+        want = (prefill_launches(cfg, e["shape"][1])
+                if e["step"] == "prefill" else dict.fromkeys(e["launches"], 0))
+        if e["launches"] != want:
             raise AssertionError(f"{what}: a {e['step']} of {e['shape']} "
-                                 f"launched flash_attention "
-                                 f"{e['fa_launches']} times, not {want}")
+                                 f"launched {e['launches']}, not {want}")
 
 
 def prefill_groups(log: list) -> list:
@@ -1698,33 +1732,37 @@ def prefill_groups(log: list) -> list:
 
 
 def greedy_recompute(torch, cfg, params, prompt, served: list) -> dict:
-    """A greedy stream against ``forward_full`` over prompt + tokens so
-    far, one token at a time (the offline recompute of
-    tests/test_serving.py:266), up to the first position whose top two
-    logits lie closer than ENGINE_TOL of the largest |logit| (the decode
-    path's rounding may rightly pick either there) or the first token the
-    recompute's argmax disagrees with. Returns both positions (None when
-    not reached) and the number of tokens that agreed."""
+    """Each served token against ``forward_full`` over the prompt and the
+    served tokens before it (the offline recompute of
+    tests/test_serving.py:266, fed the served prefix): the token must be
+    the recompute's argmax, or a near tie, whose logit lies within
+    ``tie`` of the largest (the decode path's rounding may rightly pick
+    either there): in fp32 twice the program tolerance PROGRAM_ATOL, in
+    bf16 ENGINE_TOL of the largest |logit|. Returns the near ties, the
+    first token that is neither (None when none) and how many tokens were
+    checked (up to that one)."""
     from repro_torch.models import transformer as tf
     seq = torch.as_tensor(prompt, device="cuda").long()
+    ties = []
     for t, tok in enumerate(served):
         logits = tf.forward_full(cfg, params, seq[None])[0][0, -1].float()
-        top = torch.topk(logits, 2)
-        gap = (top.values[0] - top.values[1]).item()
-        if gap < ENGINE_TOL * logits.abs().max().item():
-            return {"near_tie_at": t, "mismatch_at": None, "agreed": t}
-        if int(top.indices[0]) != tok:
-            return {"near_tie_at": None, "mismatch_at": t, "agreed": t,
-                    "served": tok, "recompute": int(top.indices[0]),
-                    "top_two_gap": gap}
+        tie = (2 * PROGRAM_ATOL if cfg.dtype == "float32"
+               else ENGINE_TOL * logits.abs().max().item())
+        best = int(torch.argmax(logits))
+        if best != tok:
+            gap = (logits[best] - logits[tok]).item()
+            if gap > tie:
+                return {"mismatch_at": t, "near_ties": ties, "checked": t,
+                        "served": tok, "recompute": best, "gap": gap}
+            ties.append(t)
         seq = torch.cat([seq, seq.new_tensor([tok])])
-    return {"near_tie_at": None, "mismatch_at": None, "agreed": len(served)}
+    return {"mismatch_at": None, "near_ties": ties, "checked": len(served)}
 
 
 def prefill_logits_vs_plain(torch, cfg, params, log: list) -> list:
     """Each kept prefill's last-position logits (the engine's, on the
-    kernel) against ``forward_full`` on the same tokens with the plain
-    attention (``impl="ref"``)."""
+    kernels) against ``forward_full`` on the same tokens with every
+    kernel's plain version (``impl="ref"``)."""
     from repro_torch.models import transformer as tf
     out = []
     for e in (e for e in log if e["step"] == "prefill"):
@@ -1738,112 +1776,185 @@ def prefill_logits_vs_plain(torch, cfg, params, log: list) -> list:
     return out
 
 
-def attention_in_model(torch, fn) -> list:
-    """Run ``fn`` with every attention call of the model's forward checked
-    in place: the kernel's output against the plain version on the very
-    same q, k, v (the kernel's output goes on). Returns, per call, the
-    shape and max |err| over max |plain|."""
+def kernels_in_model(torch, fn) -> list:
+    """Run ``fn`` with every hand-kernel call of the model's forward checked
+    in place: the kernel's output against its plain version on the very
+    same operands (the kernel's output goes on). ``flash_attention`` holds
+    if max |err| is within ENGINE_TOL of max |plain| (bf16 at depth, as
+    ``slice_engine`` holds it); ``ssm_scan`` and ``wkv6``
+    at atol = rtol = their tests/test_kernels.py tolerance for the
+    operands' dtype. Returns, per call, the kernel, its first operand's
+    shape, max |err|, max |plain| and whether it held."""
+    from repro_torch.kernels import registry
     from repro_torch.kernels.flash_attention.ref import attention_ref_bshd
     from repro_torch.models import attention as attn_mod
-    kernel, errs = attn_mod.flash_attention, []
+    checks = []
 
-    def checked(q, k, v, causal=True):
+    def record(name, first, out, ref):
+        out, ref = out.float(), ref.float()
+        err = (out - ref).abs().max().item()
+        scale = ref.abs().max().item()
+        if name == "flash_attention":
+            ok = err <= ENGINE_TOL * scale
+        else:
+            tol = (SSM_TOLERANCE if name == "ssm_scan" else WKV_TOLERANCE)[
+                str(first.dtype).removeprefix("torch.")]
+            ok = bool(torch.allclose(out, ref, atol=tol, rtol=tol))
+        checks.append({"kernel": name, "shape": list(first.shape),
+                       "max_abs_err": err, "max_abs_plain": scale,
+                       "rel_err": err / scale if scale else 0.0,
+                       "ok": ok and bool(torch.isfinite(out).all())})
+
+    kernel, saved = attn_mod.flash_attention, dict(registry.SPECS)
+
+    def attention(q, k, v, causal=True):
         o = kernel(q, k, v, causal=causal)
-        ref = attention_ref_bshd(q, k, v, causal=causal).float()
-        errs.append({"shape": list(q.shape), "rel_err": (
-            (o.float() - ref).abs().max() / ref.abs().max()).item()})
+        record("flash_attention", q, o,
+               attention_ref_bshd(q, k, v, causal=causal))
         return o
 
-    attn_mod.flash_attention = checked
+    def checked(spec):
+        def call(*args, **kw):
+            o = spec.kernel(*args, **kw)
+            record(spec.name, args[0], o, spec.ref(*args, **kw))
+            return o
+        return dataclasses.replace(spec, kernel=call)
+
+    attn_mod.flash_attention = attention
+    for name in ("ssm_scan", "wkv6"):
+        registry.SPECS[name] = checked(saved[name])
     try:
         fn()
     finally:
         attn_mod.flash_attention = kernel
-    return errs
+        registry.SPECS.update(saved)
+    return checks
 
 
-def phase_engine_reduced_depth(torch, seed: int, prompts: list, layers: int,
-                               dtype: str, gate_recompute: bool) -> None:
-    """Phase 7a: a local engine at qwen2-1.5B's full width cut to
-    ``layers`` layers in ``dtype``, the same prompts and slots as
-    ``slice_engine``. Gates: each prefill's last-position logits on
-    the kernel within ENGINE_TOL of the largest |logit| of the same
-    forward on the plain attention; with ``gate_recompute``, each greedy
-    stream equal to the offline recompute up to its first near tie
-    (otherwise the comparison is only printed). The random-weight model
-    is chaotic in depth (``slice_engine``'s docstring says why): in bf16
-    a second layer already lets the decode path's roundings move a token
-    past the tolerance, so the recompute is gated on one fp32 layer."""
+def kernel_check_summary(checks: list) -> dict:
+    """Per kernel: its calls, the worst max |err| and max |err| over max
+    |plain|, and how many held."""
+    out: dict = {}
+    for c in checks:
+        s = out.setdefault(c["kernel"], {"calls": 0, "held": 0,
+                                         "worst_max_abs_err": 0.0,
+                                         "worst_rel_err": 0.0})
+        s["calls"] += 1
+        s["held"] += c["ok"]
+        s["worst_max_abs_err"] = max(s["worst_max_abs_err"],
+                                     c["max_abs_err"])
+        s["worst_rel_err"] = max(s["worst_rel_err"], c["rel_err"])
+    return out
+
+
+def phase_engine_reduced_depth(torch, seed: int, model: str, prompts: list,
+                               layers: int, dtype: str, gate_recompute: bool,
+                               max_seq: int = ENGINE_MAX_SEQ) -> None:
+    """Phase 7a: a local engine at ``model``'s full width cut to ``layers``
+    layers in ``dtype``, over ``prompts`` with ENGINE_SLOTS slots of
+    ``max_seq`` rows. Gates: each prefill's hand-kernel launches; each
+    prefill's last-position logits on the kernels within ENGINE_TOL of the
+    largest |logit| of the same forward on the plain versions; with
+    ``gate_recompute``, each greedy stream equal to the offline recompute
+    up to its first near tie (otherwise the comparison is only printed).
+    The random-weight model is chaotic in depth (``phase_slice_engine``'s
+    docstring says why): in bf16 a second layer already lets the decode
+    path's roundings move a token past the tolerance, so the recompute is
+    gated on one fp32 layer. With a sliding window, each prompt whose
+    decode passes W must have its recompute checked past the step that
+    first writes a key over the ring's oldest (``ring_wrap_checked``,
+    gated with the recompute)."""
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as tf
     from repro_torch.serving.engine import Request, ServingEngine
-    cfg = dataclasses.replace(get_config("qwen2-1.5b"), num_layers=layers,
+    cfg = dataclasses.replace(get_config(model), num_layers=layers,
                               dtype=dtype)
     eng = ServingEngine(cfg, tf.init_params(cfg, seed),
-                        max_batch=ENGINE_SLOTS, max_seq=ENGINE_MAX_SEQ)
+                        max_batch=ENGINE_SLOTS, max_seq=max_seq)
     log = instrument_engine(torch, eng, keep=True)
     reqs = [Request(rid=i, prompt=p, max_new=ENGINE_MAX_NEW)
             for i, p in enumerate(prompts)]
     for r in reqs:
         eng.submit(r)
     eng.run_until_drained()
-    engine_launch_check(log, cfg.num_layers, f"{layers}-layer engine")
+    what = f"{model} {layers}-layer {dtype} engine"
+    engine_launch_check(log, cfg, what)
     logits = prefill_logits_vs_plain(torch, cfg, eng.params, log)
     for c in logits:
         if not (c["finite"]
                 and c["max_abs_err"] <= ENGINE_TOL * c["max_abs_logit"]):
-            raise AssertionError(f"{layers}-layer {dtype} engine: prefill "
-                                 f"{c} beyond {ENGINE_TOL} of max |logit|")
+            raise AssertionError(f"{what}: prefill {c} beyond {ENGINE_TOL} "
+                                 f"of max |logit|")
     recompute = [greedy_recompute(torch, cfg, eng.params, p, r.out_tokens)
                  for p, r in zip(prompts, reqs)]
     for i, rc in enumerate(recompute):
         if gate_recompute and rc["mismatch_at"] is not None:
-            raise AssertionError(f"{layers}-layer {dtype} engine: request "
-                                 f"{i} {rc}")
+            raise AssertionError(f"{what}: request {i} {rc}")
+    ring = {}
+    if cfg.attention == "sliding":
+        # out_tokens[j] comes from the decode step at position len + j - 1,
+        # which writes its key over the ring's oldest once that is >= W
+        W = cfg.sliding_window
+        wrapped = {i: max(1, W - len(p) + 1) for i, p in enumerate(prompts)
+                   if len(p) + ENGINE_MAX_NEW - 1 >= W}
+        checked = {i: recompute[i]["checked"] - j for i, j in wrapped.items()}
+        ring = {"ring_rows": eng._cache["k"].shape[2],
+                "windowed_prefills": [len(p) for p in prompts if len(p) > W],
+                "ring_wrap_checked": {len(prompts[i]): n
+                                      for i, n in checked.items()}}
+        if gate_recompute and not (checked and all(
+                n > 0 for n in checked.values())):
+            raise AssertionError(f"{what}: no token checked past the ring's "
+                                 f"wrap: {ring}")
     emit("engine_reduced_depth", model=cfg.name, layers=layers,
-         dtype=dtype, prefill_groups=prefill_groups(log),
+         dtype=dtype, max_seq=max_seq, prompts=[len(p) for p in prompts],
+         prefill_groups=prefill_groups(log),
+         prefill_launches=[e["launches"] for e in log
+                           if e["step"] == "prefill"],
          prefill_logits=logits, logits_tol=ENGINE_TOL,
-         recompute_gated=gate_recompute, recompute=recompute)
+         recompute_gated=gate_recompute, recompute=recompute, **ring)
     del eng
     gc.collect()
     torch.cuda.empty_cache()
 
 
-def engine_prompts(seed: int, vocab: int) -> list:
+def engine_prompts(seed: int, vocab: int, lengths=ENGINE_PROMPTS) -> list:
     import numpy as np
     rng = np.random.RandomState(seed + 3)
-    return [rng.randint(0, vocab, (n,)).astype(np.int32)
-            for n in ENGINE_PROMPTS]
+    return [rng.randint(0, vocab, (n,)).astype(np.int32) for n in lengths]
 
 
-def phase_slice_engine(torch, seed: int) -> dict:
-    """Phase 7b: the LM serving engine. qwen2-1.5B at full width and depth
-    (bf16, random weights from ``seed``) packed into a RIMFS image, pinned
-    on the card by ``ServingEngine.from_rimfs`` (its decode step captured
-    as one CUDA graph) and served by the port's InferenceServer: six
-    greedy prompts, sent while the engine is held until all six are
-    queued, answered with tokens through continuous batching, each prompt
-    prefilled alone. Gates: the served tokens equal those of a local
-    engine on the card whose decode step is the eager one, fed the same
-    prefills, bit for bit; one replay at 4 live slots equals the eager
-    step from a copy of the same cache (logits and cache bit for bit); the
-    six streams are the same held, unheld and with each prompt admitted
-    alone; every attention call of every prefill agrees with the plain
-    version on the same q, k, v within ENGINE_TOL of its largest |value|;
-    28 ``flash_attention`` launches a prefill dispatch and none a decode
-    step.
+def phase_slice_engine(torch, seed: int, phase: str) -> dict:
+    """Phase 7b: the LM serving engine. ``ENGINE_MODELS[phase]`` (qwen2-1.5B,
+    hymba-1.5B or rwkv6-1.6B) at full width and depth (bf16, random weights
+    from ``seed``) packed into a RIMFS image, pinned on the card by
+    ``ServingEngine.from_rimfs`` (its decode step captured as one CUDA
+    graph) and served by the port's InferenceServer: six greedy prompts,
+    sent while the engine is held until all six are queued, answered with
+    tokens through continuous batching, each prompt prefilled alone.
+    Gates: the served tokens equal those of a local engine on the card
+    whose decode step is the eager one, fed the same prefills, bit for
+    bit; one replay at 4 live slots equals the eager step from a copy of
+    the same cache (logits and every cache tensor, KV rows and recurrent
+    states, bit for bit); the six streams are the same held, unheld and
+    with each prompt admitted alone; every hand-kernel call of every
+    prefill agrees with its plain version on the same operands
+    (``kernels_in_model``); each prefill dispatch launches one
+    ``flash_attention`` a layer where the model attends (28 qwen2, 32
+    hymba), one ``ssm_scan`` a layer in hymba (32), one ``wkv6`` a layer
+    in rwkv6 (24), and no decode step launches any.
 
     Reported, not gated: each group's last-position logits against the
-    same forward on the plain attention, each stream against a greedy
-    recompute, and the plain attention's bf16 forward against its fp32
-    one. The JAX package's init draws wq, wk and wv with std 1/sqrt(heads)
-    (fan-in is the heads axis), so q.k reaches hundreds and each softmax
-    is nearly one-hot: a bf16 rounding anywhere moves which key wins in
-    some rows, and after a few of the 28 layers any two bf16 orders of
-    arithmetic give unrelated logits (``phase_engine_reduced_depth`` holds
-    them at 1 and 2 layers). Then where a decode step's time goes,
-    replayed and eager, and a prefill's. Returns the launches of the held
-    run, the main path's."""
+    same forward on the plain kernels, each stream against a greedy
+    recompute, and the plain bf16 forward against its fp32 one. The JAX
+    package's init draws wq, wk and wv with std 1/sqrt(heads) (fan-in is
+    the heads axis), so q.k reaches hundreds and each softmax is nearly
+    one-hot: a bf16 rounding anywhere moves which key wins in some rows,
+    and after a few layers any two bf16 orders of arithmetic give
+    unrelated logits (``phase_engine_reduced_depth`` holds them at 1 and
+    2 layers). Then where a decode step's time goes, replayed and eager,
+    and a prefill's. Returns the launches of the held run, the main
+    path's."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.core import rhal, rimfs
@@ -1852,7 +1963,7 @@ def phase_slice_engine(torch, seed: int) -> dict:
     from repro_torch.serving.engine import (Request, ServingEngine,
                                             pack_params_image)
     from repro_torch.serving.server import Client, InferenceServer
-    cfg = get_config("qwen2-1.5b")
+    cfg = get_config(ENGINE_MODELS[phase])
     t0 = time.perf_counter()
     params = tf.init_params(cfg, seed)
     torch.cuda.synchronize()
@@ -1896,7 +2007,7 @@ def phase_slice_engine(torch, seed: int) -> dict:
             deadline = time.monotonic() + 120
             while held and eng.pending() < n_req:
                 if time.monotonic() > deadline:
-                    raise AssertionError(f"engine: {eng.pending()} of "
+                    raise AssertionError(f"{phase}: {eng.pending()} of "
                                          f"{n_req} prompts queued")
                 time.sleep(0.005)
             t_release = time.perf_counter()
@@ -1908,8 +2019,8 @@ def phase_slice_engine(torch, seed: int) -> dict:
             burst_s = time.perf_counter() - t_release
             server._loop.on_idle = idle
             log = served_log[first:]
-            engine_launch_check(log, cfg.num_layers,
-                                "served held" if held else "served")
+            engine_launch_check(log, cfg, f"{phase} served"
+                                + (" held" if held else ""))
             passes.append({"tokens": tokens, "walls": walls,
                            "burst_s": burst_s, "log": log})
             if held:
@@ -1923,16 +2034,18 @@ def phase_slice_engine(torch, seed: int) -> dict:
     held_pass, free_pass = passes
     groups = prefill_groups(held_pass["log"])
     n_prefills = len(groups)
-    want = {**dict.fromkeys(launches, 0),
-            "flash_attention": cfg.num_layers * n_prefills}
+    want = dict.fromkeys(launches, 0)
+    for _, seq in groups:
+        for name, n in prefill_launches(cfg, seq).items():
+            want[name] += n
     if n_prefills != n_req or launches != want:
-        raise AssertionError(f"engine: the held burst launched {launches}, "
+        raise AssertionError(f"{phase}: the held burst launched {launches}, "
                              f"not {want} ({n_prefills} prefills for "
                              f"{n_req} prompts)")
     for i, tok in enumerate(held_pass["tokens"]):
         if tok.shape != (ENGINE_MAX_NEW + 1,) or tok.dtype != np.int32 \
                 or tok.min() < 0 or tok.max() >= cfg.vocab_size:
-            raise AssertionError(f"engine: request {i} replied {tok}")
+            raise AssertionError(f"{phase}: request {i} replied {tok}")
     served_step = eng.program.artifacts["decode"]
 
     # a local engine over the same pinned weights (zero bytes moved), its
@@ -1943,7 +2056,7 @@ def phase_slice_engine(torch, seed: int) -> dict:
                                      max_batch=ENGINE_SLOTS,
                                      max_seq=ENGINE_MAX_SEQ)
     if driver.stats.get("dma_bytes", 0) != dma_before.get("dma_bytes", 0):
-        raise AssertionError("engine: a second from_rimfs moved bytes")
+        raise AssertionError(f"{phase}: a second from_rimfs moved bytes")
     compiled = local.program.artifacts["decode"]     # its captured step
     eager = make_decode_step(cfg)
     local._decode = eager
@@ -1954,16 +2067,17 @@ def phase_slice_engine(torch, seed: int) -> dict:
         local.submit(r)
     local.run_until_drained()
     if prefill_groups(local_log) != groups:
-        raise AssertionError(f"engine: local prefill groups "
+        raise AssertionError(f"{phase}: local prefill groups "
                              f"{prefill_groups(local_log)}, served {groups}")
     for i, (r, tok) in enumerate(zip(reqs, held_pass["tokens"])):
         if r.out_tokens != tok.tolist():
-            raise AssertionError(f"engine: request {i} served {tok.tolist()}"
-                                 f", the eager-step engine {r.out_tokens}")
-    engine_launch_check(local_log, cfg.num_layers, "local")
+            raise AssertionError(f"{phase}: request {i} served "
+                                 f"{tok.tolist()}, the eager-step engine "
+                                 f"{r.out_tokens}")
+    engine_launch_check(local_log, cfg, f"{phase} local")
 
     # the graph against the eager step: one step at 4 live slots from two
-    # copies of the cache, the logits and the whole cache bit for bit
+    # copies of the cache, the logits and every cache tensor bit for bit
     toks = torch.as_tensor(np.asarray([r.out_tokens[:1] for r in reqs[:4]],
                                       np.int32), device="cuda")
     pos = torch.as_tensor(np.asarray(ENGINE_PROMPTS[:4], np.int32),
@@ -1972,10 +2086,12 @@ def phase_slice_engine(torch, seed: int) -> dict:
     mirror = {k: v.clone() for k, v in local._cache.items()}
     got, _ = compiled(local.params, local._cache, batch)
     ref, _ = eager(local.params, mirror, batch)
-    if not (torch.equal(got, ref) and all(torch.equal(local._cache[k], v)
-                                          for k, v in mirror.items())):
-        raise AssertionError("engine: the decode graph's replay differs "
-                             "from the eager step")
+    differ = [k for k, v in mirror.items()
+              if not torch.equal(local._cache[k], v)]
+    if not torch.equal(got, ref) or differ:
+        raise AssertionError(f"{phase}: the decode graph's replay differs "
+                             f"from the eager step (logits equal "
+                             f"{torch.equal(got, ref)}, cache {differ})")
     del mirror, got, ref
 
     # arrival order: the same six streams held, unheld, and each prompt
@@ -1993,23 +2109,25 @@ def phase_slice_engine(torch, seed: int) -> dict:
     alone_same = [a.tolist() == b
                   for a, b in zip(held_pass["tokens"], alone)]
     if not (all(ungated_same) and all(alone_same)):
-        raise AssertionError(f"engine: arrival moved tokens: unheld same "
+        raise AssertionError(f"{phase}: arrival moved tokens: unheld same "
                              f"{ungated_same}, alone same {alone_same}")
 
-    # every attention call of each prefill against the plain version on
-    # the same q, k, v; then, reported only, the end-to-end numbers a
+    # every hand-kernel call of each prefill against its plain version on
+    # the same operands; then, reported only, the end-to-end numbers a
     # random-weight bf16 model at full depth scrambles (see the docstring)
-    layer_errs = []
+    checks = []
     for e in (e for e in local_log if e["step"] == "prefill"):
-        layer_errs += attention_in_model(
+        checks += kernels_in_model(
             torch, lambda e=e: step_prefill(local.params,
                                             {"inputs": e["tokens"]}))
-    worst_layer = max(c["rel_err"] for c in layer_errs)
-    if len(layer_errs) != cfg.num_layers * n_prefills \
-            or not worst_layer <= ENGINE_TOL:
-        raise AssertionError(f"engine: {len(layer_errs)} attention calls, "
-                             f"worst max |err| / max |plain| {worst_layer}, "
-                             f"beyond {ENGINE_TOL}")
+    summary = kernel_check_summary(checks)
+    calls = {name: s["calls"] for name, s in summary.items()}
+    want_calls = {name: n for name, n in want.items()
+                  if n and name != "int8_matmul"}
+    if calls != want_calls or not all(c["ok"] for c in checks):
+        raise AssertionError(f"{phase}: kernels in the model {summary}, "
+                             f"calls wanted {want_calls}; failed: "
+                             f"{[c for c in checks if not c['ok']][:4]}")
     logits_check = prefill_logits_vs_plain(torch, cfg, local.params,
                                            local_log)
     recompute = [greedy_recompute(torch, cfg, local.params, p, r.out_tokens)
@@ -2050,18 +2168,20 @@ def phase_slice_engine(torch, seed: int) -> dict:
                                             {"inputs": e["tokens"]}), top=6)
     walls = sorted(held_pass["walls"])
     generated = n_req * (ENGINE_MAX_NEW + 1)
-    emit("slice_engine", model=cfg.name, layers=cfg.num_layers,
+    emit(phase, model=cfg.name, layers=cfg.num_layers,
          dtype=cfg.dtype, slots=ENGINE_SLOTS, max_seq=ENGINE_MAX_SEQ,
          prompts=list(ENGINE_PROMPTS), max_new=ENGINE_MAX_NEW,
          image_bytes=len(image), init_s=t_init, pack_s=t_pack,
          pin_s=pin_s, decode_capture_s=served_step.graph.capture_s,
-         kv_cache_bytes=sum(c.numel() * c.element_size()
-                            for c in eng._cache.values()),
+         cache_bytes={k: c.numel() * c.element_size()
+                      for k, c in eng._cache.items()},
+         cache_shapes={k: list(c.shape) for k, c in eng._cache.items()},
          serve_peak_memory_allocated=serve_peak,
          serve_base_memory_allocated=serve_base,
          prefill_groups=groups, launches=launches,
-         fa_launches_per_prefill=cfg.num_layers,
-         fa_launches_per_decode_step=0,
+         launches_per_prefill={f"1x{s}": prefill_launches(cfg, s)
+                               for s in sorted(set(ENGINE_PROMPTS))},
+         launches_per_decode_step=0,
          replay_hand_kernel_launches=served_step.graph.launches,
          request_wall_s=held_pass["walls"], latency_p50_s=walls[n_req // 2],
          latency_max_s=walls[-1], burst_s=held_pass["burst_s"],
@@ -2075,8 +2195,9 @@ def phase_slice_engine(torch, seed: int) -> dict:
                                      if e["step"] == "decode"),
          bit_identical_to_eager_step_engine=True,
          graph_equals_eager_step=True,
-         attention_calls_checked=len(layer_errs),
-         attention_worst_rel_err=worst_layer, attention_tol=ENGINE_TOL,
+         kernel_calls_checked=summary, attention_tol=ENGINE_TOL,
+         attention_worst_rel_err=summary.get(
+             "flash_attention", {}).get("worst_rel_err"),
          reported_prefill_logits_vs_plain=logits_check,
          reported_recompute=recompute,
          reported_plain_bf16_vs_fp32_logits=plain_bf16_vs_fp32,
@@ -2092,7 +2213,7 @@ def phase_slice_engine(torch, seed: int) -> dict:
     del eng, local, compiled, served_step, replay, image, fs
     gc.collect()
     torch.cuda.empty_cache()
-    return {"slice_engine": launches}
+    return {phase: launches}
 
 
 GPU_TESTS = {"graphs_gpu_tests": "tests/test_torch_graphs_gpu.py",
@@ -2194,12 +2315,25 @@ def main() -> int:
     by_path.update(phase_slice_resnet(torch, args.seed, int8=True))
 
     # 7. the LM serving engine: at reduced depth, then served at full depth
+    # (qwen2-1.5B; hymba-1.5B and rwkv6-1.6B, the recurrent families)
     prompts = engine_prompts(args.seed, get_config("qwen2-1.5b").vocab_size)
-    phase_engine_reduced_depth(torch, args.seed, prompts, 2, "bfloat16",
-                               gate_recompute=False)
-    phase_engine_reduced_depth(torch, args.seed, prompts, 1, "float32",
-                               gate_recompute=True)
-    by_path.update(phase_slice_engine(torch, args.seed))
+    phase_engine_reduced_depth(torch, args.seed, "qwen2-1.5b", prompts, 2,
+                               "bfloat16", gate_recompute=False)
+    phase_engine_reduced_depth(torch, args.seed, "qwen2-1.5b", prompts, 1,
+                               "float32", gate_recompute=True)
+    by_path.update(phase_slice_engine(torch, args.seed, "slice_engine"))
+    hymba_vocab = get_config("hymba-1.5b").vocab_size
+    phase_engine_reduced_depth(
+        torch, args.seed, "hymba-1.5b",
+        engine_prompts(args.seed, hymba_vocab, RING_PROMPTS + ENGINE_PROMPTS),
+        1, "float32", gate_recompute=True, max_seq=RING_MAX_SEQ)
+    by_path.update(phase_slice_engine(torch, args.seed,
+                                      "slice_engine_hybrid"))
+    phase_engine_reduced_depth(
+        torch, args.seed, "rwkv6-1.6b",
+        engine_prompts(args.seed, get_config("rwkv6-1.6b").vocab_size), 1,
+        "float32", gate_recompute=True)
+    by_path.update(phase_slice_engine(torch, args.seed, "slice_engine_ssm"))
 
     # the card-only tests of the fused and batched graphs and of the
     # engine's compiled steps

@@ -3,9 +3,9 @@
 The port's counterpart of ``repro.launch.steps``' serve steps. The JAX
 package jits them and donates the decode cache (``donate_argnums=(1,)``).
 Here ``make_prefill_step`` and ``make_decode_step`` run eagerly, the decode
-step writing the new K/V into the cache it is given, in place on its
-device; ``CompiledDecodeStep`` is the jitted decode step's counterpart, one
-CUDA graph over an engine's parameters and cache.
+step writing the new K/V and every recurrent state into the cache it is
+given, in place on its device; ``CompiledDecodeStep`` is the jitted decode
+step's counterpart, one CUDA graph over an engine's parameters and cache.
 """
 from __future__ import annotations
 
@@ -20,7 +20,8 @@ from repro_torch.models import transformer as tf
 
 def make_prefill_step(cfg: ModelConfig):
     """``prefill_step(params, {"inputs": (B,S)}) -> (last-position logits
-    (B,V), cache (L,B,S,Hkv,D) each of k and v)``."""
+    (B,V), cache)``, the cache stacked by layer with ``tf.cache_specs``'
+    keys."""
     def prefill_step(params, batch):
         logits, cache = tf.forward_full(cfg, params, batch["inputs"],
                                         want_cache=True)
@@ -40,17 +41,18 @@ def make_decode_step(cfg: ModelConfig):
 
 class CompiledDecodeStep:
     """``make_decode_step(cfg)`` compiled for one engine's ``params`` and
-    KV ``cache``: the counterpart of the JAX package's
-    ``jax.jit(make_decode_step(cfg), donate_argnums=(1,))``.
+    ``cache`` (KV rows and recurrent states): the counterpart of the JAX
+    package's ``jax.jit(make_decode_step(cfg), donate_argnums=(1,))``.
 
     Tokens (B, 1) and positions (B,) enter through static int32 buffers on
     the cache's device. On CUDA the step is captured once, here, as one
-    ``CapturedGraph`` that reads the weights and writes the cache in place:
-    the cache's addresses are baked in, so its owner allocates it once and
-    never rebinds it (what donating it buys the JAX package). The warm-up
-    run before the capture decodes token 0 at position 0 in every lane, so
-    it writes row 0 of every slot, as a free lane's decode does; the next
-    prefill's splice overwrites it. A failed capture raises; nothing falls
+    ``CapturedGraph`` that reads the weights and writes every cache tensor
+    in place: the cache's addresses are baked in, so its owner allocates it
+    once and never rebinds it (what donating it buys the JAX package). The
+    warm-up run before the capture decodes token 0 at position 0 in every
+    lane, so it writes row 0 of every slot's KV and every slot's recurrent
+    states, as a free lane's decode does; the next prefill's splice
+    overwrites them. A failed capture raises; nothing falls
     back to the eager step. On the CPU the same step runs uncaptured over
     the same static buffers.
 
@@ -61,7 +63,7 @@ class CompiledDecodeStep:
 
     def __init__(self, cfg: ModelConfig, params: dict, cache: dict,
                  max_batch: int):
-        dev = cache["k"].device
+        dev = next(iter(cache.values())).device
         self.params, self.cache = params, cache
         self.step = make_decode_step(cfg)
         self.inputs = {

@@ -1,13 +1,14 @@
 """Selective SSM (Mamba-style) branch of the Hymba hybrid architecture.
 
-The port's counterpart of ``repro.models.mamba`` for the full-sequence
-kernel route: the projections into the ``ssm_scan`` operand layout
-(``ssm_kernel_inputs``), the shared output stage (``ssm_output``), and
-``ssm_core``/``mamba_mix`` over the kernel registry. The RCTC per-layer
-lowering runs the first two as its ``ssm_pre``/``ssm_post`` glue around
-``Op.SSM_SCAN``. The port always takes the registry route; the JAX
-package's associative-scan route and single-token decode wait for the
-paged engine.
+The port's counterpart of ``repro.models.mamba`` for serving: the
+projections into the ``ssm_scan`` operand layout (``ssm_kernel_inputs``),
+the shared output stage (``ssm_output``), ``ssm_core``/``mamba_mix`` over
+the kernel registry (the full-sequence scan), and the engine's decode
+state (``mamba_state_specs``) and single-token step (``mamba_step``, stock
+ops). The RCTC per-layer lowering runs the first two as its
+``ssm_pre``/``ssm_post`` glue around ``Op.SSM_SCAN``. The full-sequence
+scan always takes the registry route; the JAX package's differentiable
+associative-scan route (``ssm_chunked``) belongs with training.
 """
 from __future__ import annotations
 
@@ -33,6 +34,12 @@ def mamba_specs(cfg: ModelConfig) -> dict:
         "m_d": ParamSpec((L, di), "float32", "ones"),
         "m_out": ParamSpec((L, di, d), dt),
     }
+
+
+def mamba_state_specs(cfg: ModelConfig, batch: int) -> dict:
+    """The engine's per-layer SSM state, (L, B, di, N) fp32."""
+    L, di, N = cfg.num_layers, cfg.d_model, cfg.ssm_state
+    return {"ssm": ParamSpec((L, batch, di, N), "float32", "zeros")}
 
 
 def _ssm_inputs(cfg: ModelConfig, p: dict, x: torch.Tensor):
@@ -69,9 +76,10 @@ def ssm_output(cfg: ModelConfig, p: dict, y: torch.Tensor, u: torch.Tensor,
     return torch.matmul(y, p["m_out"])
 
 
-def ssm_core(u, dt, B_, C_, A, D, h0):
+def ssm_core(u, dt, B_, C_, A, D, h0, impl=None):
     """Full-sequence selective scan through the registry ``ssm_scan``.
     Returns (y, h_final), y already carrying the ``u * D`` skip term.
+    ``impl="ref"`` runs the kernel's plain version whatever the device.
 
     The kernel computes the zero-state scan: h0 is folded in by seeding step
     0's input with ``exp(da_0) * h0``, and the final state comes in closed
@@ -81,16 +89,31 @@ def ssm_core(u, dt, B_, C_, A, D, h0):
     da_log = dt[..., None] * A[None, None]
     bx = (dt * u)[..., None] * B_[:, :, None, :]
     bx[:, 0] += torch.exp(da_log[:, 0]) * h0      # bx is this call's own
-    y = registry.call("ssm_scan", da_log, bx, C_)
+    y = registry.call("ssm_scan", da_log, bx, C_, impl=impl)
     P = torch.cumsum(da_log, dim=1)
     h_final = torch.sum(torch.exp(P[:, -1:] - P) * bx, dim=1)
     return y + u * D[None, None], h_final
 
 
-def mamba_mix(cfg: ModelConfig, p: dict, x: torch.Tensor, h0: torch.Tensor):
+def mamba_mix(cfg: ModelConfig, p: dict, x: torch.Tensor, h0: torch.Tensor,
+              impl=None):
     """Full-sequence Mamba branch. Returns (y, h_final)."""
     u, z, dt, B_, C_ = _ssm_inputs(cfg, p, x)
     A = -torch.exp(p["m_alog"])
-    y, h1 = ssm_core(u.float(), dt, B_, C_, A, p["m_d"], h0)
+    y, h1 = ssm_core(u.float(), dt, B_, C_, A, p["m_d"], h0, impl)
     y = y.to(x.dtype) * F.silu(z.float()).to(x.dtype)
+    return torch.matmul(y, p["m_out"]), h1
+
+
+def mamba_step(cfg: ModelConfig, p: dict, x: torch.Tensor,
+               h0: torch.Tensor):
+    """Single-token decode. x (B,1,d); h0 (B,di,N) fp32. Returns (y
+    (B,1,d), h1); h0 is only read."""
+    u, z, dt, B_, C_ = _ssm_inputs(cfg, p, x)
+    A = -torch.exp(p["m_alog"])
+    u0 = u[:, 0].float()
+    da = torch.exp(dt[:, 0, :, None] * A[None])              # (B,di,N)
+    h1 = da * h0 + (dt[:, 0] * u0)[..., None] * B_[:, 0, None, :]
+    y = torch.einsum("bdn,bn->bd", h1, C_[:, 0]) + u0 * p["m_d"]
+    y = y[:, None].to(x.dtype) * F.silu(z.float()).to(x.dtype)
     return torch.matmul(y, p["m_out"]), h1

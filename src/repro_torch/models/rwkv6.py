@@ -1,13 +1,16 @@
 """RWKV-6 "Finch": token-shift mixing + data-dependent decay WKV recurrence.
 
-The port's counterpart of ``repro.models.rwkv6`` for the full-sequence
-kernel route: the time-mix projections into the ``wkv6`` operand layout
-(``time_mix_pre``), its output stage (``time_mix_post``), the channel mix,
-and ``wkv_core``/``time_mix`` over the kernel registry. The RCTC per-layer
-lowering runs ``time_mix_pre``, ``time_mix_post`` and ``channel_mix`` as its
-``tm_pre``/``tm_post``/``cm`` glue around ``Op.WKV6``. The port always takes
-the registry route; the JAX package's chunked-scan route and single-token
-decode steps wait for the paged engine.
+The port's counterpart of ``repro.models.rwkv6`` for serving: the
+time-mix projections into the ``wkv6`` operand layout (``time_mix_pre``),
+its output stage (``time_mix_post``), the channel mix, ``wkv_core``/
+``time_mix`` over the kernel registry (the full-sequence recurrence), and
+the engine's decode state (``state_specs``) and single-token time mix
+(``time_mix_step``, stock ops; the channel mix at T = 1 is its own step).
+The RCTC per-layer lowering runs ``time_mix_pre``, ``time_mix_post`` and
+``channel_mix`` as its ``tm_pre``/``tm_post``/``cm`` glue around
+``Op.WKV6``. The full-sequence
+recurrence always takes the registry route; the JAX package's
+differentiable chunked-scan route (``wkv_chunked``) belongs with training.
 """
 from __future__ import annotations
 
@@ -45,6 +48,17 @@ def rwkv_specs(cfg: ModelConfig) -> dict:
         "cm_wv": ParamSpec((L, f, d), dt),
         "cm_wr": ParamSpec((L, d, d), dt),
     }
+
+
+def state_specs(cfg: ModelConfig, batch: int) -> dict:
+    """The engine's per-layer decode state: the WKV state (L, B, H, K, K)
+    fp32 and the two token-shift rows (L, B, d)."""
+    L, d = cfg.num_layers, cfg.d_model
+    K = cfg.rwkv_head_dim
+    H = d // K
+    return {"wkv": ParamSpec((L, batch, H, K, K), "float32", "zeros"),
+            "ts_tm": ParamSpec((L, batch, d), cfg.dtype, "zeros"),
+            "ts_cm": ParamSpec((L, batch, d), cfg.dtype, "zeros")}
 
 
 def _shift(x: torch.Tensor, prev: torch.Tensor) -> torch.Tensor:
@@ -91,16 +105,17 @@ def time_mix_post(cfg: ModelConfig, p: dict, y: torch.Tensor,
     return torch.matmul(y, p["tm_wo"])
 
 
-def wkv_core(r, k, v, lw, u, s0):
+def wkv_core(r, k, v, lw, u, s0, impl=None):
     """Full-sequence WKV recurrence through the registry ``wkv6``. Returns
-    (y, s_final).
+    (y, s_final). ``impl="ref"`` runs the kernel's plain version whatever
+    the device.
 
     The kernel computes the zero-state recurrence: an entering state s0 is
     folded in exactly with ``y += (r * exp(p_prev)) @ s0`` (p_prev the
     exclusive cumsum of lw), and the final state comes in closed form; every
     exponent is <= 0, so nothing overflows."""
     from repro_torch.kernels import registry
-    y = registry.call("wkv6", r, k, v, lw, u)
+    y = registry.call("wkv6", r, k, v, lw, u, impl=impl)
     p = torch.cumsum(lw, dim=1)                             # inclusive
     pprev = p - lw                                          # exclusive
     y = y + torch.einsum("bthi,bhio->btho", r * torch.exp(pprev), s0)
@@ -110,16 +125,46 @@ def wkv_core(r, k, v, lw, u, s0):
 
 
 def time_mix(cfg: ModelConfig, p: dict, x: torch.Tensor,
-             ts_prev: torch.Tensor, s0: torch.Tensor):
+             ts_prev: torch.Tensor, s0: torch.Tensor, impl=None):
     """RWKV6 attention replacement. Returns (y, new_ts, new_state)."""
     r, k, v, lw, g = time_mix_pre(cfg, p, x, ts_prev)
-    y, s1 = wkv_core(r, k, v, lw, p["tm_u"].float(), s0)
+    y, s1 = wkv_core(r, k, v, lw, p["tm_u"].float(), s0, impl)
     return time_mix_post(cfg, p, y, g, x.dtype), x[:, -1], s1
+
+
+def time_mix_step(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                  ts_prev: torch.Tensor, s0: torch.Tensor):
+    """Single-token decode step. x (B,1,d); ts_prev (B,d); s0 (B,H,K,K)
+    fp32, only read. ``y = r . (S + (u*k) v^T)``, ``S' = diag(w) S + k
+    v^T``. Returns (y (B,1,d), new_ts (B,d), new_state)."""
+    B, _, d = x.shape
+    K = cfg.rwkv_head_dim
+    H = d // K
+    mix = p["tm_mix"].to(x.dtype)
+    xp = ts_prev[:, None, :].to(x.dtype)
+    xr, xk, xv, xw, xg = [x + (xp - x) * mix[i] for i in range(5)]
+
+    def proj(a, w):
+        return torch.matmul(a, w)[:, 0]                     # (B,d)
+    r = proj(xr, p["tm_wr"]).reshape(B, H, K).float()
+    k = proj(xk, p["tm_wk"]).reshape(B, H, K).float()
+    v = proj(xv, p["tm_wv"]).reshape(B, H, K).float()
+    g = proj(xg, p["tm_wg"])
+    w = torch.exp(_decay(p, xw)[:, 0]).reshape(B, H, K)     # per channel
+    u = p["tm_u"].float()
+    kv = k[..., :, None] * v[..., None, :]                  # (B,H,K,K)
+    y = torch.einsum("bhi,bhio->bho", r, s0 + u[None, :, :, None] * kv)
+    s1 = w[..., None] * s0 + kv
+    y = y.reshape(B, d).to(x.dtype)
+    y = group_norm(y, p["tm_ln_w"], p["tm_ln_b"], H, cfg.norm_eps)
+    y = y * F.silu(g.float()).to(x.dtype)
+    return torch.matmul(y, p["tm_wo"])[:, None], x[:, -1], s1
 
 
 def channel_mix(cfg: ModelConfig, p: dict, x: torch.Tensor,
                 ts_prev: torch.Tensor):
-    """RWKV6 FFN replacement. Returns (y, new_ts)."""
+    """RWKV6 FFN replacement. Returns (y, new_ts). At T = 1 it is the JAX
+    package's ``channel_mix_step``, the decode step's channel mix."""
     xprev = _shift(x, ts_prev)
     mix = p["cm_mix"].to(x.dtype)
     xk = x + (xprev - x) * mix[0]
@@ -128,3 +173,4 @@ def channel_mix(cfg: ModelConfig, p: dict, x: torch.Tensor,
     kv = torch.matmul(k, p["cm_wv"])
     r = torch.sigmoid(torch.matmul(xr, p["cm_wr"]).float())
     return r.to(x.dtype) * kv, x[:, -1]
+

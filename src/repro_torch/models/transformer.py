@@ -1,19 +1,21 @@
 """Parameter layout, initialization and input embedding of the LM families
 ported so far (dense; hybrid: attention + Mamba + SwiGLU; ssm: RWKV-6), and
-the dense family's forward passes for the serving engine.
+their forward passes for the serving engine.
 
 The port's counterpart of the parts of ``repro.models.transformer`` and
 ``repro.models.common`` that the per-layer RCB lowering and the engine
 need: the stacked parameter specs (leading ``num_layers`` dim on block
 entries), their initialization from a seed on a device, ``split_params``,
 ``embed_inputs``, ``params_from_jax`` to carry the JAX package's parameters
-across, the KV ``cache_specs``, ``forward_full`` (prefill: attention on the
-flash-attention kernel) and ``forward_decode`` (one token against the
-cache). The reference scans its layers with ``lax.scan``; here they run in
-a Python loop, which computes the same thing; what the layers share (RoPE's
-table, decode's per-step invariants) is built once a pass, before it. The
-engine path is the dense family's only: hybrid and ssm raise
-``NotImplementedError`` there.
+across, the decode state's ``cache_specs`` (KV cache, ring-buffered for a
+sliding window; plus the SSM state in the hybrid family; the WKV state and
+token-shift rows in the ssm family), ``forward_full`` (prefill: attention
+on the flash-attention kernel, the scans on ``ssm_scan`` and ``wkv6``) and
+``forward_decode`` (one token against the cache, which it writes in place,
+recurrent states included). The reference scans its layers with
+``lax.scan``; here they run in a Python loop, which computes the same
+thing; what the layers share (RoPE's table, decode's per-step invariants)
+is built once a pass, before it.
 """
 from __future__ import annotations
 
@@ -22,31 +24,28 @@ import torch
 
 from repro_torch import device as device_mod
 from repro_torch.configs.base import ModelConfig
-from repro_torch.dtypes import as_tensor
+from repro_torch.dtypes import as_tensor, torch_dtype
 from repro_torch.models import attention as attn
 from repro_torch.models.common import ParamSpec, draw_param, rms_norm
-from repro_torch.models.mamba import mamba_specs
+from repro_torch.models import mamba
+from repro_torch.models import rwkv6 as rwkv
 from repro_torch.models.mlp import swiglu
-from repro_torch.models.rwkv6 import rwkv_specs
 
 PORTED_FAMILIES = ("dense", "hybrid", "ssm")
-ENGINE_FAMILIES = ("dense",)       # the forward passes below
 
 
 def check_ported(cfg: ModelConfig, engine: bool = False) -> None:
     """Refuse what the port lacks: experts and families other than dense,
-    hybrid and ssm everywhere; with ``engine``, every family but dense
-    (the forward passes of the serving engine)."""
+    hybrid and ssm everywhere; with ``engine`` (the forward passes of the
+    serving engine), also inputs other than tokens."""
     if cfg.family not in PORTED_FAMILIES or cfg.num_experts:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported to PyTorch yet (dense, "
             f"hybrid and ssm only, no experts)")
-    if engine and (cfg.family not in ENGINE_FAMILIES
-                   or cfg.input_kind != "tokens"):
+    if engine and cfg.input_kind != "tokens":
         raise NotImplementedError(
-            f"the serving engine's forward passes are ported for the "
-            f"{'/'.join(ENGINE_FAMILIES)} family on tokens only, not "
-            f"{cfg.family!r}")
+            f"the serving engine's forward passes take tokens only, not "
+            f"{cfg.input_kind!r} input")
 
 
 def model_specs(cfg: ModelConfig) -> dict:
@@ -67,7 +66,7 @@ def model_specs(cfg: ModelConfig) -> dict:
     if not cfg.tie_embeddings:
         specs["lm_head"] = ParamSpec((d, V), dt)
     if cfg.family == "ssm":
-        specs.update(rwkv_specs(cfg))
+        specs.update(rwkv.rwkv_specs(cfg))
         return specs
     H, Hkv, D, F = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.d_ff
     specs.update({
@@ -87,7 +86,7 @@ def model_specs(cfg: ModelConfig) -> dict:
         specs["q_norm"] = ParamSpec((L, D), dt, "ones")
         specs["k_norm"] = ParamSpec((L, D), dt, "ones")
     if cfg.family == "hybrid":
-        specs.update(mamba_specs(cfg))
+        specs.update(mamba.mamba_specs(cfg))
     return specs
 
 
@@ -125,9 +124,16 @@ def embed_inputs(cfg: ModelConfig, glob: dict, tokens) -> torch.Tensor:
 
 
 def cache_specs(cfg: ModelConfig, batch: int, seq_len: int) -> dict:
-    """Decode-state specs: the dense family's KV cache."""
+    """Decode-state specs per family: the KV cache (a ring for a sliding
+    window), plus the SSM state in the hybrid family; the WKV state and
+    token-shift rows in the ssm family."""
     check_ported(cfg, engine=True)
-    return attn.cache_specs(cfg, batch, seq_len)
+    if cfg.family == "ssm":
+        return rwkv.state_specs(cfg, batch)
+    c = attn.cache_specs(cfg, batch, seq_len)
+    if cfg.family == "hybrid":
+        c.update(mamba.mamba_state_specs(cfg, batch))
+    return c
 
 
 # ---------------------------------------------------------------------------
@@ -136,31 +142,70 @@ def cache_specs(cfg: ModelConfig, batch: int, seq_len: int) -> dict:
 
 def block_full(cfg: ModelConfig, p: dict, x, positions, want_cache: bool,
                impl=None, rope=None):
-    """Full-sequence dense block. Returns (x, cache_entry)."""
+    """Full-sequence block from zero recurrent states. Returns (x,
+    cache_entry). ``impl="ref"`` runs every kernel's plain version."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     cache: dict = {}
+    B = x.shape[0]
+    if cfg.family == "ssm":
+        K = cfg.rwkv_head_dim
+        s0 = torch.zeros((B, cfg.d_model // K, K, K), dtype=torch.float32,
+                         device=x.device)
+        ts0 = torch.zeros((B, cfg.d_model), dtype=x.dtype, device=x.device)
+        y, ts_tm, s1 = rwkv.time_mix(cfg, p, h, ts0, s0, impl)
+        x = x + y
+        h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
+        y2, ts_cm = rwkv.channel_mix(cfg, p, h2, ts0)
+        if want_cache:
+            dt = torch_dtype(cfg.dtype)
+            cache = {"wkv": s1, "ts_tm": ts_tm.to(dt), "ts_cm": ts_cm.to(dt)}
+        return x + y2, cache
     if want_cache:
         ya, (kc, vc) = attn.prefill_attention(cfg, p, h, positions, impl,
                                               rope)
         cache = {"k": kc, "v": vc}
     else:
         ya = attn.full_attention(cfg, p, h, positions, impl, rope)
-    x = x + ya
+    if cfg.family == "hybrid":
+        h0 = torch.zeros((B, cfg.d_model, cfg.ssm_state),
+                         dtype=torch.float32, device=x.device)
+        ym, h1 = mamba.mamba_mix(cfg, p, h, h0, impl)
+        x = x + 0.5 * (ya + ym)
+        if want_cache:
+            cache["ssm"] = h1
+    else:
+        x = x + ya
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
     return x + swiglu(p, h2), cache
 
 
 def block_decode(cfg: ModelConfig, p: dict, x, pos, cache: dict,
                  consts=None):
-    """One-token dense block. x (B,1,d); cache entries are per-layer
-    slices, written in place; ``consts`` the step's
+    """One-token block. x (B,1,d); cache entries are per-layer slices,
+    every one written in place (the KV rows at their slots, the
+    recurrent states whole); ``consts`` the step's
     ``attn.DecodeConsts``."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    ya, kc, vc = attn.decode_attention(cfg, p, h, pos, cache["k"],
-                                       cache["v"], consts)
-    x = x + ya
+    if cfg.family == "ssm":
+        y, ts_tm, s1 = rwkv.time_mix_step(cfg, p, h, cache["ts_tm"],
+                                          cache["wkv"])
+        x = x + y
+        h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
+        y2, ts_cm = rwkv.channel_mix(cfg, p, h2, cache["ts_cm"])
+        cache["wkv"].copy_(s1)
+        cache["ts_tm"].copy_(ts_tm)
+        cache["ts_cm"].copy_(ts_cm)
+        return x + y2, cache
+    ya, _, _ = attn.decode_attention(cfg, p, h, pos, cache["k"], cache["v"],
+                                     consts)
+    if cfg.family == "hybrid":
+        ym, h1 = mamba.mamba_step(cfg, p, h, cache["ssm"])
+        cache["ssm"].copy_(h1)
+        x = x + 0.5 * (ya + ym)
+    else:
+        x = x + ya
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + swiglu(p, h2), {"k": kc, "v": vc}
+    return x + swiglu(p, h2), cache
 
 
 def _slice_layer(tree: dict, i: int) -> dict:
@@ -182,9 +227,10 @@ def run_blocks_full(cfg: ModelConfig, blocks: dict, x, positions,
 
 def run_blocks_decode(cfg: ModelConfig, blocks: dict, x, pos, cache: dict):
     """Every layer against its slice of ``cache``, which is updated in
-    place; returns (x, cache). The step's invariants are built once, for
-    every layer."""
-    consts = attn.decode_consts(cfg, pos, cache["k"].shape[2])
+    place; returns (x, cache). The step's attention invariants are built
+    once, for every layer, where the family has attention."""
+    consts = attn.decode_consts(cfg, pos, cache["k"].shape[2]) \
+        if "k" in cache else None
     for i in range(cfg.num_layers):
         x, _ = block_decode(cfg, _slice_layer(blocks, i), x, pos,
                             _slice_layer(cache, i), consts)
@@ -204,12 +250,14 @@ def logits_head(cfg: ModelConfig, glob: dict, x):
 
 def forward_full(cfg: ModelConfig, params: dict, inputs,
                  want_cache: bool = False, impl=None):
-    """Prefill forward. inputs: (B,S) int tokens. Returns (logits (B,S,V),
-    cache), the cache stacked (L,B,S,Hkv,D) when ``want_cache``. The
-    reference also returns the MoE auxiliary loss, which is zero for every
-    family ported here. ``impl="ref"`` runs attention on the kernel's plain
-    version: a check of the kernel inside the model, which the engine never
-    asks for."""
+    """Prefill forward from zero recurrent states. inputs: (B,S) int
+    tokens. Returns (logits (B,S,V), cache), the cache stacked by layer
+    (``cache_specs``' keys; K/V (L,B,S',Hkv,D) with S' = min(S, W) in a
+    sliding window) when ``want_cache``. The reference also returns the MoE
+    auxiliary loss, which is zero for every family ported here.
+    ``impl="ref"`` runs every kernel (attention, ``ssm_scan``, ``wkv6``) on
+    its plain version: a check of the kernels inside the model, which the
+    engine never asks for."""
     check_ported(cfg, engine=True)
     glob, blocks = split_params(params)
     x = embed_inputs(cfg, glob, inputs)
@@ -221,8 +269,9 @@ def forward_full(cfg: ModelConfig, params: dict, inputs,
 
 
 def forward_decode(cfg: ModelConfig, params: dict, inputs, pos, cache: dict):
-    """One-token decode. inputs (B,1) tokens; pos (B,) int32 in [0, S).
-    Returns (logits (B,1,V), cache), the cache updated in place."""
+    """One-token decode. inputs (B,1) tokens; pos (B,) int32, each lane's
+    position (below the KV cache's rows, unless it is a sliding window's
+    ring). Returns (logits (B,1,V), cache), the cache updated in place."""
     check_ported(cfg, engine=True)
     glob, blocks = split_params(params)
     x = embed_inputs(cfg, glob, inputs)

@@ -4,12 +4,15 @@ The port's counterpart of ``repro.serving.engine``: the paper's execution
 flow (Provision -> Bind -> Dispatch -> Sync) drives LM serving. RCTC wraps
 the prefill and decode steps as GRAPH_EXEC artifacts (``program``), RIMFS
 holds the weights, pinned once on the device, and the engine batches user
-requests with a continuous-batching slot table over a dense KV cache that
-lives on the device and is updated in place.
+requests with a continuous-batching slot table over a decode state that
+lives on the device and is updated in place: a dense KV cache (a ring of W
+rows for a sliding window), plus the recurrent states of the hybrid
+(Mamba) and ssm (RWKV-6) families.
 
-Prefill attention runs the hand-written ``flash_attention`` kernel on
-CUDA tensors (its plain version on CPU ones), eagerly, one prompt a
-dispatch; decode runs stock torch ops, on CUDA as one CUDA graph a step
+Prefill runs the hand-written kernels on CUDA tensors (their plain
+versions on CPU ones), eagerly, one prompt a dispatch: ``flash_attention``
+(where a sliding window masks nothing), ``ssm_scan`` and ``wkv6``; decode
+runs stock torch ops, on CUDA as one CUDA graph a step
 (``CompiledDecodeStep``), captured when the engine is built.
 Entry points take ``device=`` (default ``"cuda"``) and raise without CUDA
 unless ``device="cpu"`` is given; parameters on another device raise too.
@@ -193,8 +196,10 @@ class EngineBase:
 
 class ServingEngine(EngineBase):
     """Fixed-slot continuous batching (decode batch = ``max_batch`` lanes)
-    against a dense (L, B, max_seq, Hkv, D) cache on the device — every slot
-    holds worst-case sequence memory. Dense family only.
+    against a dense (L, B, max_seq, Hkv, D) cache on the device (a ring of
+    min(max_seq, W) rows for a sliding window) — every slot holds
+    worst-case sequence memory — plus each lane's recurrent states in the
+    hybrid and ssm families.
 
     The cache is allocated once and never rebound: the compiled decode step
     (one CUDA graph on the card, captured here while every slot is free)
@@ -237,10 +242,16 @@ class ServingEngine(EngineBase):
                 self.params, {"inputs": as_tensor(req.prompt[None],
                                                   self.device)})
             self._slots[i] = req
-            # splice the prompt's KV into slot i over [0, plen); the tail
-            # keeps the last occupant's rows, masked by idx <= pos
+            # splice the prompt's state into slot i: its KV rows over [0,
+            # min(plen, ring)), already in ring order (the tail keeps the
+            # last occupant's rows, masked until decode writes them); each
+            # recurrent state whole, so nothing of the last occupant stays
             for key, c in self._cache.items():
-                c[:, i, :plen].copy_(cache[key][:, 0])
+                src = cache[key][:, 0]
+                if key in ("k", "v"):
+                    c[:, i, :src.shape[1]].copy_(src)
+                else:
+                    c[:, i].copy_(src)
             self._pos[i] = plen
             req.out_tokens.append(int(self._sample(logits)[0]))
 

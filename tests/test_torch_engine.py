@@ -146,19 +146,39 @@ def test_forward_decode_after_prefill_matches_jax(rng):
 
 
 def test_engine_path_refuses_the_families_it_lacks():
-    for name in ("hymba-1.5b-smoke", "rwkv6-1.6b-smoke"):
-        cfg = get_config(name)
-        with pytest.raises(NotImplementedError, match="serving engine"):
+    """What the engine path still lacks raises: experts, and input that is
+    not tokens (the vlm and audio frontends)."""
+    base = get_config(CFG)
+    for cfg in (dataclasses.replace(base, num_experts=4),
+                dataclasses.replace(base, input_kind="embeddings")):
+        with pytest.raises(NotImplementedError, match="not ported|tokens"):
             tf.cache_specs(cfg, 1, 8)
-        with pytest.raises(NotImplementedError, match="serving engine"):
+        with pytest.raises(NotImplementedError, match="not ported|tokens"):
             tf.forward_full(cfg, {}, np.zeros((1, 4), np.int32))
+
+
+@pytest.mark.parametrize("S", [4, 7])
+def test_sliding_window_past_w_takes_the_windowed_route(S, monkeypatch):
+    """A sliding window of W = 4: at S = W the prefill is the kernel's
+    causal attention; at S > W it takes the windowed stock route, whose
+    rows attend to the last W keys only."""
     sliding = dataclasses.replace(get_config(CFG), attention="sliding",
                                   sliding_window=4)
-    with pytest.raises(NotImplementedError, match="full causal"):
-        attn.full_attention(sliding, _both(_layer(np.random.RandomState(0),
-                                                  sliding))[1],
-                            torch.zeros(1, 3, sliding.d_model),
-                            torch.zeros(1, 3, dtype=torch.int32))
+    p = _both(_layer(np.random.RandomState(0), sliding))[1]
+    calls = []
+    kernel = attn.flash_attention
+    monkeypatch.setattr(attn, "flash_attention",
+                        lambda *a, **kw: calls.append(1) or kernel(*a, **kw))
+    x = torch.from_numpy(np.random.RandomState(1).randn(
+        1, S, sliding.d_model).astype(np.float32))
+    positions = torch.arange(S, dtype=torch.int32)[None]
+    y = attn.full_attention(sliding, p, x, positions)
+    assert len(calls) == (1 if S <= 4 else 0)
+    full = dataclasses.replace(sliding, attention="full")
+    y_full = attn.full_attention(full, p, x, positions)
+    _close(y[:, :4], y_full[:, :4], OP_TOL)
+    if S > 4:
+        assert not torch.allclose(y[:, 4:], y_full[:, 4:], atol=1e-3)
 
 
 def test_pack_params_image_bytes_equal_jax():

@@ -1,6 +1,8 @@
 """The LM serving engine's compiled steps on the card: grouped admission
 against one prompt at a time, per layer, and the decode step's CUDA graph
-against the eager step, bit for bit.
+against the eager step, bit for bit, for the dense family (qwen2) and the
+recurrent ones (hymba's KV ring and SSM state, rwkv6's WKV state and
+token-shift rows).
 
 These tests need a CUDA device and skip without one: a CUDA graph has no
 CPU mode, and the question of what a batch of prompts does to each
@@ -21,6 +23,7 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.dtypes import torch_dtype
 from repro_torch.launch.steps import CompiledDecodeStep, make_decode_step
 from repro_torch.launch.steps import make_prefill_step
 from repro_torch.models import attention as attn
@@ -43,15 +46,26 @@ def cuda():
     return torch.device("cuda")
 
 
-def _full_width(layers=2):
-    """qwen2-1.5B's full width, cut to ``layers`` bf16 layers."""
-    return dataclasses.replace(get_config("qwen2-1.5b"), num_layers=layers,
+def _full_width(layers=2, model="qwen2-1.5b"):
+    """``model``'s full width, cut to ``layers`` bf16 layers."""
+    return dataclasses.replace(get_config(model), num_layers=layers,
                                dtype="bfloat16")
 
 
-def _smoke():
-    return dataclasses.replace(get_config("qwen2-1.5b-smoke"),
+def _smoke(model="qwen2-1.5b"):
+    return dataclasses.replace(get_config(model + "-smoke"),
                                dtype="bfloat16")
+
+
+# the decode graph's configurations: qwen2 smoke and full width, hymba and
+# rwkv6 at full width, and hymba smoke, whose window of 16 rows wraps at
+# the positions the test feeds
+CONFIGS = {"smoke": _smoke, "full_width_2_layers": _full_width,
+           "hymba_full_width_2_layers":
+               lambda: _full_width(model="hymba-1.5b"),
+           "rwkv6_full_width_2_layers":
+               lambda: _full_width(model="rwkv6-1.6b"),
+           "hymba_smoke_ring": lambda: _smoke("hymba-1.5b")}
 
 
 def _prompts(seed, lengths, vocab):
@@ -210,26 +224,28 @@ def test_grouped_admission_equals_one_prompt_at_a_time_per_layer(cuda, seq):
 
 
 def _random_cache(cfg, batch, max_seq, seed):
+    """Every tensor of the family's decode state, random, in its dtype."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    shape = (cfg.num_layers, batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
-    return {k: torch.randn(shape, generator=gen, device="cuda").to(
-        torch.bfloat16) for k in ("k", "v")}
+    return {k: torch.randn(s.shape, generator=gen, device="cuda").to(
+        torch_dtype(s.dtype))
+        for k, s in tf.cache_specs(cfg, batch, max_seq).items()}
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("which", ["smoke", "full_width_2_layers"])
+@pytest.mark.parametrize("which", list(CONFIGS))
 def test_decode_graph_replay_equals_the_eager_step(cuda, which):
     """The captured decode step against ``make_decode_step`` from two
-    copies of one cache: logits and the whole cache bit for bit, over
-    three replays whose positions take 0, max_seq - 1 and rows between
-    (the static buffers refresh on each)."""
-    cfg = _smoke() if which == "smoke" else _full_width()
+    copies of one cache: logits and every cache tensor (KV rows, ring or
+    not, and the recurrent states) bit for bit, over three replays whose
+    positions take 0, max_seq - 1 and rows between (the static buffers
+    refresh on each)."""
+    cfg = CONFIGS[which]()
     B, max_seq = 4, 64
     params = tf.init_params(cfg, 1)
     cache = _random_cache(cfg, B, max_seq, 2)
     step = CompiledDecodeStep(cfg, params, cache, B)
     assert step.graph is not None
-    assert step.graph.launches["flash_attention"] == 0
+    assert all(n == 0 for n in step.graph.launches.values())
     mirror = {k: v.clone() for k, v in cache.items()}  # after the warm-up
     eager = make_decode_step(cfg)
     rng = np.random.RandomState(3)
@@ -264,12 +280,16 @@ def _serve(cfg, params, prompts, max_new, eager, **kw):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("greedy", [True, False])
-def test_captured_engine_streams_equal_an_eager_step_engine(cuda, greedy):
+@pytest.mark.parametrize("which", ["qwen2_smoke", "hymba_full_width_2_layers",
+                                   "rwkv6_full_width_2_layers"])
+def test_captured_engine_streams_equal_an_eager_step_engine(cuda, which,
+                                                            greedy):
     """7 prompts over 3 slots with max_new 1 to 6, so slots free and
-    refill mid-run: the captured engine's tokens equal those of an engine
-    whose decode step is the eager one, greedy and sampled from the same
-    seed (sampling stays outside the graph, on the engine's generator)."""
-    cfg = _smoke()
+    refill mid-run (a recurrent state is spliced whole into a reused
+    slot): the captured engine's tokens equal those of an engine whose
+    decode step is the eager one, greedy and sampled from the same seed
+    (sampling stays outside the graph, on the engine's generator)."""
+    cfg = _smoke() if which == "qwen2_smoke" else CONFIGS[which]()
     params = tf.init_params(cfg, 4)
     prompts = _prompts(5, (5, 9, 5, 3, 12, 7, 9), cfg.vocab_size)
     max_new = (1, 6, 2, 5, 3, 4, 6)
