@@ -83,11 +83,29 @@ Phases, each printing one JSON line with its times:
      launches a prefill, the KV ring and the SSM state in the replay's
      check) and rwkv6-1.6B (the same at 1 fp32 layer, then
      ``slice_engine_ssm``, 24 ``wkv6`` launches a prefill, the WKV state
-     and token-shift rows in the replay's check). Then the card-only
-     tests of the fused and batched graphs
-     (``tests/test_torch_graphs_gpu.py``) and of the engine's compiled
-     steps (``tests/test_torch_engine_gpu.py``, with the per-op diagnosis
-     of a grouped prefill), each in a process of its own;
+     and token-shift rows in the replay's check). Between qwen2's and
+     hymba's, the paged-KV engine: at 1 fp32 layer with a pool of just
+     the first four prompts' reservations (the last two land on recycled
+     blocks; every token against the offline recompute), and a pool for
+     two of four 512-token prompts (two shed ``out_of_blocks``, no launch
+     spent on them); then ``slice_engine_paged``: qwen2-1.5B at full depth
+     from ``slice_engine``'s pinned image through
+     ``PagedServingEngine.from_rimfs`` (4 slots, max_seq 640, blocks of 16
+     rows, 160 + 1 blocks), its 12 (bucket, window) rungs captured as CUDA
+     graphs when it is built, the six prompts decoded in windows of up to
+     8 tokens; the streams against the same engine on eager windows and
+     against ``slice_engine``'s dense streams (bit for bit), a rung
+     captured anew while four sequences hold blocks (every block but the
+     null one untouched), one replay of each rung the burst reached
+     against its eager window, 28 ``flash_attention`` launches a prefill
+     and none in a window, and the w = 8 window's device time at each
+     bucket and through tables of 8 and 16 blocks. Then the card-only tests of the fused and batched graphs
+     (``tests/test_torch_graphs_gpu.py``), of the engine's compiled steps
+     (``tests/test_torch_engine_gpu.py``, with the per-op diagnosis of a
+     grouped prefill) and of the paged windows
+     (``tests/test_torch_paged_gpu.py``, with the per-op diagnosis of the
+     paged step's shapes against the dense step's), each in a process of
+     its own;
   8. one ``kernels`` line: per kernel its launches on every served path
      (and on each one's fused and batched paths), its error against its
      plain version, its time, its bound and the library's.
@@ -1660,6 +1678,7 @@ ENGINE_MAX_NEW = 32
 ENGINE_SLOTS, ENGINE_MAX_SEQ = 4, 640
 ENGINE_TOL = TOLERANCE["bfloat16"]           # of max |logit|, as bf16 is held
 # the served engine phases, each at full width and depth
+PAGED_BLOCK = 16                # the paged engine's rows a KV block
 ENGINE_MODELS = {"slice_engine": "qwen2-1.5b",
                  "slice_engine_hybrid": "hymba-1.5b",
                  "slice_engine_ssm": "rwkv6-1.6b"}
@@ -1671,25 +1690,31 @@ RING_PROMPTS = (1100, 1000)
 
 
 def instrument_engine(torch, eng, keep: bool = False) -> list:
-    """Record every prefill and decode step of ``eng`` as it runs: the
-    step, its (B, S) input, each hand kernel's launches in it and its host
-    wall to a sync; with ``keep``, also the prefill's tokens and
-    last-position logits. The engine's own code is not changed: its step
-    functions are wrapped."""
+    """Record every prefill and decode step of ``eng`` (dense or paged) as
+    it runs: the step, its (B, S) input (a paged decode window: [bucket,
+    window], with its batch kept), each hand kernel's launches in it
+    and its host wall to a sync; with ``keep``, also the prefill's tokens
+    and last-position logits. The engine's own code is not changed: its
+    step functions are wrapped."""
     counters = kernel_counters()
     log: list = []
 
     def wrap(kind, fn):
         def step(*args):
-            batch = args[-1]
+            batch = next(a for a in reversed(args) if isinstance(a, dict))
             n0 = {name: w.launches for name, w in counters.items()}
             t0 = time.perf_counter()
             out = fn(*args)
             torch.cuda.synchronize()
-            entry = {"step": kind, "shape": list(batch["inputs"].shape),
+            entry = {"step": kind,
                      "launches": {name: w.launches - n0[name]
                                   for name, w in counters.items()},
                      "wall_s": time.perf_counter() - t0}
+            if "inputs" in batch:
+                entry["shape"] = list(batch["inputs"].shape)
+            else:                    # a paged window: (bucket, w)
+                entry["shape"] = [batch["tokens"].shape[0], args[-1]]
+                entry["batch"] = {k: v.clone() for k, v in batch.items()}
             if keep and kind == "prefill":
                 entry.update(tokens=batch["inputs"].clone(),
                              logits=out[0].clone())
@@ -1924,7 +1949,40 @@ def engine_prompts(seed: int, vocab: int, lengths=ENGINE_PROMPTS) -> list:
     return [rng.randint(0, vocab, (n,)).astype(np.int32) for n in lengths]
 
 
-def phase_slice_engine(torch, seed: int, phase: str) -> dict:
+def engine_burst(server, client, eng, prompts: list, log: list, what: str,
+                 held: bool = True) -> dict:
+    """Send ``prompts`` to ``server``'s engine through ``client``, each
+    asking ENGINE_MAX_NEW new tokens; with ``held`` the dispatcher steps
+    nothing until all are queued. Returns the replies' tokens, each
+    request's wall from its send, the burst's seconds from the release and
+    the entries the burst added to ``log`` (``instrument_engine``'s)."""
+    idle = server._loop.on_idle
+    gate = threading.Event()
+    if held:                             # step nothing until all are queued
+        server._loop.on_idle = lambda: idle() if gate.is_set() else False
+    first = len(log)
+    sent = [(client.infer_async(prompt=p, max_new=ENGINE_MAX_NEW),
+             time.perf_counter()) for p in prompts]
+    deadline = time.monotonic() + 120
+    while held and eng.pending() < len(prompts):
+        if time.monotonic() > deadline:
+            raise AssertionError(f"{what}: {eng.pending()} of {len(prompts)} "
+                                 f"prompts queued")
+        time.sleep(0.005)
+    t_release = time.perf_counter()
+    gate.set()
+    tokens, walls = [], []
+    for rid, ts in sent:
+        tokens.append(client.result(rid, timeout=600)["tokens"])
+        walls.append(time.perf_counter() - ts)
+    burst_s = time.perf_counter() - t_release
+    server._loop.on_idle = idle
+    return {"tokens": tokens, "walls": walls, "burst_s": burst_s,
+            "log": log[first:]}
+
+
+def phase_slice_engine(torch, seed: int, phase: str,
+                       keep: dict = None) -> dict:
     """Phase 7b: the LM serving engine. ``ENGINE_MODELS[phase]`` (qwen2-1.5B,
     hymba-1.5B or rwkv6-1.6B) at full width and depth (bf16, random weights
     from ``seed``) packed into a RIMFS image, pinned on the card by
@@ -1954,7 +2012,9 @@ def phase_slice_engine(torch, seed: int, phase: str) -> dict:
     unrelated logits (``phase_engine_reduced_depth`` holds them at 1 and
     2 layers). Then where a decode step's time goes, replayed and eager,
     and a prefill's. Returns the launches of the held run, the main
-    path's."""
+    path's. With ``keep``, leaves in it the mounted image (``fs``), the
+    driver its weights are pinned on and the held run's streams
+    (``tokens``), for the paged engine's phase."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.core import rhal, rimfs
@@ -1996,33 +2056,10 @@ def phase_slice_engine(torch, seed: int, phase: str) -> dict:
     passes = []
     try:
         for held in (True, False):
-            idle = server._loop.on_idle
-            gate = threading.Event()
-            if held:                     # step nothing until all are queued
-                server._loop.on_idle = lambda: idle() if gate.is_set() \
-                    else False
-            first = len(served_log)
-            sent = [(client.infer_async(prompt=p, max_new=ENGINE_MAX_NEW),
-                     time.perf_counter()) for p in prompts]
-            deadline = time.monotonic() + 120
-            while held and eng.pending() < n_req:
-                if time.monotonic() > deadline:
-                    raise AssertionError(f"{phase}: {eng.pending()} of "
-                                         f"{n_req} prompts queued")
-                time.sleep(0.005)
-            t_release = time.perf_counter()
-            gate.set()
-            tokens, walls = [], []
-            for rid, ts in sent:
-                tokens.append(client.result(rid, timeout=600)["tokens"])
-                walls.append(time.perf_counter() - ts)
-            burst_s = time.perf_counter() - t_release
-            server._loop.on_idle = idle
-            log = served_log[first:]
-            engine_launch_check(log, cfg, f"{phase} served"
+            passes.append(engine_burst(server, client, eng, prompts,
+                                       served_log, phase, held))
+            engine_launch_check(passes[-1]["log"], cfg, f"{phase} served"
                                 + (" held" if held else ""))
-            passes.append({"tokens": tokens, "walls": walls,
-                           "burst_s": burst_s, "log": log})
             if held:
                 launches = {name: w.launches for name, w in counters.items()}
                 serve_peak = torch.cuda.max_memory_allocated()
@@ -2210,20 +2247,389 @@ def phase_slice_engine(torch, seed: int, phase: str) -> dict:
          decode_step_4_slots=decode_time,
          decode_step_4_slots_eager=decode_eager_time,
          prefill_by_shape=prefill_time)
-    del eng, local, compiled, served_step, replay, image, fs
+    if keep is not None:
+        keep.update(fs=fs, driver=driver,
+                    tokens=[t.tolist() for t in held_pass["tokens"]])
+    del eng, local, compiled, served_step, replay, image, fs, driver
     gc.collect()
     torch.cuda.empty_cache()
     return {phase: launches}
 
 
+def paged_blocks(plen: int) -> int:
+    """KV blocks the paged engine reserves for a prompt of ``plen`` tokens
+    and ENGINE_MAX_NEW new ones."""
+    return -(-(plen + ENGINE_MAX_NEW) // PAGED_BLOCK)
+
+
+def but_null(torch, pool, null: int):
+    """The pool without its null block (pad lanes write it in an
+    unspecified order)."""
+    return torch.cat([pool[:, :null], pool[:, null + 1:]], dim=1)
+
+
+def check_rungs(torch, compiled, pool_k, pool_v, windows: list) -> list:
+    """One replay of each rung in ``windows`` (the first recorded batch of
+    each) from the pool as it stands, against the eager window on a copy of
+    the pool: the tokens and every block but the null one bit for bit, and
+    every block outside the batch's tables untouched. Raises on a rung
+    that differs; returns one row a rung."""
+    rungs: dict = {}
+    for e in windows:
+        rungs.setdefault(tuple(e["shape"]), e["batch"])
+    null = compiled.null_block
+    out = []
+    for (bucket, window), batch in sorted(rungs.items()):
+        before = pool_k.clone(), pool_v.clone()
+        mirror = pool_k.clone(), pool_v.clone()
+        toks = compiled.graphs[bucket, window](batch)["tokens"]
+        want, _, _ = compiled.eager(compiled.params, *mirror, batch, window)
+        outside = sorted(set(range(null))
+                         - set(batch["tables"].flatten().tolist()))
+        row = {"rung": [bucket, window],
+               "tokens_same": torch.equal(toks, want),
+               "pool_same": all(torch.equal(but_null(torch, a, null),
+                                            but_null(torch, b, null))
+                                for a, b in zip((pool_k, pool_v), mirror)),
+               "outside_blocks": len(outside),
+               "outside_untouched": all(
+                   torch.equal(a[:, outside], b[:, outside])
+                   for a, b in zip((pool_k, pool_v), before))}
+        out.append(row)
+        del before, mirror
+        if not (row["tokens_same"] and row["pool_same"]
+                and row["outside_untouched"]):
+            raise AssertionError(f"a replay differs from its eager window: "
+                                 f"{row}")
+    return out
+
+
+def phase_engine_paged_reduced_depth(torch, seed: int, prompts: list) -> None:
+    """Phase 7c: the paged engine at qwen2-1.5B's full width cut to one
+    fp32 layer. A pool of just the first four prompts' worst-case
+    reservations, so the last two prompts are placed on blocks the first
+    four released: each prefill's launches, each prefill's last-position
+    logits within ENGINE_TOL of the plain versions', every greedy token
+    against the offline recompute (gated), and the last two prompts' blocks
+    all recycled. Then a pool that fits two of four 512-token prompts: two
+    are served, two shed with an ``out_of_blocks`` verdict at admission,
+    with no token and no kernel launch spent on them."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving.engine import Request
+    from repro_torch.serving.paged_engine import PagedServingEngine
+    from repro_torch.serving.scheduler import DeadlineScheduler
+    cfg = dataclasses.replace(get_config("qwen2-1.5b"), num_layers=1,
+                              dtype="float32")
+    params = tf.init_params(cfg, seed)
+    what = "qwen2-1.5b 1-layer float32 paged engine"
+    pool = sum(paged_blocks(len(p)) for p in prompts[:ENGINE_SLOTS])
+    eng = PagedServingEngine(cfg, params, max_batch=ENGINE_SLOTS,
+                             max_seq=ENGINE_MAX_SEQ, block_size=PAGED_BLOCK,
+                             num_blocks=pool)
+    log = instrument_engine(torch, eng, keep=True)
+    blocks_of, allocate = [], eng.cache.allocate
+
+    def recorded_allocate(seq, tokens=0):
+        allocate(seq, tokens)
+        blocks_of.append(eng.cache.blocks_for(seq))
+    eng.cache.allocate = recorded_allocate
+    reqs = [Request(rid=i, prompt=p, max_new=ENGINE_MAX_NEW)
+            for i, p in enumerate(prompts)]
+    for r in reqs:
+        eng.submit(r)
+    eng.run_until_drained()
+    engine_launch_check(log, cfg, what)
+    first = set().union(*blocks_of[:ENGINE_SLOTS])
+    recycled = [sorted(b) for b in blocks_of[ENGINE_SLOTS:]]
+    if len(blocks_of) != len(prompts) or not all(
+            set(b) <= first for b in recycled):
+        raise AssertionError(f"{what}: later prompts' blocks {recycled} "
+                             f"not all released by the first four")
+    logits = prefill_logits_vs_plain(torch, cfg, eng.params, log)
+    for c in logits:
+        if not (c["finite"]
+                and c["max_abs_err"] <= ENGINE_TOL * c["max_abs_logit"]):
+            raise AssertionError(f"{what}: prefill {c} beyond {ENGINE_TOL} "
+                                 f"of max |logit|")
+    recompute = [greedy_recompute(torch, cfg, eng.params, p, r.out_tokens)
+                 for p, r in zip(prompts, reqs)]
+    for i, rc in enumerate(recompute):
+        if rc["mismatch_at"] is not None or rc["checked"] != \
+                ENGINE_MAX_NEW + 1:
+            raise AssertionError(f"{what}: request {i} {rc}")
+    windows = [e["shape"] for e in log if e["step"] == "decode"]
+    rungs = eng.program.artifacts["paged_decode"].captured
+    eng.close()
+
+    # a pool for two 512-token prompts' reservations, four such prompts
+    short_blocks = 2 * paged_blocks(512)
+    short = PagedServingEngine(cfg, params, max_batch=ENGINE_SLOTS,
+                               max_seq=ENGINE_MAX_SEQ,
+                               block_size=PAGED_BLOCK,
+                               num_blocks=short_blocks,
+                               scheduler=DeadlineScheduler())
+    short_log = instrument_engine(torch, short)
+    counters = kernel_counters()
+    n0 = {name: w.launches for name, w in counters.items()}
+    four = [Request(rid=i, prompt=p, max_new=ENGINE_MAX_NEW) for i, p in
+            enumerate(engine_prompts(seed + 1, cfg.vocab_size, (512,) * 4))]
+    for r in four:
+        short.submit(r)
+    short.run_until_drained()
+    spent = {name: w.launches - n0[name] for name, w in counters.items()}
+    shed = [r for r in four if r.shed]
+    served = [r for r in four if not r.shed]
+    short_line = {
+        "num_blocks": short_blocks, "prompts": [512] * 4,
+        "served": len(served), "shed": len(shed),
+        "verdicts": [r.verdict for r in shed],
+        "shed_tokens": [len(r.out_tokens) for r in shed],
+        "prefills": len(prefill_groups(short_log)), "launches": spent,
+        "shed_count": short.scheduler.shed_count}
+    want = {name: 0 for name in spent} | {
+        "flash_attention": 2 * cfg.num_layers}
+    if not (len(served) == 2 and len(shed) == 2 and spent == want
+            and short_line["prefills"] == 2
+            and all("out of KV blocks" in r.verdict
+                    and r.verdict_kind == "out_of_blocks"
+                    and r.out_tokens == [] for r in shed)
+            and all(len(r.out_tokens) == ENGINE_MAX_NEW + 1
+                    for r in served)):
+        raise AssertionError(f"{what}: the short pool {short_line}")
+    short.close()
+    emit("engine_reduced_depth", model=cfg.name, engine="paged", layers=1,
+         dtype=cfg.dtype, max_seq=ENGINE_MAX_SEQ, block_size=PAGED_BLOCK,
+         num_blocks=pool, prompts=[len(p) for p in prompts],
+         prefill_groups=prefill_groups(log),
+         prefill_launches=[e["launches"] for e in log
+                           if e["step"] == "prefill"],
+         windows=windows, rungs_captured=rungs,
+         recycled_blocks_of_last_two=recycled,
+         prefill_logits=logits, logits_tol=ENGINE_TOL,
+         recompute_gated=True, recompute=recompute, short_pool=short_line)
+    del eng, short, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_slice_engine_paged(torch, seed: int, keep: dict) -> dict:
+    """Phase 7d: the paged-KV engine. qwen2-1.5B at full width and depth,
+    from the image ``slice_engine`` pinned (``keep``: its mounted image,
+    driver and streams), provisioned by ``PagedServingEngine.from_rimfs``
+    (4 slots, max_seq 640, blocks of 16 rows, the default pool of 160 + 1
+    blocks; its 12 (bucket, window) rungs captured as CUDA graphs when it
+    is built) and served by the port's InferenceServer: the six prompts of
+    ``slice_engine``, held until all are queued, each prefilled alone on
+    ``flash_attention``, decoded in windows of up to 8 tokens.
+    Gates: the same engine, its windows then swapped for the eager ones
+    and fed the same prompts, gives the same streams bit for bit, through
+    the same prefills; a rung captured anew while four of those sequences
+    hold blocks leaves every block but the null one untouched; one replay
+    of each rung the burst reached equals its eager window (tokens and
+    pool, blocks outside the batch untouched); 28 ``flash_attention``
+    launches a prefill and none in a window; the six streams equal
+    ``slice_engine``'s dense ones. Prints tokens/s, the reply times, the
+    per-token decode p50, the w = 8 window at bucket 4 (host wall, device
+    time and where it goes), the w = 8 window's device time at each bucket
+    and, at bucket 4, through tables of 8 and 16 blocks (what a span
+    bucket could save), the rungs captured and their seconds, ``kv_stats``
+    and the peak memory. Returns the launches of the served burst, the
+    main path's."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core.executor import CapturedGraph
+    from repro_torch.launch.steps import make_paged_decode_step
+    from repro_torch.serving.engine import Request
+    from repro_torch.serving.paged_engine import PagedServingEngine
+    from repro_torch.serving.server import Client, InferenceServer
+    phase = "slice_engine_paged"
+    cfg = get_config("qwen2-1.5b")
+    fs, driver = keep["fs"], keep["driver"]
+    prompts = engine_prompts(seed, cfg.vocab_size)
+    n_req = len(prompts)
+
+    torch.cuda.reset_peak_memory_stats()
+    serve_base = torch.cuda.memory_allocated()
+    counters = kernel_counters()
+    for wrapper in counters.values():    # the main path starts here
+        wrapper.launches = 0
+    t1 = time.perf_counter()
+    eng = PagedServingEngine.from_rimfs(cfg, fs, driver=driver,
+                                        max_batch=ENGINE_SLOTS,
+                                        max_seq=ENGINE_MAX_SEQ,
+                                        block_size=PAGED_BLOCK)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t1
+    compiled = eng.program.artifacts["paged_decode"]
+    rungs_built = list(compiled.captured)
+    prefill_step = eng._prefill
+    log = instrument_engine(torch, eng)
+    server = InferenceServer(engine=eng)
+    server.start()
+    client = Client(server.address)
+    try:
+        served = engine_burst(server, client, eng, prompts, log, phase)
+        launches = {name: w.launches for name, w in counters.items()}
+        serve_peak = torch.cuda.max_memory_allocated()
+        telemetry = client.telemetry()
+        client.shutdown()
+    finally:
+        client.close()
+        server.stop()
+    tokens, walls, burst_s = served["tokens"], served["walls"], \
+        served["burst_s"]
+    engine_launch_check(log, cfg, f"{phase} served")
+    groups = prefill_groups(log)
+    want = dict.fromkeys(launches, 0)
+    for _, seq in groups:
+        for name, n in prefill_launches(cfg, seq).items():
+            want[name] += n
+    if len(groups) != n_req or launches != want:
+        raise AssertionError(f"{phase}: the held burst launched {launches}, "
+                             f"not {want} ({len(groups)} prefills for "
+                             f"{n_req} prompts)")
+    for i, tok in enumerate(tokens):
+        if tok.shape != (ENGINE_MAX_NEW + 1,) or tok.dtype != np.int32 \
+                or tok.min() < 0 or tok.max() >= cfg.vocab_size:
+            raise AssertionError(f"{phase}: request {i} replied {tok}")
+    windows = [e for e in log if e["step"] == "decode"]
+
+    # the same engine, its windows eager, fed the same prompts; after its
+    # first window (four sequences hold blocks) one rung is captured anew,
+    # and may write only the null block
+    eng._prefill, eng._decode = prefill_step, compiled.eager
+    local_log = instrument_engine(torch, eng)
+    reqs = [Request(rid=i, prompt=p, max_new=ENGINE_MAX_NEW)
+            for i, p in enumerate(prompts)]
+    for r in reqs:
+        eng.submit(r)
+    eng.step()
+    live_blocks = sum(len(t) for t in eng.cache.tables.values())
+    null = eng.cache.null_block
+    before = eng.cache.k.clone(), eng.cache.v.clone()
+    recaptured = compiled.capture(ENGINE_SLOTS, 8).capture_s
+    capture_untouched = all(
+        torch.equal(but_null(torch, a, null), but_null(torch, b, null))
+        for a, b in zip((eng.cache.k, eng.cache.v), before))
+    del before
+    eng.run_until_drained()
+    eng._prefill, eng._decode = prefill_step, compiled
+    local_same = [r.out_tokens == t.tolist() for r, t in zip(reqs, tokens)]
+    if not (capture_untouched and all(local_same)
+            and prefill_groups(local_log) == groups):
+        raise AssertionError(f"{phase}: capture with {live_blocks} live "
+                             f"blocks untouched {capture_untouched}; streams "
+                             f"equal to the eager-window engine's "
+                             f"{local_same}; prefills "
+                             f"{prefill_groups(local_log)} vs {groups}")
+    engine_launch_check(local_log, cfg, f"{phase} eager windows")
+
+    # one replay of each rung the burst reached against its eager window
+    rung_checks = check_rungs(torch, compiled, eng.cache.k, eng.cache.v,
+                              windows)
+
+    # where the time goes: the w = 8 window at bucket 4, replayed
+    w8 = next(e["batch"] for e in windows
+              if e["shape"] == [ENGINE_SLOTS, 8])
+    graph8 = compiled.graphs[ENGINE_SLOTS, 8]
+
+    def replay():
+        graph8(w8)
+    window_time = device_breakdown(torch, replay, top=8)
+    replay_walls = []
+    for _ in range(20):
+        t3 = time.perf_counter()
+        replay()
+        torch.cuda.synchronize()
+        replay_walls.append(time.perf_counter() - t3)
+    window_device_ms = cuda_ms(torch, replay, iters=20)
+
+    # the w = 8 window at each bucket, and at bucket 4 through tables of
+    # 8 and 16 blocks (its scores, values and P.V over span * 16 rows: at
+    # most what a span bucket could save), from the burst's batch, and
+    # over all 40 blocks at pos 100 too (the same work on other data);
+    # the runs alternate, twice over (they write the pool, which nothing
+    # reads after them)
+    step8 = make_paged_decode_step(cfg, 8)
+
+    def window_over(inputs, held=None):
+        return {"tokens": step8(eng.params, eng.cache.k, eng.cache.v,
+                                inputs)[0]}
+    runs = {f"bucket_{b}": (compiled.graphs[b, 8],
+                            {"tokens": w8["tokens"][:b],
+                             "pos": w8["pos"][:b], "tables": w8["tables"]})
+            for b in eng.buckets}
+    for span in (8, 16):
+        batch = {**w8, "tables": w8["tables"][:, :span].contiguous()}
+        runs[f"span_{span}"] = (CapturedGraph(
+            window_over, {k: v.clone() for k, v in batch.items()},
+            compiled.held, w8["tables"].device), batch)
+    runs["span_40_pos_100"] = (graph8, {
+        **w8, "pos": torch.full_like(w8["pos"], 100)})
+    window_8_ms = {name: [] for name in runs}
+    for _ in range(2):
+        for name, (graph, batch) in runs.items():
+            window_8_ms[name].append(cuda_ms(
+                torch, lambda: graph(batch), iters=5, warmup=1))
+    del runs
+
+    dense_same = [t.tolist() == d for t, d in zip(tokens, keep["tokens"])]
+    sorted_walls = sorted(walls)
+    generated = n_req * (ENGINE_MAX_NEW + 1)
+    emit(phase, model=cfg.name, layers=cfg.num_layers, dtype=cfg.dtype,
+         slots=ENGINE_SLOTS, max_seq=ENGINE_MAX_SEQ, block_size=PAGED_BLOCK,
+         prompts=list(ENGINE_PROMPTS), max_new=ENGINE_MAX_NEW,
+         build_s=build_s, kv_stats=telemetry["engine"].get("kv"),
+         pool_bytes=eng.cache.pool_bytes(),
+         pool_shape=list(eng.cache.k.shape),
+         serve_peak_memory_allocated=serve_peak,
+         serve_base_memory_allocated=serve_base,
+         prefill_groups=groups, launches=launches,
+         launches_per_prefill={f"1x{s}": prefill_launches(cfg, s)
+                               for s in sorted(set(ENGINE_PROMPTS))},
+         launches_per_window=0,
+         windows=[e["shape"] for e in windows],
+         window_wall_s=[e["wall_s"] for e in windows],
+         served_prefills=[{k: e[k] for k in ("shape", "wall_s")}
+                          for e in log if e["step"] == "prefill"],
+         rungs_captured=rungs_built,
+         rungs_capture_s=sum(c["capture_s"] for c in rungs_built),
+         capture_with_live_blocks_s=recaptured,
+         live_blocks_at_capture=live_blocks,
+         capture_left_live_blocks_untouched=capture_untouched,
+         bit_identical_to_eager_window_engine=True,
+         rung_replays_equal_eager=rung_checks,
+         tokens_equal_dense_engine=dense_same,
+         request_wall_s=walls, first_four_replies_s=sorted_walls[3],
+         last_two_replies_s=sorted_walls[-1], burst_s=burst_s,
+         tokens_per_s=generated / burst_s,
+         engine_decode_token=telemetry.get("engine"),
+         window_8_bucket_4=window_time,
+         window_8_bucket_4_replay_wall_s=sorted(replay_walls)[
+             len(replay_walls) // 2],
+         window_8_bucket_4_device_ms=window_device_ms,
+         window_8_device_ms=window_8_ms)
+    eng.close()
+    del eng, compiled, graph8, replay
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not all(dense_same):
+        raise AssertionError(f"{phase}: the paged streams differ from the "
+                             f"dense engine's: {dense_same}")
+    return {phase: launches}
+
+
 GPU_TESTS = {"graphs_gpu_tests": "tests/test_torch_graphs_gpu.py",
-             "engine_gpu_tests": "tests/test_torch_engine_gpu.py"}
+             "engine_gpu_tests": "tests/test_torch_engine_gpu.py",
+             "paged_gpu_tests": "tests/test_torch_paged_gpu.py"}
 
 
 def start_gpu_tests(phase: str):
-    """Start one card-only test file (the compiled dispatch path's, or the
-    engine's compiled steps') in a process of its own; ``-s`` lets the
-    engine's per-op diagnosis print its ``GROUPED_PREFILL`` lines."""
+    """Start one card-only test file (the compiled dispatch path's, the
+    engine's compiled steps' or the paged windows') in a process of its
+    own; ``-s`` lets the per-op diagnoses print their ``GROUPED_PREFILL``
+    and ``PAGED_VS_DENSE`` lines."""
     root = Path(__file__).resolve().parent
     return subprocess.Popen(
         [sys.executable, "-m", "pytest", "-q", "-s", "-m", "gpu",
@@ -2233,10 +2639,10 @@ def start_gpu_tests(phase: str):
 
 
 def phase_gpu_tests() -> None:
-    """The card-only test files, each in a process of its own, both at
+    """The card-only test files, each in a process of its own, all at
     once (each is small beside the card); one phase line a file, with the
-    ``GROUPED_PREFILL`` lines kept. A failure, or 600 s passed, raises, and
-    no process outlives the phase."""
+    ``GROUPED_PREFILL`` and ``PAGED_VS_DENSE`` lines kept. A failure, or
+    600 s passed, raises, and no process outlives the phase."""
     t0 = time.perf_counter()
     procs = {phase: start_gpu_tests(phase) for phase in GPU_TESTS}
     try:
@@ -2247,12 +2653,16 @@ def phase_gpu_tests() -> None:
             except subprocess.TimeoutExpired:
                 raise AssertionError(f"{GPU_TESTS[phase]} ran past 600 s")
             lines = out.strip().splitlines()
-            mark = "GROUPED_PREFILL "    # after a test's progress dot, maybe
-            marked = [json.loads(ln[ln.index(mark) + len(mark):])
-                      for ln in lines if mark in ln]
+            marked = {}
+            for mark in ("GROUPED_PREFILL ", "PAGED_VS_DENSE "):
+                # after a test's progress dot, maybe
+                found = [json.loads(ln[ln.index(mark) + len(mark):])
+                         for ln in lines if mark in ln]
+                if found:
+                    marked[mark.strip().lower()] = found
             emit(phase, rc=proc.returncode,
                  seconds=time.perf_counter() - t0, summary=lines[-1:],
-                 **({"grouped_prefill": marked} if marked else {}))
+                 **marked)
             if proc.returncode != 0:
                 raise AssertionError(f"{GPU_TESTS[phase]} failed:\n"
                                      + out[-6000:] + err[-3000:])
@@ -2315,13 +2725,22 @@ def main() -> int:
     by_path.update(phase_slice_resnet(torch, args.seed, int8=True))
 
     # 7. the LM serving engine: at reduced depth, then served at full depth
-    # (qwen2-1.5B; hymba-1.5B and rwkv6-1.6B, the recurrent families)
+    # (qwen2-1.5B, dense then paged; hymba-1.5B and rwkv6-1.6B, the
+    # recurrent families)
     prompts = engine_prompts(args.seed, get_config("qwen2-1.5b").vocab_size)
     phase_engine_reduced_depth(torch, args.seed, "qwen2-1.5b", prompts, 2,
                                "bfloat16", gate_recompute=False)
     phase_engine_reduced_depth(torch, args.seed, "qwen2-1.5b", prompts, 1,
                                "float32", gate_recompute=True)
-    by_path.update(phase_slice_engine(torch, args.seed, "slice_engine"))
+    keep: dict = {}
+    by_path.update(phase_slice_engine(torch, args.seed, "slice_engine", keep))
+    # the paged-KV engine: at one fp32 layer, then at full depth over the
+    # image slice_engine pinned
+    phase_engine_paged_reduced_depth(torch, args.seed, prompts)
+    by_path.update(phase_slice_engine_paged(torch, args.seed, keep))
+    keep.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
     hymba_vocab = get_config("hymba-1.5b").vocab_size
     phase_engine_reduced_depth(
         torch, args.seed, "hymba-1.5b",

@@ -94,16 +94,24 @@ class CapturedGraph:
     The kernel wrappers' ``launches`` counts move at capture but nothing
     runs then: the capture's counts are recorded as ``launches`` (a
     replay's launches by kernel) and taken back, and every replay adds
-    them."""
+    them.
+
+    A callable that draws random numbers from its own CUDA ``generator``
+    passes it here: the graph registers it, so each replay draws the next
+    numbers of its stream, and the warm-up's draws are taken back (its
+    state is restored before the capture), so the stream a replay sees
+    does not depend on when the graph was captured."""
 
     def __init__(self, fn: Callable, inputs: dict, weights: dict,
-                 dev: torch.device):
+                 dev: torch.device,
+                 generator: Optional[torch.Generator] = None):
         _check_weights(weights, dev)
         self.inputs = inputs
         self.weights = weights
         self.weight_key = _weight_key(weights)
         counters = registry.launch_counters()
         t0 = time.perf_counter()
+        state = generator.get_state() if generator is not None else None
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
@@ -111,6 +119,9 @@ class CapturedGraph:
         torch.cuda.current_stream(dev).wait_stream(side)
         before = {name: w.launches for name, w in counters.items()}
         self.graph = torch.cuda.CUDAGraph()
+        if generator is not None:
+            generator.set_state(state)
+            self.graph.register_generator_state(generator)
         try:
             with torch.cuda.graph(self.graph,
                                   capture_error_mode="thread_local"):

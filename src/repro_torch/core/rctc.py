@@ -11,7 +11,8 @@ kernel registry, the glue (RMSNORM / ROPE / SILU_MUL / SCALE_SHIFT / GEMM /
 ADD / RESHAPE) through the generic vtable, and the Mamba branch's projections and the
 RWKV-6 token-shift mixes run as ``GRAPH_EXEC`` artifacts (plain torch
 callables) — and the weights flatten into a RIMFS image; and the LM
-serving engine's service program (``compile_lm_service``). From the same
+serving engines' service programs (``compile_lm_service``,
+``compile_paged_lm_service``). From the same
 parameters it emits the same program bytes and the same image bytes as the
 JAX package. Other LM families (experts, vision, audio) raise
 ``NotImplementedError``.
@@ -254,6 +255,45 @@ def compile_lm_service(cfg, batch: int, seq_len: int,
     b.emit(Op.POLL, [], ["logits"])
     b.close_block("decode")
     return b.build({"prefill": prefill_fn, "decode": decode_fn})
+
+
+def compile_paged_lm_service(cfg, batch: int, max_seq: int, block_size: int,
+                             num_blocks: int, prefill_fn, decode_fn,
+                             greedy: bool = True,
+                             temperature: float = 1.0) -> RCBProgram:
+    """The paged-KV LM service program: the KV pool is a scratch tensor
+    with an explicit block axis (num_blocks + 1 rows, the last the null
+    block), and both GRAPH_EXEC artifacts take the batch's int32 block
+    table as a device input, addressing the pool inside the steps. The
+    decode artifact samples on the device (greedy or temperature, baked
+    into the program and so into its CRC) and returns the window's new
+    tokens instead of logits.
+    The bytes equal the JAX package's for the same arguments."""
+    b = _Builder(f"lm_paged_{cfg.name}")
+    bps = (max_seq + block_size - 1) // block_size    # table width bound
+    pool_shape = (cfg.num_layers, num_blocks + 1, block_size,
+                  cfg.num_kv_heads, cfg.head_dim)
+    b.tensor("params", (0,), "float32", "input")      # pytree passthrough
+    b.tensor("pool_k", pool_shape, cfg.dtype, "scratch")
+    b.tensor("pool_v", pool_shape, cfg.dtype, "scratch")
+    b.tensor("tables", (batch, bps), "int32", "input", ("batch", None))
+    b.tensor("tokens", (batch, max_seq), "int32", "input", ("batch", None))
+    b.tensor("first_logits", (batch, cfg.vocab_size), "float32", "output")
+    b.emit(Op.GRAPH_EXEC, ["first_logits", "pool_k", "pool_v"],
+           ["params", "pool_k", "pool_v", "tokens", "tables"],
+           artifact="paged_prefill", block_size=block_size)
+    b.emit(Op.POLL, [], ["first_logits"])
+    b.close_block("prefill")
+    b.tensor("next_token", (batch,), "int32", "input", ("batch",))
+    b.tensor("pos", (batch,), "int32", "input", ("batch",))
+    b.tensor("new_tokens", (batch, 1), "int32", "output", ("batch", None))
+    b.emit(Op.GRAPH_EXEC, ["new_tokens", "pool_k", "pool_v"],
+           ["params", "pool_k", "pool_v", "next_token", "pos", "tables"],
+           artifact="paged_decode", block_size=block_size,
+           greedy=bool(greedy), temperature=float(temperature))
+    b.emit(Op.POLL, [], ["new_tokens"])
+    b.close_block("decode")
+    return b.build({"paged_prefill": prefill_fn, "paged_decode": decode_fn})
 
 
 def _ssm_pre_artifact(cfg, keys):

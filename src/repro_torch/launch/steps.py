@@ -1,4 +1,4 @@
-"""Prefill, decode and sampling steps of the LM serving engine.
+"""Prefill, decode and sampling steps of the LM serving engines.
 
 The port's counterpart of ``repro.launch.steps``' serve steps. The JAX
 package jits them and donates the decode cache (``donate_argnums=(1,)``).
@@ -6,6 +6,12 @@ Here ``make_prefill_step`` and ``make_decode_step`` run eagerly, the decode
 step writing the new K/V and every recurrent state into the cache it is
 given, in place on its device; ``CompiledDecodeStep`` is the jitted decode
 step's counterpart, one CUDA graph over an engine's parameters and cache.
+The paged engine's steps address a KV block pool through block tables:
+``make_paged_prefill_step`` writes a prefill's cache into the pool, and
+``make_paged_decode_step`` runs a window of w tokens (forward, sample,
+feed back) without the host; ``CompiledPagedDecode`` is the counterpart of
+the JAX package's ``jax.jit(..., donate_argnums=(1, 2))`` windows, one CUDA
+graph a (bucket, window) rung, all captured when the engine is built.
 """
 from __future__ import annotations
 
@@ -91,6 +97,144 @@ class CompiledDecodeStep:
         return self._run(self.inputs)["logits"], cache
 
 
+def make_paged_prefill_step(cfg: ModelConfig):
+    """Prefill that lands its KV directly in the paged pool: the same dense
+    forward as ``make_prefill_step`` (the same last-token logits, hence the
+    same first sampled token), then one in-place write through the batch's
+    block tables. ``paged_prefill_step(params, pool_k, pool_v, {"inputs":
+    (B,S), "tables": (B,W)}) -> (last_logits (B,V), pool_k, pool_v)``."""
+    def paged_prefill_step(params, pool_k, pool_v, batch):
+        logits, cache = tf.forward_full(cfg, params, batch["inputs"],
+                                        want_cache=True)
+        tf.scatter_prefill_cache(pool_k, pool_v, cache["k"], cache["v"],
+                                 batch["tables"])
+        return logits[:, -1], pool_k, pool_v
+    return paged_prefill_step
+
+
+def make_paged_decode_step(cfg: ModelConfig, window: int = 1,
+                           greedy: bool = True, temperature: float = 1.0):
+    """Multi-token decode for the paged pool: one call advances every lane
+    ``window`` tokens, running forward, sample and feed-back ``window``
+    times on the device, so the host touches only (B, window) sampled ints.
+    ``paged_decode_step(params, pool_k, pool_v, {"tokens": (B,), "pos":
+    (B,), "tables": (lanes, W)[, "generator"]}) -> (tokens (B, window)
+    int32, pool_k, pool_v)``, where ``tokens`` is each lane's last sampled
+    token (written at ``pos``), ``tables`` has lanes >= B rows (the rows
+    past B null, ``tf.forward_decode_paged``) and row b of the output is
+    lane b's ``window`` new tokens; sampling that is not greedy draws from
+    ``generator``."""
+    def paged_decode_step(params, pool_k, pool_v, batch):
+        tok, pos, tables = batch["tokens"], batch["pos"], batch["tables"]
+        out = []
+        for _ in range(window):
+            logits, _, _ = tf.forward_decode_paged(
+                cfg, params, tok[:, None], pos, pool_k, pool_v, tables)
+            tok = sample_tokens(logits[:, 0], greedy, temperature,
+                                batch.get("generator"))
+            out.append(tok)
+            pos = pos + 1
+        return torch.stack(out, dim=1), pool_k, pool_v
+    return paged_decode_step
+
+
+class CompiledPagedDecode:
+    """The paged decode windows compiled for one engine's ``params`` and
+    pool: the counterpart of the JAX package's ``jax.jit(
+    make_paged_decode_step(...), donate_argnums=(1, 2))`` executables, one
+    per (bucket, window) rung in ``rungs``, every one over tables of
+    ``tables_shape`` (the engine's (max_batch, max_seq / block_size)).
+
+    On CUDA every rung is captured here, when the engine is built, as one
+    ``CapturedGraph`` over static int32 buffers for tokens (bucket,),
+    positions (bucket,) and tables: the window's steps, the sampling and
+    ``pos + 1`` included, run inside the graph, which writes the pool in
+    place at baked-in addresses (its owner never rebinds it). The static
+    tables are filled with the null block before the capture's warm-up
+    run, which therefore writes only the null block: a rung captured while
+    sequences hold blocks (``capture``) leaves their blocks untouched. A
+    JAX executable takes the params and pool as arguments and is shared by
+    every engine over the same program; a graph cannot be, so each engine
+    holds its own, in ``graphs``, and ``release`` drops them. Sampling
+    that is not greedy draws from ``generator``, registered with each
+    graph. A failed capture raises; nothing falls back to an uncaptured
+    run. On the CPU every call runs ``eager``.
+
+    It is called as ``decode(params, pool_k, pool_v, batch, window) ->
+    (tokens (bucket, window), pool_k, pool_v)``, with the very params and
+    pool it was compiled for and ``batch`` as int32 tensors ("tokens",
+    "pos", "tables") at one of its rungs, on either device; ``captured``
+    lists each rung it captured and the seconds that took."""
+
+    def __init__(self, cfg: ModelConfig, params: dict, pool_k, pool_v,
+                 rungs, tables_shape: tuple, greedy: bool = True,
+                 temperature: float = 1.0,
+                 generator: Optional[torch.Generator] = None):
+        self.cfg, self.params = cfg, params
+        self.pool_k, self.pool_v = pool_k, pool_v
+        self.device = pool_k.device
+        self.null_block = pool_k.shape[1] - 1       # the pool's last block
+        self.rungs = tuple(rungs)
+        self.tables_shape = tuple(tables_shape)
+        self.greedy, self.temperature = greedy, temperature
+        self.generator = generator
+        self.held = {**{f"params/{k}": v for k, v in params.items()},
+                     "pool/k": pool_k, "pool/v": pool_v}
+        self.graphs: dict = {}
+        self.captured: list = []
+        if self.device.type == "cuda":
+            for bucket, window in self.rungs:
+                self.capture(bucket, window)
+
+    def eager(self, params, pool_k, pool_v, batch, window: int):
+        """One window on stock ops, uncaptured (the CPU path, and the card's
+        reference for a replay)."""
+        step = make_paged_decode_step(self.cfg, window, self.greedy,
+                                      self.temperature)
+        return step(params, pool_k, pool_v,
+                    {**batch, "generator": self.generator})
+
+    def capture(self, bucket: int, window: int) -> CapturedGraph:
+        """Capture the rung's graph now, in place of any it had."""
+        dev = self.device
+        static = {
+            "tokens": torch.zeros((bucket,), dtype=torch.int32, device=dev),
+            "pos": torch.zeros((bucket,), dtype=torch.int32, device=dev),
+            "tables": torch.full(self.tables_shape, self.null_block,
+                                 dtype=torch.int32, device=dev)}
+
+        def run(inputs, held=None):
+            toks, _, _ = self.eager(self.params, self.pool_k, self.pool_v,
+                                    inputs, window)
+            return {"tokens": toks}
+        graph = CapturedGraph(run, static, self.held, dev,
+                              None if self.greedy else self.generator)
+        self.graphs[(bucket, window)] = graph
+        self.captured.append({"rung": [bucket, window],
+                              "capture_s": graph.capture_s})
+        return graph
+
+    def __call__(self, params, pool_k, pool_v, batch, window: int):
+        if params is not self.params or pool_k is not self.pool_k \
+                or pool_v is not self.pool_v:
+            raise ValueError("the decode windows were compiled for other "
+                             "parameters or another pool")
+        rung = (batch["tokens"].shape[0], window)
+        if rung not in self.rungs \
+                or tuple(batch["tables"].shape) != self.tables_shape:
+            raise ValueError(f"no decode window compiled for (bucket, "
+                             f"window) {rung} over tables "
+                             f"{tuple(batch['tables'].shape)}")
+        if self.device.type != "cuda":
+            return self.eager(params, pool_k, pool_v, batch, window)
+        return self.graphs[rung](batch)["tokens"], pool_k, pool_v
+
+    def release(self) -> None:
+        """Drop the captured windows (with them their memory pools and
+        their hold on the params and pool)."""
+        self.graphs.clear()
+
+
 def sample_tokens(logits: torch.Tensor, greedy: bool, temperature: float,
                   generator: Optional[torch.Generator] = None
                   ) -> torch.Tensor:
@@ -98,7 +242,9 @@ def sample_tokens(logits: torch.Tensor, greedy: bool, temperature: float,
     maximal index, as ``jnp.argmax``'s. Otherwise one draw per row from
     ``softmax(logits / T)`` with ``generator`` (on the logits' device): the
     distribution of the JAX package's ``jax.random.categorical``, not its
-    tokens."""
+    tokens. The draw is the exponential race ``argmax(p / q)``, q ~ Exp(1)
+    (the algorithm of ``torch.multinomial``'s one-sample path), with no
+    host read, so it runs inside a CUDA graph."""
     if greedy:
         return torch.argmax(logits, dim=-1).to(torch.int32)
     if generator is None:
@@ -106,5 +252,5 @@ def sample_tokens(logits: torch.Tensor, greedy: bool, temperature: float,
     t = torch.full((), max(float(temperature), 1e-6), dtype=torch.float32,
                    device=logits.device)
     probs = torch.softmax(logits.float() / t, dim=-1)
-    return torch.multinomial(probs, 1, generator=generator)[:, 0].to(
-        torch.int32)
+    q = torch.empty_like(probs).exponential_(1, generator=generator)
+    return torch.argmax(probs / q, dim=-1).to(torch.int32)

@@ -16,11 +16,16 @@ t % W, the row decode writes token t to (the JAX package keeps them
 unrolled at rows 0 to W-1, so its decode after a prompt longer than W,
 and not a multiple of it, reads the wrong keys). Decode is plain ``jnp``
 in the JAX package and stays on stock torch ops here, with its K/V
-written into the cache in place. What every layer of a pass shares
-(RoPE's cos and sin; in decode also the row indices, the cache slots, the
-valid-row mask and the scale) is built once a pass by ``rope_for`` and
-``decode_consts`` and handed to each layer. Query chunking (S >= 16384)
-raises ``NotImplementedError``.
+written into the cache in place. Paged decode (``decode_attention_paged``)
+writes the new K/V into a block pool through block tables and gathers each
+lane's blocks back into a contiguous span: the same scores, mask, softmax
+and P.V as dense decode (one shared tail, ``_attend_decode``), over the
+gathered rows. What every layer of a pass shares (RoPE's cos and sin; in
+decode also the rows or blocks written, the slots in them, the valid-row
+mask and the scale; in paged decode the gather index) is built once a
+pass by ``rope_for``, ``decode_consts`` and ``paged_decode_consts`` and
+handed to each layer. Query chunking (S >= 16384) raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -81,16 +86,20 @@ def rope_for(cfg: ModelConfig, positions):
 
 class DecodeConsts(NamedTuple):
     """What every layer of one decode step shares, built once a step from
-    the device tensor ``pos`` (no host read): the lanes' row indices, their
-    cache slots (``pos``, or ``pos % S`` in a ring), the (B, 1, 1, 1, S)
+    the device tensors ``pos`` (and, paged, ``tables``; no host read): the
+    new K/V's write index, ``cache[rows, slot]`` (dense: the lanes' row
+    indices and cache slots, ``pos`` or ``pos % S`` in a ring; paged: the
+    lanes' physical blocks and the offsets in them), the (B, 1, 1, 1, S)
     valid-row mask (``idx <= pos``; in a ring every row once ``pos >=
-    S``), the 0-d fp32 sqrt(D) the scores are divided by, and RoPE's
-    table at ``pos``."""
+    S``), the 0-d fp32 sqrt(D) the scores are divided by, RoPE's table at
+    ``pos`` and, paged only, the (lanes, W) int64 block table the keys and
+    values are gathered through (``paged_decode_consts``)."""
     rows: torch.Tensor
     slot: torch.Tensor
     valid: torch.Tensor
     scale: torch.Tensor
     rope: Optional[tuple]
+    blocks: Optional[torch.Tensor] = None
 
 
 def decode_consts(cfg: ModelConfig, pos, seq_len: int) -> DecodeConsts:
@@ -107,6 +116,31 @@ def decode_consts(cfg: ModelConfig, pos, seq_len: int) -> DecodeConsts:
                         slot=slot, valid=valid[:, None, None, None, :],
                         scale=f32_scalar(cfg.head_dim ** 0.5, pos),
                         rope=rope_for(cfg, pos[:, None]))
+
+
+def paged_decode_consts(cfg: ModelConfig, pos, tables,
+                        block_size: int) -> DecodeConsts:
+    """The step's ``DecodeConsts`` for pos (B,) against a block pool of
+    ``block_size`` rows a block, addressed through tables (lanes, W),
+    lanes >= B: logical position t of lane b lives at (tables[b, t //
+    block_size], t % block_size), and the W gathered blocks give W *
+    block_size rows. The new token's block is ``tables[b, (pos // bs) %
+    W]`` (a pad lane, all null, writes the null block). Rows of ``tables``
+    past B are null lanes that only the scores see
+    (``decode_attention_paged``)."""
+    _check_ported(cfg)
+    p = pos.long()
+    blocks = tables.long()
+    B, W = p.shape[0], blocks.shape[1]
+    blk = torch.gather(blocks[:B], 1, torch.remainder(
+        torch.div(p, block_size, rounding_mode="floor"), W)[:, None])[:, 0]
+    valid = torch.arange(W * block_size, device=pos.device)[None, :] \
+        <= p[:, None]
+    return DecodeConsts(
+        rows=blk, slot=torch.remainder(p, block_size),
+        valid=valid[:, None, None, None, :],
+        scale=f32_scalar(cfg.head_dim ** 0.5, pos),
+        rope=rope_for(cfg, pos[:, None]), blocks=blocks)
 
 
 def _qkv(cfg: ModelConfig, p: dict, x, positions, rope=None):
@@ -207,16 +241,77 @@ def decode_attention(cfg: ModelConfig, p: dict, x, pos, k_cache, v_cache,
     in fp32, cast to x's dtype before the product with V. Returns (out
     (B,1,d), k_cache, v_cache)."""
     _check_ported(cfg)
-    B, S, Hkv, D = k_cache.shape
-    H = cfg.num_heads
-    c = consts if consts is not None else decode_consts(cfg, pos, S)
-    q, k, v = _qkv(cfg, p, x, pos[:, None], c.rope)
-    k_cache[c.rows, c.slot] = k[:, 0].to(k_cache.dtype)
-    v_cache[c.rows, c.slot] = v[:, 0].to(v_cache.dtype)
+    c = consts if consts is not None else decode_consts(cfg, pos,
+                                                        k_cache.shape[1])
+    q = _write_new_kv(cfg, p, x, pos, k_cache, v_cache, c)
+    scores = _grouped_scores(_group(q, k_cache.shape[2]), k_cache)
+    return (_attend_decode(cfg, p, scores, v_cache, c, x.dtype),
+            k_cache, v_cache)
 
-    qg = q.reshape(B, 1, Hkv, H // Hkv, D)
-    s_ = _grouped_scores(qg, k_cache) / c.scale
-    s_ = torch.where(c.valid, s_, NEG_INF)
-    a = torch.softmax(s_, dim=-1).to(x.dtype)
-    o = torch.einsum("bhgqk,bkhd->bqhgd", a, v_cache).reshape(B, 1, H, D)
-    return _out_proj(o, p["wo"]), k_cache, v_cache
+
+def decode_attention_paged(cfg: ModelConfig, p: dict, x, pos, pool_k,
+                           pool_v, tables,
+                           consts: Optional[DecodeConsts] = None):
+    """One-token decode against a paged KV pool (one layer's slice).
+
+    x: (B,1,d); pos: (B,) logical position of the new token; pool_k/v:
+    (num_blocks+1, block_size, Hkv, D), the last row the null block;
+    tables: (lanes, W) int32 physical block ids, null-padded, lanes >= B
+    (rows past B all null); ``consts`` is ``paged_decode_consts(cfg, pos,
+    tables, block_size)`` when the caller has it.
+
+    The new token's K/V is written at its (block, offset) in place: live
+    lanes hold disjoint blocks, so their writes never collide; pad lanes
+    all write the null row (duplicate indices, so which write lands there
+    is unspecified), which is only ever gathered back behind the mask.
+    Then the W blocks of each of the ``lanes`` rows are gathered into W *
+    block_size rows and attended exactly as dense decode attends its cache
+    rows: the valid rows carry the same scores, and the masked ones a
+    weight of exactly 0. The scores q.k run over all ``lanes`` rows, q
+    padded with zero lanes, and are cut back to the B live ones: on an
+    H100 their batched GEMM rounds by its shape, so the paged engine passes
+    tables of its dense counterpart's shape (max_batch lanes, max_seq rows;
+    tests/test_torch_paged_gpu.py finds the op), and its streams equal the
+    dense engine's. Returns (out (B,1,d), pool_k, pool_v)."""
+    _, bs, Hkv, D = pool_k.shape
+    B = x.shape[0]
+    c = consts if consts is not None else paged_decode_consts(cfg, pos,
+                                                              tables, bs)
+    lanes, W = c.blocks.shape
+    q = _write_new_kv(cfg, p, x, pos, pool_k, pool_v, c)
+    kg = pool_k[c.blocks].reshape(lanes, W * bs, Hkv, D)  # gather blocks
+    vg = pool_v[c.blocks[:B]].reshape(B, W * bs, Hkv, D)
+    qd = torch.cat([q, q.new_zeros((lanes - B,) + tuple(q.shape[1:]))])
+    scores = _grouped_scores(_group(qd, Hkv), kg)[:B]
+    return (_attend_decode(cfg, p, scores, vg, c, x.dtype), pool_k,
+            pool_v)
+
+
+def _write_new_kv(cfg: ModelConfig, p: dict, x, pos, k_store, v_store,
+                  c: DecodeConsts):
+    """Project the new token and write its K/V at ``store[c.rows,
+    c.slot]`` in place; returns q (B,1,H,D)."""
+    q, k, v = _qkv(cfg, p, x, pos[:, None], c.rope)
+    k_store[c.rows, c.slot] = k[:, 0].to(k_store.dtype)
+    v_store[c.rows, c.slot] = v[:, 0].to(v_store.dtype)
+    return q
+
+
+def _group(q, Hkv: int):
+    """q (B,1,H,D) -> (B,1,Hkv,G,D)."""
+    B, _, H, D = q.shape
+    return q.reshape(B, 1, Hkv, H // Hkv, D)
+
+
+def _attend_decode(cfg: ModelConfig, p: dict, scores, values,
+                   c: DecodeConsts, out_dtype):
+    """The fp32 scores q.k (B,Hkv,G,1,S) over every row of values
+    (B,S,Hkv,D): divided by sqrt(D), masked to ``c.valid`` with NEG_INF,
+    softmax in fp32, cast to ``out_dtype`` before the product with V, then
+    the output projection."""
+    B, _, _, D = values.shape
+    s_ = torch.where(c.valid, scores / c.scale, NEG_INF)
+    a = torch.softmax(s_, dim=-1).to(out_dtype)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", a, values).reshape(
+        B, 1, cfg.num_heads, D)
+    return _out_proj(o, p["wo"])

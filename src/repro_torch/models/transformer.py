@@ -10,9 +10,12 @@ entries), their initialization from a seed on a device, ``split_params``,
 across, the decode state's ``cache_specs`` (KV cache, ring-buffered for a
 sliding window; plus the SSM state in the hybrid family; the WKV state and
 token-shift rows in the ssm family), ``forward_full`` (prefill: attention
-on the flash-attention kernel, the scans on ``ssm_scan`` and ``wkv6``) and
+on the flash-attention kernel, the scans on ``ssm_scan`` and ``wkv6``),
 ``forward_decode`` (one token against the cache, which it writes in place,
-recurrent states included). The reference scans its layers with
+recurrent states included), and for the paged engine (full attention
+only) ``forward_decode_paged`` (one token against a KV block pool through
+block tables, written in place) and ``scatter_prefill_cache`` (a dense
+prefill cache into the pool). The reference scans its layers with
 ``lax.scan``; here they run in a Python loop, which computes the same
 thing; what the layers share (RoPE's table, decode's per-step invariants)
 is built once a pass, before it.
@@ -277,3 +280,66 @@ def forward_decode(cfg: ModelConfig, params: dict, inputs, pos, cache: dict):
     x = embed_inputs(cfg, glob, inputs)
     x, cache = run_blocks_decode(cfg, blocks, x, pos, cache)
     return logits_head(cfg, glob, x), cache
+
+
+# ---------------------------------------------------------------------------
+# Paged KV (the paged serving engine)
+# ---------------------------------------------------------------------------
+
+def _check_paged_family(cfg: ModelConfig) -> None:
+    if cfg.family in ("ssm", "hybrid") or cfg.attention != "full":
+        raise NotImplementedError(
+            f"paged KV decode supports full-attention transformer families "
+            f"only (got family={cfg.family}, attention={cfg.attention}); "
+            f"recurrent/sliding state does not page")
+
+
+def block_decode_paged(cfg: ModelConfig, p: dict, x, pos, pool_k, pool_v,
+                       tables, consts=None):
+    """One-token block against a paged KV pool layer slice, written in
+    place. Identical math to ``block_decode`` around the attention call —
+    greedy bit-identity with the dense engine hinges on this."""
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    ya, _, _ = attn.decode_attention_paged(cfg, p, h, pos, pool_k, pool_v,
+                                           tables, consts)
+    x = x + ya
+    h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
+    return x + swiglu(p, h2), pool_k, pool_v
+
+
+def forward_decode_paged(cfg: ModelConfig, params: dict, inputs, pos,
+                         pool_k, pool_v, tables):
+    """One-token decode addressing a paged KV pool through block tables.
+
+    inputs (B,1) tokens; pos (B,) int32; pool_k/v (L, num_blocks+1,
+    block_size, Hkv, D), each layer's slice written in place; tables
+    (lanes, W) int32, lanes >= B, the rows past B null lanes that only the
+    attention scores see (``attn.decode_attention_paged``). What every
+    layer shares (the write index, mask, gather indices and RoPE) is built
+    once, before the layers. Returns (logits (B,1,V), pool_k, pool_v)."""
+    _check_paged_family(cfg)
+    check_ported(cfg, engine=True)
+    glob, blocks = split_params(params)
+    x = embed_inputs(cfg, glob, inputs)
+    consts = attn.paged_decode_consts(cfg, pos, tables, pool_k.shape[2])
+    for i in range(cfg.num_layers):
+        x, _, _ = block_decode_paged(cfg, _slice_layer(blocks, i), x, pos,
+                                     pool_k[i], pool_v[i], tables, consts)
+    return logits_head(cfg, glob, x), pool_k, pool_v
+
+
+def scatter_prefill_cache(pool_k, pool_v, cache_k, cache_v, tables):
+    """Write a dense prefill cache (L, B, S, Hkv, D) into the paged pool in
+    place through block tables (B, W), W * block_size >= S. Pad lanes
+    (tables all null) land their rows in the null block. Returns (pool_k,
+    pool_v)."""
+    L, B, S, Hkv, D = cache_k.shape
+    bs = pool_k.shape[2]
+    W = tables.shape[1]
+    tpos = torch.arange(S, device=pool_k.device)[None, :]      # (1, S)
+    blk = torch.gather(tables.long(), 1, torch.remainder(
+        torch.div(tpos, bs, rounding_mode="floor"), W).expand(B, S))
+    off = torch.remainder(tpos, bs).expand(B, S)
+    pool_k[:, blk, off] = cache_k.to(pool_k.dtype)
+    pool_v[:, blk, off] = cache_v.to(pool_v.dtype)
+    return pool_k, pool_v

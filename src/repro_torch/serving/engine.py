@@ -13,7 +13,9 @@ Prefill runs the hand-written kernels on CUDA tensors (their plain
 versions on CPU ones), eagerly, one prompt a dispatch: ``flash_attention``
 (where a sliding window masks nothing), ``ssm_scan`` and ``wkv6``; decode
 runs stock torch ops, on CUDA as one CUDA graph a step
-(``CompiledDecodeStep``), captured when the engine is built.
+(``CompiledDecodeStep``), captured when the engine is built. The paged
+engine (``serving/paged_engine.py``) shares ``EngineBase``: its admission
+veto (``feasible``) sheds what its KV block pool cannot hold.
 Entry points take ``device=`` (default ``"cuda"``) and raise without CUDA
 unless ``device="cpu"`` is given; parameters on another device raise too.
 The JAX package's ``mesh=`` / ``TileMesh`` arguments are absent until tile
@@ -38,7 +40,7 @@ from repro_torch.dtypes import as_tensor, torch_dtype
 from repro_torch.launch.steps import (CompiledDecodeStep, make_prefill_step,
                                       sample_tokens)
 from repro_torch.models import transformer as tf
-from repro_torch.serving.scheduler import ScheduledRequest
+from repro_torch.serving.scheduler import ScheduledRequest, split_verdict
 
 
 def pack_params_image(params: dict) -> bytes:
@@ -138,20 +140,32 @@ class EngineBase:
         else:
             self._queue.append(req)
 
-    def _pop_admitted(self, free_slots: int) -> list:
+    def _pop_admitted(self, free_slots: int, feasible=None) -> list:
         """Next requests to place into free slots: scheduler admission
-        (priority + EDF + shedding) when attached, FIFO otherwise. A shed
-        request is marked done with its typed verdict, zero compute spent.
-        (The JAX package's feasibility veto serves its paged engine, which
-        is not ported yet.)"""
+        (priority + EDF + shedding) when attached, FIFO otherwise.
+
+        ``feasible``: optional resource veto (the paged engine's KV block
+        budget) returning ``None`` to admit, a verdict string, or a
+        ``(kind, message)`` tuple. A verdict sheds the request — marked
+        done with the typed verdict, zero compute spent — on both the
+        scheduler and the FIFO path."""
         if self.scheduler is None:
-            admitted = self._queue[:free_slots]
-            del self._queue[:free_slots]
-            for req in admitted:
+            admitted = []
+            while self._queue and len(admitted) < free_slots:
+                req = self._queue.pop(0)
+                verdict = feasible(req) if feasible is not None else None
+                if verdict:
+                    kind, msg = split_verdict(verdict)
+                    req.shed, req.done = True, True
+                    req.verdict, req.verdict_kind = msg, kind
+                    continue
                 req.verdict = "admitted"
+                admitted.append(req)
             return admitted
         admitted = []
-        for s in self.scheduler.admit(free_slots):
+        wrapped = None if feasible is None else \
+            (lambda s: feasible(s.payload))
+        for s in self.scheduler.admit(free_slots, feasible=wrapped):
             s.payload.verdict = s.verdict
             admitted.append(s.payload)
         for s in self.scheduler.drain_shed():

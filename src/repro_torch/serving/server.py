@@ -2,8 +2,9 @@
 
 The port's counterpart of ``repro.serving.server``: a socket server speaking
 the CRC-framed protocol (v1 + v2), serving a provisioned RCB program through
-the plain-RCB route and, when built with a ``ServingEngine``, LM prompts
-through the engine's continuous batching. The v2 frame extension (per-frame ``request_id`` +
+the plain-RCB route and, when built with a ``ServingEngine`` or a
+``PagedServingEngine``, LM prompts through the engine's continuous
+batching. The v2 frame extension (per-frame ``request_id`` +
 flags) lets one connection pipeline many INFER_REQUESTs and receive the
 responses out of order.
 
@@ -711,6 +712,10 @@ class InferenceServer:
         s["device"] = str(self.platform.driver.device)
         if self.engine is not None:
             s["engine"] = self.engine.telemetry.summary(warmup=1)
+            if hasattr(self.engine, "kv_stats"):
+                # paged-KV engines report pool occupancy: the capacity
+                # signal behind block-aware admission (shed verdicts)
+                s["engine"]["kv"] = self.engine.kv_stats()
         return s
 
     def _provision(self, payload) -> None:

@@ -31,7 +31,8 @@ def test_port_imports_no_jax_no_ml_dtypes_no_reference_package():
                  "models.resnet", "core.quant", "configs.resnet18",
                  "models.attention", "models.mlp", "launch",
                  "launch.steps", "checkpoint", "checkpoint.ckpt",
-                 "serving.engine"):
+                 "serving.engine", "serving.paged_cache",
+                 "serving.paged_engine"):
         assert "repro_torch." + name in modules
     code = (
         "import importlib, sys\n"
@@ -70,12 +71,18 @@ def _entry_points():
     from repro_torch.models.resnet import init_resnet
     from repro_torch.models.transformer import init_params
     from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.paged_cache import PagedKVCache
+    from repro_torch.serving.paged_engine import PagedServingEngine
     from repro_torch.serving.server import InferenceServer
     cfg = get_config("qwen2-1.5b-smoke")
     return {
         "ServingEngine": lambda: ServingEngine(cfg, {}),
         "ServingEngine.from_rimfs": lambda: ServingEngine.from_rimfs(
             cfg, None),
+        "PagedServingEngine": lambda: PagedServingEngine(cfg, {}),
+        "PagedServingEngine.from_rimfs":
+            lambda: PagedServingEngine.from_rimfs(cfg, None),
+        "PagedKVCache": lambda: PagedKVCache(1, 4, 4, 2, 8),
         "make_eager_driver": make_eager_driver,
         "Executor": Executor,
         "Platform": Platform,
@@ -90,7 +97,10 @@ def _entry_points():
                                   "Platform", "InferenceServer",
                                   "init_params", "init_resnet",
                                   "quantize_resnet", "ServingEngine",
-                                  "ServingEngine.from_rimfs"])
+                                  "ServingEngine.from_rimfs",
+                                  "PagedServingEngine",
+                                  "PagedServingEngine.from_rimfs",
+                                  "PagedKVCache"])
 def test_default_device_is_cuda_and_raises_without_it(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default does not raise")
