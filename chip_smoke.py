@@ -57,6 +57,32 @@ Phases, each printing one JSON line with its times:
      ``Executor.run``, with the capture's seconds, one replay's launches,
      the host wall of a replay beside a linked run's and the replay's
      device time);
+  6b. the tile groups, on the ``slice`` and ``slice_resnet18_int8``
+     phases' programs, images and requests: ``slice_partitioned``
+     (qwen2-1.5B, 28 bf16 layers, over ``TileMesh(n)`` for n = 1, 2 and
+     4, each group an eager driver with its own CUDA stream and arena:
+     each request bit for bit against ``Executor.run``, 28
+     ``flash_attention`` launches a request and each group's as many as
+     its tile's layers, ``moved_bytes() == cut_bytes()``, the groups'
+     pinned bytes summing to one driver's; the cut table, ``pin_s``, each
+     request's host wall, each group's stage time by CUDA events on its
+     stream, the edges' CRC stamp and check, the wall with the groups'
+     CRC on and off beside one driver's linked run, and one request's
+     streams under ``torch.profiler``), ``slice_partitioned_resnet18_int8``
+     (the same at 224 px, 20 ``int8_matmul`` launches a request; then
+     ``execute_stream`` over 32 images at depth 4, fused and linked, CRC
+     on and off, in order and bit for bit against serial runs: images/s,
+     each group's busy seconds, each stream's device time and the share
+     of device time with two or more streams running),
+     ``partitioned_failover`` (the GEMM chain, 8 fp32 layers of 1024 x
+     1024, and ResNet-18 INT8 over 2 and 3 groups: group 1 killed between
+     stages, its stage re-queued bit-identical with the counters moved,
+     its arena refusing ``alloc``, ``revive`` lifting the quarantine and
+     refusing a weight flipped on the card, every group dead raising) and
+     ``served_mesh`` (``InferenceServer(mesh=TileMesh(2))`` on ResNet-18
+     INT8: replies equal the single-driver server's, a held burst of 3
+     not coalesced, a group hung on a DMA redemption killed by the
+     watchdog and the answer still bit-identical);
   7. the LM serving engine: first at qwen2-1.5B's full width cut to 2
      layers in bf16 and 1 layer in fp32 (two ``engine_reduced_depth``
      lines: each prefill's last-position logits on the kernels
@@ -104,7 +130,8 @@ Phases, each printing one JSON line with its times:
      (``tests/test_torch_engine_gpu.py``, with the per-op diagnosis of a
      grouped prefill) and of the paged windows
      (``tests/test_torch_paged_gpu.py``, with the per-op diagnosis of the
-     paged step's shapes against the dense step's), each in a process of
+     paged step's shapes against the dense step's) and of the tile groups'
+     streams (``tests/test_torch_partition_gpu.py``), each in a process of
      its own;
   8. one ``kernels`` line: per kernel its launches on every served path
      (and on each one's fused and batched paths), its error against its
@@ -120,6 +147,7 @@ import argparse
 import dataclasses
 import gc
 import json
+import math
 import os
 import subprocess
 import sys
@@ -217,22 +245,27 @@ def cuda_ms(torch, fn, iters: int = 50, warmup: int = 5) -> float:
 def device_ms_by_kernel(torch, fn, iters: int = 50, warmup: int = 5):
     """Mean device time of one call of ``fn`` by kernel name: the durations
     ``torch.profiler`` records for each kernel and copy over ``iters``
-    calls, summed per name, over ``iters``."""
+    calls, summed per name, over ``iters``. A profile that recorded no
+    device activity at all (the tracer missed the window) is taken again,
+    up to three times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
     by_name: dict = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name] = (by_name.get(e.name, 0.0)
-                               + e.time_range.elapsed_us() / iters / 1e3)
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                by_name[e.name] = (by_name.get(e.name, 0.0)
+                                   + e.time_range.elapsed_us() / iters / 1e3)
+        if by_name:
+            break
     return by_name
 
 
@@ -1276,9 +1309,12 @@ def served_fields(served: dict) -> dict:
             "serve_base_memory_allocated": served["serve_base"]}
 
 
-def phase_slice(torch, cfg, seed: int, phase: str) -> dict:
+def phase_slice(torch, cfg, seed: int, phase: str,
+                keep: dict = None) -> dict:
     """Phase 4: one served path. Returns each kernel's launches while the
-    server answered the requests (the main path's run)."""
+    server answered the requests (the main path's run). ``keep`` gets the
+    program, the image and the requests (the partitioned phase reuses
+    them)."""
     from repro_torch.core.executor import Executor
     from repro_torch.core.rctc import compile_transformer_block
     from repro_torch.core.rtpm import Platform
@@ -1299,6 +1335,8 @@ def phase_slice(torch, cfg, seed: int, phase: str) -> dict:
     requests = [request_inputs(torch, cfg, glob, gen)
                 for _ in range(N_REQUESTS)]
     del glob                             # requests hold host tensors only
+    if keep is not None:
+        keep.update(cfg=cfg, prog=prog, image=image, requests=requests)
     gc.collect()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -1525,10 +1563,13 @@ def relative_err(a, b) -> float:
     return ((a - b).abs().max() / b.abs().max()).item()
 
 
-def phase_slice_resnet(torch, seed: int, int8: bool) -> dict:
+def phase_slice_resnet(torch, seed: int, int8: bool,
+                       keep: dict = None) -> dict:
     """Phase 5b/5c: ResNet-18 at full width, fp32 or INT8 (calibrated on
     the card on a seeded batch of 4 images), compiled, provisioned and
-    served; INT8 launches int8_matmul once per CONV2D_I8, 20 a request."""
+    served; INT8 launches int8_matmul once per CONV2D_I8, 20 a request.
+    ``keep`` gets the program, the image, the requests, the served replies
+    and the burst (the partitioned phases reuse them)."""
     from repro_torch.configs.resnet18 import CONFIG
     from repro_torch.core import quant, rimfs
     from repro_torch.core.rctc import compile_resnet18
@@ -1575,6 +1616,9 @@ def phase_slice_resnet(torch, seed: int, int8: bool) -> dict:
     plat, ex, bound, t_fsck, t_bind = local_platform(torch, image,
                                                      prog_bytes)
     linked = check_served(ex, bound, requests, served["responses"], "output")
+    if keep is not None:
+        keep.update(prog=prog, image=image, requests=requests,
+                    responses=served["responses"], burst=burst)
     path = "resnet18-int8" if int8 else "resnet18"
     # bucket 8: the convolutions' lanes fold into M, one launch each
     paths = {path: served["launches"], f"{path}-batched": check_batched(
@@ -1669,6 +1713,615 @@ def phase_slice_resnet(torch, seed: int, int8: bool) -> dict:
     paths[f"{path}-fused"] = phase_fused(torch, path, ex, bound, requests[0],
                                          per_request)
     return paths
+
+
+# tile groups: the partitioned paths over 1, 2 and 4 groups of one card
+GROUPS = (1, 2, 4)
+STREAM_IMAGES, STREAM_DEPTH = 32, 4
+TURN_ROUNDS = 6            # host walls spread by up to 2x within one call
+FAILOVER_GROUPS = (2, 3)
+CHAIN_DEPTH, CHAIN_N = 8, 1024          # the failover phase's GEMM chain
+KERNEL_OPS = {"ATTENTION": "flash_attention", "SSM_SCAN": "ssm_scan",
+              "WKV6": "wkv6", "MATMUL_INT8": "int8_matmul",
+              "GEMM_I8": "int8_matmul", "CONV2D_I8": "int8_matmul"}
+
+
+def kernel_launches_of(prog) -> dict:
+    """Each kernel's launches in one run of ``prog``: one a kernel op."""
+    out = dict.fromkeys(kernel_counters(), 0)
+    for op in prog.ops():
+        name = KERNEL_OPS.get(op.op.name)
+        if name is not None:
+            out[name] += 1
+    return out
+
+
+def launches_now() -> dict:
+    return {name: w.launches for name, w in kernel_counters().items()}
+
+
+def zero_launches() -> None:
+    for w in kernel_counters().values():
+        w.launches = 0
+
+
+def resident_bytes(fs, driver) -> int:
+    """Bytes of the image pinned on ``driver`` (0 where none is)."""
+    entry = fs._resident.get(id(driver))
+    return entry[1].nbytes() if entry is not None \
+        and entry[0]() is driver else 0
+
+
+def cut_table(part) -> list:
+    """The cut: each stage's blocks (and of them the layers), its kernel
+    ops, the bytes of its weights, and the edges it streams."""
+    from repro_torch.dtypes import itemsize
+    out = []
+    for t in part.tiles:
+        prog = t.program
+        wbytes = sum(itemsize(prog.tensors[w].dtype)
+                     * math.prod(prog.tensors[w].shape)
+                     for w in t.weight_syms)
+        out.append({
+            "stage": t.gid, "blocks": [b.block_id for b in prog.blocks],
+            "layers": [b.block_id for b in prog.blocks
+                       if b.block_type == "layer"],
+            "ops": sum(len(b.ops) for b in prog.blocks),
+            "kernel_ops": {k: v for k, v in
+                           kernel_launches_of(prog).items() if v},
+            "weight_bytes": wbytes,
+            "edges": [{"sym": e.sym, "to": e.dst, "bytes": e.nbytes}
+                      for e in part.edges_from(t.gid)]})
+    return out
+
+
+def release_mesh(torch, part, mesh, fs) -> None:
+    """Unpin the groups' weights and drop the tiles' bindings on them."""
+    for t in part.tiles:
+        t._bound.clear()
+    for g in mesh.groups:
+        entry = fs._resident.get(id(g.driver))
+        if entry is not None:
+            entry[1].unpin()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def timed_edges(mesh) -> tuple:
+    """Wrap every group's d2d issue and redemption with a host clock: the
+    seconds inside them, the CRC-32 stamp (which reads the payload back
+    after the producer's work) and check included. Returns (seconds,
+    undo)."""
+    spent = {"issue_s": 0.0, "redeem_s": 0.0, "edges": 0}
+    undo = []
+    for g in mesh.groups:
+        drv = g.driver
+        issue, redeem = drv.dma_async, drv.dma_wait
+
+        def timed_issue(buf, direction, prefetched=False, _f=issue):
+            t = time.perf_counter()
+            try:
+                return _f(buf, direction, prefetched=prefetched)
+            finally:
+                if direction == "d2d":
+                    spent["issue_s"] += time.perf_counter() - t
+                    spent["edges"] += 1
+
+        def timed_redeem(ticket, _f=redeem):
+            t = time.perf_counter()
+            try:
+                return _f(ticket)
+            finally:
+                if ticket.direction == "d2d":
+                    spent["redeem_s"] += time.perf_counter() - t
+        drv.dma_async, drv.dma_wait = timed_issue, timed_redeem
+        undo.append((drv, issue, redeem))
+
+    def restore():
+        for drv, issue, redeem in undo:
+            drv.dma_async, drv.dma_wait = issue, redeem
+    return spent, restore
+
+
+def set_integrity(mesh, on: bool) -> None:
+    for g in mesh.groups:
+        g.driver.integrity.enabled = on
+
+
+def partitioned_run(torch, path: str, bound, fs, n: int, requests: list,
+                    refs: list, output: str, linked) -> tuple:
+    """One program over ``TileMesh(n)``: every tile pinned on its group
+    (``pin_s``), then each request through ``partition.execute`` under an
+    orchestrating Platform, its output held to ``Executor.run``'s bit for
+    bit. The launch counts are set to 0 just before the requests and read
+    just after: each kernel launches as often as the program's kernel ops,
+    and each stage's launches (read on its ``stage_complete``) match its
+    tile's. Each group's stage time on the device comes from CUDA events
+    on its stream (from its redemption to its last op: the idle gaps while
+    the host enqueues included); the edges' issue and redemption (with the
+    CRC stamp and check) by the host clock; then the same requests with
+    the groups' integrity on and off and through ``linked`` (one driver's
+    ``Executor.run``), in turns (``TURN_ROUNDS`` rounds, the order
+    reversed every other round), for what the stamp costs a request
+    against the unpartitioned walk; and one request under
+    ``torch.profiler``, each stream's busy time and overlap. Returns (the
+    row, the path's launches)."""
+    from repro_torch.core import partition, rhal
+    from repro_torch.core.rtpm import Platform
+    part = partition.ensure_partition(bound, n)
+    mesh = rhal.TileMesh(n)
+    t0 = time.perf_counter()
+    partition.prewarm(part, mesh, rimfs=fs)
+    for g in mesh.groups:
+        g.driver.barrier()
+    pin_s = time.perf_counter() - t0
+    pinned = [resident_bytes(fs, mesh.group(t.gid).driver)
+              for t in part.tiles]
+    orch = Platform()
+    stage_launches: list = []
+    last = {}
+
+    def on_stage(p):
+        now = launches_now()
+        stage_launches.append((p["group"], {k: now[k] - last[k]
+                                            for k in now}))
+        last.update(now)
+    orch.events.register("stage_complete", on_stage)
+    spent, restore = timed_edges(mesh)
+    walls, device_ms = [], []
+    zero_launches()                          # the path's run starts here
+    last.update(launches_now())
+    try:
+        for i, (req, ref) in enumerate(zip(requests, refs)):
+            events: list = []
+            t = time.perf_counter()
+            out = partition.execute(part, mesh, inputs=req, rimfs=fs,
+                                    platform=orch, stage_events=events)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+            if not same_bits(out[output], ref):
+                raise AssertionError(f"{path}: request {i} differs from "
+                                     f"Executor.run")
+            per_group = dict.fromkeys((t.gid for t in part.tiles), 0.0)
+            for gid, start, end in events:
+                per_group[gid] += start.elapsed_time(end)
+            device_ms.append(per_group)
+        launches = launches_now()
+    finally:
+        restore()
+    want = kernel_launches_of(bound.program)
+    if launches != {k: v * len(requests) for k, v in want.items()}:
+        raise AssertionError(f"{path}: launched {launches} for "
+                             f"{len(requests)} requests of {want}")
+    for gid, got in stage_launches:
+        tile_want = kernel_launches_of(part.tiles[gid].program)
+        if got != tile_want:
+            raise AssertionError(f"{path}: group {gid} launched {got}, its "
+                                 f"tile holds {tile_want}")
+    if mesh.moved_bytes() != len(requests) * part.cut_bytes():
+        raise AssertionError(f"{path}: moved {mesh.moved_bytes()} bytes, "
+                             f"cut {len(requests)} x {part.cut_bytes()}")
+    moved = mesh.moved_bytes()
+    turns = {"linked": [], True: [], False: []}
+    for r in range(TURN_ROUNDS):
+        for mode in ("linked", True, False)[::1 if r % 2 else -1]:
+            if mode != "linked":
+                set_integrity(mesh, mode)
+            for req in requests:
+                t = time.perf_counter()
+                if mode == "linked":
+                    linked(req)
+                else:
+                    partition.execute(part, mesh, inputs=req, rimfs=fs)
+                torch.cuda.synchronize()
+                turns[mode].append(time.perf_counter() - t)
+    set_integrity(mesh, True)
+    profiled = stream_busy(
+        torch, lambda: partition.execute(part, mesh, inputs=requests[0],
+                                         rimfs=fs), n)
+
+    def p50(xs):
+        return sorted(xs)[len(xs) // 2]
+    row = {
+        "groups": n, "cut": cut_table(part), "cut_bytes": part.cut_bytes(),
+        "moved_bytes": moved, "pin_s": pin_s,
+        "pinned_bytes_by_group": pinned,
+        "request_wall_s": walls,
+        "request_wall_p50_s": p50(walls),
+        "stream_elapsed_ms_by_group": {gid: sum(d[gid] for d in device_ms)
+                                       / len(device_ms)
+                                       for gid in device_ms[0]},
+        "edge_issue_s_per_request": spent["issue_s"] / len(requests),
+        "edge_redeem_s_per_request": spent["redeem_s"] / len(requests),
+        "edges_per_request": spent["edges"] / len(requests),
+        "wall_crc_on_p50_s": p50(turns[True]),
+        "wall_crc_off_p50_s": p50(turns[False]),
+        "wall_linked_one_driver_p50_s": p50(turns["linked"]),
+        "turns_s": {str(k): v for k, v in turns.items()},
+        "profiled_request": profiled,
+        "launches": launches,
+        "launches_by_group": {gid: got for gid, got in stage_launches[
+            :len(part.tiles)]}}
+    release_mesh(torch, part, mesh, fs)
+    return row, launches
+
+
+def local_bound(torch, prog, image, artifacts=None):
+    """The program and image provisioned and bound on one driver, the
+    weights pinned there: (platform, executor, bound)."""
+    from repro_torch.core.executor import Executor
+    from repro_torch.core.rtpm import Platform
+    plat = Platform()
+    plat.provision(image=image, program_bytes=prog.encode())
+    bound = plat.bind(artifacts=artifacts)
+    torch.cuda.synchronize()
+    return plat, Executor(driver=plat.driver), bound
+
+
+def phase_slice_partitioned(torch, keep: dict) -> dict:
+    """qwen2-1.5B, 28 bf16 layers, B = 1, S = 512, over ``TileMesh(n)`` for
+    n = 1, 2 and 4, 4 requests each (the ``slice`` phase's program, image
+    and requests): bit for bit against ``Executor.run`` on one driver, 28
+    ``flash_attention`` launches a request summed over the groups, each
+    group's as many as its tile's layers, ``moved_bytes() ==
+    cut_bytes()``, and the groups' pinned bytes summing to the single
+    driver's. Returns each n's launches."""
+    cfg, prog, image, requests = (keep[k] for k in
+                                  ("cfg", "prog", "image", "requests"))
+    t0 = time.perf_counter()
+    plat, ex, bound = local_bound(torch, prog, image, prog.artifacts)
+    single = resident_bytes(plat.rimfs, plat.driver)
+    refs = [ex.run(bound, inputs=r)["logits"] for r in requests]
+    torch.cuda.synchronize()
+    linked = []
+    for _ in range(3):                   # one driver's linked wall, for n
+        t = time.perf_counter()
+        ex.run(bound, inputs=requests[0])
+        torch.cuda.synchronize()
+        linked.append(time.perf_counter() - t)
+    setup_s = time.perf_counter() - t0
+    rows, paths = [], {}
+    for n in GROUPS:
+        row, launches = partitioned_run(
+            torch, f"slice_partitioned/{n}", bound, plat.rimfs, n,
+            requests, refs, "logits",
+            lambda req: ex.run(bound, inputs=req))
+        if sum(row["pinned_bytes_by_group"]) != single:
+            raise AssertionError(f"slice_partitioned/{n}: the groups pin "
+                                 f"{row['pinned_bytes_by_group']}, one "
+                                 f"driver {single}")
+        rows.append(row)
+        paths[f"{cfg.name}-partitioned-{n}"] = launches
+    emit("slice_partitioned", model=cfg.name, layers=cfg.num_layers,
+         dtype=cfg.dtype, seq=SEQ, requests=len(requests),
+         image_bytes=len(image), single_driver_pinned_bytes=single,
+         setup_s=setup_s, linked_wall_s=sorted(linked)[1],
+         linked_walls_s=linked, bit_identical=True, by_groups=rows)
+    plat.rimfs.unpin_all()
+    del plat, ex, bound, refs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return paths
+
+
+def stream_busy(torch, fn, n_groups: int) -> dict:
+    """``fn`` under ``torch.profiler``: each stream's device busy seconds
+    (the union of its kernels' and copies' intervals) and the share of the
+    device's busy time in which two or more streams ran at once. Stage 0
+    runs first, and group g's stream first runs when a sample reaches
+    stage g, so the streams, ordered by their first activity, are groups
+    0 to ``n_groups - 1``; any other is named ``other<k>``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_stream: dict = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            by_stream.setdefault(e.device_resource_id(), []).append(
+                (e.start_ns(), e.end_ns()))
+    merged: dict = {}                   # per stream: its intervals' union
+    for sid, ivs in by_stream.items():
+        out = []
+        for a, b in sorted(ivs):
+            if out and a <= out[-1][1]:
+                out[-1][1] = max(out[-1][1], b)
+            else:
+                out.append([a, b])
+        merged[sid] = out
+    order = sorted(merged, key=lambda sid: merged[sid][0][0])
+    name = {sid: f"group{i}" if i < n_groups else f"other{i - n_groups}"
+            for i, sid in enumerate(order)}
+    edges = sorted([(a, 1) for ivs in merged.values() for a, _ in ivs]
+                   + [(b, -1) for ivs in merged.values() for _, b in ivs])
+    busy_ns = overlap_ns = 0
+    active, prev = 0, None
+    for t, d in edges:
+        if prev is not None:
+            if active >= 1:
+                busy_ns += t - prev
+            if active >= 2:
+                overlap_ns += t - prev
+        active += d
+        prev = t
+    return {"busy_s_by_stream": {name[sid]: sum(b - a for a, b in ivs) / 1e9
+                                 for sid, ivs in merged.items()},
+            "device_busy_s": busy_ns / 1e9,
+            "two_or_more_streams_share": overlap_ns / busy_ns
+            if busy_ns else None}
+
+
+def phase_slice_partitioned_resnet(torch, seed: int, keep: dict) -> dict:
+    """ResNet-18 INT8 at 224 px (the ``slice_resnet18_int8`` phase's
+    program, image and requests) over ``TileMesh(n)`` for n = 1, 2 and 4:
+    bit for bit against ``Executor.run``, 20 ``int8_matmul`` launches a
+    request. Then ``execute_stream`` over 32 images at depth 4, fused and
+    linked, with the groups' CRC stamp on (gated: in order, bit for bit
+    against serial runs, 20 launches an image) and off: images/s, each
+    group's busy host seconds, each stage's device time on its stream and
+    the share of device time with two or more streams running (from
+    ``torch.profiler``). Returns each path's launches."""
+    from repro_torch.configs.resnet18 import CONFIG
+    from repro_torch.core import partition, rhal
+    prog, image, requests = keep["prog"], keep["image"], keep["requests"]
+    plat, ex, bound = local_bound(torch, prog, image)
+    refs = [ex.run(bound, inputs=r)["output"] for r in requests]
+    rows, paths = [], {}
+    for n in GROUPS:
+        row, launches = partitioned_run(
+            torch, f"slice_partitioned_resnet18_int8/{n}", bound,
+            plat.rimfs, n, requests, refs, "output",
+            lambda req: ex.run(bound, inputs=req))
+        rows.append(row)
+        paths[f"resnet18-int8-partitioned-{n}"] = launches
+    size = CONFIG.image_size
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 9)
+    images = [{"input": torch.rand((1, size, size, 3), generator=gen,
+                                   device="cuda").cpu().numpy()}
+              for _ in range(STREAM_IMAGES)]
+    serial = [ex.run(bound, inputs=x)["output"] for x in images]
+    torch.cuda.synchronize()
+    per_image = kernel_launches_of(prog)
+    streams = []
+    for n in GROUPS:
+        part = partition.ensure_partition(bound, n)
+        mesh = rhal.TileMesh(n)
+        partition.prewarm(part, mesh, rimfs=plat.rimfs)
+        for fused in (True, False):
+            mode = "fused" if fused else "linked"
+            for crc in (True, False):
+                set_integrity(mesh, crc)
+
+                def run(stats=None):
+                    return list(partition.execute_stream(
+                        part, mesh, iter(images), rimfs=plat.rimfs,
+                        depth=STREAM_DEPTH, fused=fused, stats=stats))
+                list(partition.execute_stream(     # capture / warm
+                    part, mesh, iter(images[:STREAM_DEPTH]),
+                    rimfs=plat.rimfs, depth=STREAM_DEPTH, fused=fused))
+                torch.cuda.synchronize()
+                stats: dict = {}
+                zero_launches()              # the stream path starts here
+                t = time.perf_counter()
+                outs = run(stats)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t
+                launches = launches_now()
+                label = f"stream/{n}/{mode}/crc={crc}"
+                if len(outs) != len(images) or any(
+                        not same_bits(o["output"], r)
+                        for o, r in zip(outs, serial)):
+                    raise AssertionError(f"{label}: outputs out of order or "
+                                         f"differ from serial runs")
+                if launches != {k: v * len(images)
+                                for k, v in per_image.items()}:
+                    raise AssertionError(f"{label}: launched {launches}")
+                if crc:
+                    paths[f"resnet18-int8-stream-{n}-{mode}"] = launches
+                streams.append({
+                    "groups": n, "mode": mode, "crc": crc,
+                    "images": len(images), "depth": STREAM_DEPTH,
+                    "wall_s": wall, "images_per_s": len(images) / wall,
+                    "busy_host_s_by_group": stats["busy"],
+                    "ticks": stats["ticks"], "in_order_bit_identical": True,
+                    "profiled": stream_busy(torch, run, n)})
+        set_integrity(mesh, True)
+        release_mesh(torch, part, mesh, plat.rimfs)
+    emit("slice_partitioned_resnet18_int8", model=CONFIG.name,
+         image_size=size, requests=len(requests),
+         bit_identical=True, by_groups=rows, stream=streams)
+    plat.rimfs.unpin_all()
+    return paths
+
+
+def failover_case(torch, name: str, prog, image: bytes, request: dict,
+                  output: str, ref, n: int) -> dict:
+    """One program over ``TileMesh(n)`` under a Platform with a fake clock:
+    group 1 is killed on stage 0's ``stage_complete``; its stage re-queues
+    on group 0 with a bit-identical result and the counters move; the
+    killed arena refuses ``alloc``; ``revive`` with the image lifts the
+    quarantine; after one resident weight is flipped on the card,
+    ``revive`` raises ``IntegrityError("residency_crc")``; with every
+    group dead the run raises ``TileFailure``."""
+    from repro_torch.core import partition, rbl, rhal, rimfs
+    from repro_torch.core.integrity import IntegrityError
+    from repro_torch.core.rtpm import Platform
+    fs = rimfs.mount(image)
+    bound = rbl.bind(prog, rimfs=fs)         # host views: the groups pin
+    part = partition.ensure_partition(bound, n)
+    mesh = rhal.TileMesh(n)
+    partition.prewarm(part, mesh, rimfs=fs)
+    clock = {"now": 0.0}
+    orch = Platform(deadline=5.0, clock=lambda: clock["now"])
+    log = []
+    for kind in ("tile_failure", "worker_failed", "stage_requeued"):
+        orch.events.register(kind, lambda p, k=kind: log.append(k))
+
+    def on_stage(p):
+        if p["stage"] == 0 and mesh.alive(1):
+            mesh.kill(1)
+            clock["now"] += 10.0
+    orch.events.register("stage_complete", on_stage)
+    t0 = time.perf_counter()
+    out = orch.run_partitioned(bound, inputs=request, mesh=mesh, rimfs=fs)
+    torch.cuda.synchronize()
+    failover_s = time.perf_counter() - t0
+    label = f"partitioned_failover/{name}/{n}"
+    if not same_bits(out[output], ref):
+        raise AssertionError(f"{label}: the re-queued run differs")
+    counters = orch.telemetry.counters()
+    if counters.get("tile_failures") != 1 or "stage_requeued" not in log \
+            or orch.heartbeats.workers["tile1"].alive:
+        raise AssertionError(f"{label}: counters {counters}, events {log}")
+    arena = mesh.group(1).driver.arena
+    try:
+        arena.alloc(128)
+        raise AssertionError(f"{label}: the killed arena took an alloc")
+    except rhal.TileFailure:
+        pass
+    mesh.revive(1, rimfs=fs)
+    if arena.poisoned or not mesh.alive(1):
+        raise AssertionError(f"{label}: revive left the arena quarantined")
+    again = partition.execute(part, mesh, inputs=request, rimfs=fs)
+    if not same_bits(again[output], ref):
+        raise AssertionError(f"{label}: the revived mesh's run differs")
+    ri = fs._resident[id(mesh.group(1).driver)][1]
+    victim = ri.files()[0]
+    raw = ri.buffer(victim).view(torch.uint8).view(-1)
+    mesh.kill(1)
+    raw[0] ^= 1                              # a half-written weight copy
+    try:
+        mesh.revive(1, rimfs=fs)
+        raise AssertionError(f"{label}: revive took a corrupted weight")
+    except IntegrityError as e:
+        if e.kind != "residency_crc" or not arena.poisoned:
+            raise AssertionError(f"{label}: {e.kind}, poisoned "
+                                 f"{arena.poisoned}")
+    raw[0] ^= 1
+    for gid in mesh.gids:
+        mesh.kill(gid)
+    try:
+        partition.execute(part, mesh, inputs=request, rimfs=fs)
+        raise AssertionError(f"{label}: a run over dead groups returned")
+    except rhal.TileFailure:
+        pass
+    release_mesh(torch, part, mesh, fs)
+    return {"program": name, "groups": n, "killed": 1,
+            "events": log, "counters": counters, "failover_wall_s":
+            failover_s, "corrupted_weight": victim, "bit_identical": True}
+
+
+def phase_partitioned_failover(torch, seed: int, keep: dict) -> None:
+    """Stage failover on the GEMM chain (8 fp32 layers of 1024 x 1024) and
+    on ResNet-18 INT8, each over 2 and 3 groups (``failover_case``)."""
+    import numpy as np
+    from repro_torch.core import rctc, rimfs
+    chain = rctc.compile_gemm_chain(CHAIN_DEPTH, CHAIN_N)
+    chain_image = rimfs.pack(rctc.gemm_chain_weights(CHAIN_DEPTH, CHAIN_N,
+                                                     seed))
+    x = np.random.RandomState(seed).randn(CHAIN_N, CHAIN_N).astype(
+        np.float32)
+    cases = []
+    for name, prog, image, req, output in (
+            ("gemm_chain", chain, chain_image, {"input": x}, "output"),
+            ("resnet18-int8", keep["prog"], keep["image"],
+             keep["requests"][0], "output")):
+        plat, ex, bound = local_bound(torch, prog, image)
+        ref = ex.run(bound, inputs=req)[output]
+        for n in FAILOVER_GROUPS:
+            cases.append(failover_case(torch, name, prog, image, req,
+                                       output, ref, n))
+        plat.rimfs.unpin_all()
+    emit("partitioned_failover", cases=cases)
+
+
+def phase_served_mesh(torch, keep: dict) -> dict:
+    """``InferenceServer(mesh=TileMesh(2))`` serves ResNet-18 INT8: the
+    requests' replies equal the single-driver server's (the
+    ``slice_resnet18_int8`` phase's) bit for bit, with 20 ``int8_matmul``
+    launches a request; a held burst of 3 is dispatched one at a time; a
+    group that hangs on a DMA redemption is killed by the watchdog and the
+    client still gets the bit-identical answer. Returns the path's
+    launches."""
+    from repro_torch.core import rhal
+    from repro_torch.serving.server import Client, InferenceServer
+    prog, image = keep["prog"], keep["image"]
+    requests, single = keep["requests"], keep["responses"]
+    big = (1 << 32) - 1
+    plat, ex, bound = local_bound(torch, prog, image)
+    burst = keep["burst"][:3]
+    burst_refs = [ex.run(bound, inputs=b)["output"].cpu() for b in burst]
+    plat.rimfs.unpin_all()
+    mesh = rhal.TileMesh(2)
+    server = InferenceServer(mesh=mesh, max_frame=big, watchdog_floor=0.5,
+                             watchdog_slack=8.0, watchdog_poll=0.01)
+    server.start()
+    client = Client(server.address, max_frame=big)
+    killed = threading.Event()
+    kill = mesh.kill
+
+    def kill_and_signal(gid):
+        kill(gid)
+        killed.set()
+    mesh.kill = kill_and_signal
+    try:
+        client.provision(image, prog.encode())
+        zero_launches()                      # the served mesh path
+        t0 = time.perf_counter()
+        replies = [client.infer(**r)["output"] for r in requests[:2]]
+        rids = [client.infer_async(**r) for r in requests[2:]]
+        replies += [client.result(rid)["output"] for rid in rids]
+        serve_s = time.perf_counter() - t0
+        launches = launches_now()
+        for i, (got, want) in enumerate(zip(replies, single)):
+            if not same_bits(got, want):
+                raise AssertionError(f"served_mesh: request {i} differs "
+                                     f"from the single-driver server's")
+        want = kernel_launches_of(prog)
+        if launches != {k: v * len(requests) for k, v in want.items()}:
+            raise AssertionError(f"served_mesh: launched {launches}")
+        held = held_burst(torch, server, client, burst, "output")
+        if held["dispatches"] != 0 or any(
+                not same_bits(g, w) for g, w in zip(held["replies"],
+                                                    burst_refs)):
+            raise AssertionError(f"served_mesh: the burst coalesced "
+                                 f"({held['dispatches']}) or differs")
+        group = mesh.group(1)
+        orig = group.driver.dma_wait
+        hung = {"released": None}
+
+        def hang(ticket):
+            if hung["released"] is None:     # a wedged endpoint, once
+                hung["released"] = killed.wait(120)
+            return orig(ticket)
+        group.driver.dma_wait = hang
+        t1 = time.perf_counter()
+        try:
+            got = client.infer(timeout=300, **requests[0])["output"]
+        finally:
+            group.driver.dma_wait = orig
+        hang_s = time.perf_counter() - t1
+        counters = client.telemetry()["counters"]
+        if not (hung["released"] and same_bits(got, single[0])
+                and counters.get("watchdog_preemptions", 0) >= 1
+                and not mesh.alive(1)
+                and group.driver.arena.poisoned):
+            raise AssertionError(f"served_mesh: watchdog kill {hung}, "
+                                 f"counters {counters}")
+        client.shutdown()
+    finally:
+        client.close()
+        server.stop()
+    emit("served_mesh", groups=2, requests=len(requests), serve_s=serve_s,
+         launches=launches, bit_identical=True,
+         burst={"requests": len(burst), "dispatches": held["dispatches"],
+                "wall_s": held["wall_s"], "bit_identical": True},
+         watchdog={"killed_group": 1, "answer_s": hang_s,
+                   "bit_identical": True, "counters": counters})
+    return {"resnet18-int8-served-mesh": launches}
 
 
 # the LM serving engine: 4 slots of 640 rows; six prompts, the first four
@@ -2622,7 +3275,8 @@ def phase_slice_engine_paged(torch, seed: int, keep: dict) -> dict:
 
 GPU_TESTS = {"graphs_gpu_tests": "tests/test_torch_graphs_gpu.py",
              "engine_gpu_tests": "tests/test_torch_engine_gpu.py",
-             "paged_gpu_tests": "tests/test_torch_paged_gpu.py"}
+             "paged_gpu_tests": "tests/test_torch_paged_gpu.py",
+             "partition_gpu_tests": "tests/test_torch_partition_gpu.py"}
 
 
 def start_gpu_tests(phase: str):
@@ -2654,7 +3308,8 @@ def phase_gpu_tests() -> None:
                 raise AssertionError(f"{GPU_TESTS[phase]} ran past 600 s")
             lines = out.strip().splitlines()
             marked = {}
-            for mark in ("GROUPED_PREFILL ", "PAGED_VS_DENSE "):
+            for mark in ("GROUPED_PREFILL ", "PAGED_VS_DENSE ",
+                         "STREAM_ORDER ", "FREED_EDGE "):
                 # after a test's progress dot, maybe
                 found = [json.loads(ln[ln.index(mark) + len(mark):])
                          for ln in lines if mark in ln]
@@ -2715,14 +3370,29 @@ def main() -> int:
     # 4. the served paths, at full depth; each kernel's launches on each,
     # fused and batched too
     by_path = {}
+    qwen2_keep, resnet_keep = {}, {}
     for phase, cfg in models.items():
-        by_path.update(phase_slice(torch, cfg, args.seed, phase))
+        by_path.update(phase_slice(torch, cfg, args.seed, phase,
+                                   qwen2_keep if phase == "slice" else None))
 
     # 5. the served vision and INT8 paths
     for out in ("float32", "bfloat16"):
         by_path.update(phase_slice_matmul_int8(torch, args.seed, out))
     by_path.update(phase_slice_resnet(torch, args.seed, int8=False))
-    by_path.update(phase_slice_resnet(torch, args.seed, int8=True))
+    by_path.update(phase_slice_resnet(torch, args.seed, int8=True,
+                                      keep=resnet_keep))
+
+    # 6b. tile groups: qwen2-1.5B and ResNet-18 INT8 over 1, 2 and 4
+    # groups, the stream schedule, failover, and the server's mesh route
+    by_path.update(phase_slice_partitioned(torch, qwen2_keep))
+    qwen2_keep.clear()
+    by_path.update(phase_slice_partitioned_resnet(torch, args.seed,
+                                                  resnet_keep))
+    phase_partitioned_failover(torch, args.seed, resnet_keep)
+    by_path.update(phase_served_mesh(torch, resnet_keep))
+    resnet_keep.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # 7. the LM serving engine: at reduced depth, then served at full depth
     # (qwen2-1.5B, dense then paged; hymba-1.5B and rwkv6-1.6B, the

@@ -16,8 +16,11 @@ slots. Four modes:
     list of independent requests.
 
 The first three run the same op implementations in the same order on the
-same device, so their outputs are bit-identical. Host inputs (numpy arrays or CPU tensors) are
-moved onto the driver's device explicitly; outputs stay on the device.
+same device, so their outputs are bit-identical. ``run_partitioned`` cuts
+the program into stages over a ``TileMesh`` (core/partition.py); each stage
+runs linked on its group's driver and stream, so it is bit-identical too.
+Host inputs (numpy arrays or CPU tensors) are moved onto the driver's
+device explicitly; outputs stay on the device.
 Either mode can ``probe`` the abs-max of every buffer it holds (INT8
 calibration, core/quant.py).
 """
@@ -29,7 +32,6 @@ from typing import Callable, Optional
 import torch
 from torch.func import vmap
 
-from repro_torch import device as device_mod
 from repro_torch.core import linker as linker_mod
 from repro_torch.core import rhal as rhal_mod
 from repro_torch.core.rbl import BoundProgram
@@ -291,9 +293,9 @@ class Executor:
         return fn
 
     def _block_done(self, block_id: int, t_blk: float) -> None:
-        """RTPM completion event; the device is synced first so the block
-        time is execution, not enqueue."""
-        device_mod.synchronize(self.driver.device)
+        """RTPM completion event; the driver's queue is synced first so the
+        block time is execution, not enqueue."""
+        self.driver.barrier()
         self.rtpm.post("rcb_complete",
                        {"block": block_id,
                         "seconds": time.perf_counter() - t_blk})
@@ -306,7 +308,15 @@ class Executor:
         ``probe``: optional dict filled with the per-symbol abs-max of every
         buffer the run holds (the bound ones and every one produced), for
         INT8 calibration. The abs-max accumulates on the device; the host
-        reads each symbol's once, at exit."""
+        reads each symbol's once, at exit.
+
+        Everything runs on the driver's stream (``HalDriver.scope``): a
+        tile group's own, else the current one."""
+        with self.driver.scope():
+            return self._run(bound, inputs, rimfs, probe)
+
+    def _run(self, bound: BoundProgram, inputs: Optional[dict], rimfs,
+             probe: Optional[dict]) -> dict:
         linked = self.link(bound)
         istats0 = None
         if self.rtpm is not None:
@@ -578,6 +588,28 @@ class Executor:
                                      for k, h in hosts.items()}
         return results
 
+    # --------------------------------------------------------- partitioned
+    def run_partitioned(self, bound: BoundProgram,
+                        inputs: Optional[dict] = None, rimfs=None,
+                        mesh=None, n_groups: int = 2,
+                        platform=None) -> dict:
+        """Execute over a tile mesh: the program is cut into per-group
+        stages (core/partition.py), each stage runs linked on its own
+        group's driver and stream, and cut-edge tensors stream split-phase
+        between groups.
+
+        ``mesh`` defaults to a fresh ``TileMesh(n_groups)`` on this
+        executor's device; a ``platform`` (rtpm.Platform) adds
+        heartbeat-monitored groups and stage re-queue on tile failure. The
+        partition is cached on the BoundProgram per group count. Outputs
+        are ready on the caller's current stream."""
+        from repro_torch.core import partition as partition_mod
+        if mesh is None:
+            mesh = rhal_mod.TileMesh(n_groups, device=self.driver.device)
+        part = partition_mod.ensure_partition(bound, mesh.n_groups)
+        return partition_mod.execute(part, mesh, inputs=inputs,
+                                     rimfs=rimfs, platform=platform)
+
     # ------------------------------------------------------------- helpers
     def weights_from(self, bound: BoundProgram) -> dict:
         return {n: b for n, b in bound.buffers.items()
@@ -588,7 +620,12 @@ class Executor:
                         inputs: Optional[dict] = None, rimfs=None,
                         probe: Optional[dict] = None) -> dict:
         """Interpret the program op-by-op (the per-op baseline); ``probe``
-        as in ``run``."""
+        as in ``run``, on the driver's stream as ``run``."""
+        with self.driver.scope():
+            return self._run_interpreted(bound, inputs, rimfs, probe)
+
+    def _run_interpreted(self, bound: BoundProgram, inputs: Optional[dict],
+                         rimfs, probe: Optional[dict]) -> dict:
         self._prog = bound.program
         self._explicit_free = rbl_explicitly_freed(bound.program)
         buffers = dict(bound.buffers)

@@ -67,28 +67,33 @@ def resolve_shardings(program: RCBProgram) -> dict:
 def bind(program: RCBProgram,
          rimfs: Optional[RIMFS] = None,
          inputs: Optional[dict] = None,
-         driver=None) -> BoundProgram:
+         driver=None, weights: Optional[dict] = None) -> BoundProgram:
     """Produce a fully resolved program (the paper's Binding phase).
 
     With a driver, weights resolve through the image's per-driver residency
     cache: the first bind pins this program's weight files on the driver's
     device ONCE; later binds reuse the pinned buffers and move zero bytes.
     Without one they stay zero-copy host views (usable on the CPU only).
-    Every weight file's CRC is checked on its first read."""
+    Every weight file's CRC is checked on its first read. ``weights``
+    supplies already-resolved weight buffers (a tile program re-bound from
+    an earlier bind's buffers needs no image)."""
     program.validate()
     inputs = inputs or {}
+    weights = weights or {}
     buffers: dict = {}
     missing = []
-    weight_names = [n for n, t in program.tensors.items()
-                    if t.kind == "weight"]
+    unresolved = [n for n, t in program.tensors.items()
+                  if t.kind == "weight" and n not in weights]
     resident = None
-    if weight_names and rimfs is None:
-        raise ValueError(f"weight {weight_names[0]!r} needs a RIMFS image")
-    if driver is not None and weight_names:
-        resident = rimfs.resident(driver, names=weight_names)
+    if unresolved and rimfs is None:
+        raise ValueError(f"weight {unresolved[0]!r} needs a RIMFS image")
+    if driver is not None and unresolved:
+        resident = rimfs.resident(driver, names=unresolved)
     for name, t in program.tensors.items():
         if t.kind == "weight":
-            if resident is not None:
+            if name in weights:
+                buffers[name] = weights[name]       # caller-resolved
+            elif resident is not None:
                 buffers[name] = resident[name]      # pinned device buffer
             else:
                 buffers[name] = rimfs.read(name)    # zero-copy host view

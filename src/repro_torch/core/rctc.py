@@ -15,12 +15,15 @@ serving engines' service programs (``compile_lm_service``,
 ``compile_paged_lm_service``). From the same
 parameters it emits the same program bytes and the same image bytes as the
 JAX package. Other LM families (experts, vision, audio) raise
-``NotImplementedError``.
+``NotImplementedError``. The microbenchmark programs (pass-through,
+transfer chains, GEMM, the DMA pipelines and the GEMM chain the partition
+tests cut) come out byte-identical too.
 """
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.configs.resnet18 import ResNetConfig
@@ -76,6 +79,118 @@ def _host(arr) -> torch.Tensor:
     """A weight (torch tensor on any device, or numpy array) as a contiguous
     CPU tensor for the RIMFS image."""
     return as_tensor(arr, torch.device("cpu")).detach().contiguous()
+
+
+# ---------------------------------------------------------------------------
+# Microbenchmark programs (paper §3.4: pass-through and 64x64 matmul)
+# ---------------------------------------------------------------------------
+
+def compile_passthrough(shape, dtype="float32") -> RCBProgram:
+    b = _Builder("passthrough")
+    b.tensor("input", shape, dtype, "input")
+    b.tensor("output", shape, dtype, "output")
+    b.emit(Op.PASSTHROUGH, ["output"], ["input"])
+    b.emit(Op.FENCE)
+    return b.build()
+
+
+def compile_transfer_chain(n: int, block_shape, dtype="float32") -> RCBProgram:
+    """n independent block transfers flattened into ONE control stream:
+    the per-transfer control cost is paid once for the whole stream."""
+    b = _Builder(f"chain_{n}")
+    for i in range(n):
+        b.tensor(f"in{i}", block_shape, dtype, "input")
+        b.tensor(f"out{i}", block_shape, dtype, "output")
+        b.emit(Op.PASSTHROUGH, [f"out{i}"], [f"in{i}"])
+    b.emit(Op.FENCE)
+    return b.build()
+
+
+def compile_matmul(n=64, dtype="float32", with_dma: bool = False) -> RCBProgram:
+    """An n x n GEMM; ``with_dma`` adds explicit input and output DMA
+    stages around it."""
+    b = _Builder(f"xgemm_{n}")
+    b.tensor("a", (n, n), dtype, "input")
+    b.tensor("b", (n, n), dtype, "weight")
+    b.tensor("output", (n, n), dtype, "output")
+    if with_dma:
+        ad = b.scratch((n, n), dtype, "a_dev")
+        b.emit(Op.DMA_H2D, [ad], ["a"])
+        od = b.scratch((n, n), dtype, "o_dev")
+        b.emit(Op.GEMM, [od], [ad, "b"])
+        b.emit(Op.DMA_D2H, ["output"], [od])
+    else:
+        b.emit(Op.GEMM, ["output"], ["a", "b"])
+    b.emit(Op.FENCE)
+    return b.build()
+
+
+def compile_dma_pipeline(n_stages: int, n: int = 64, dtype="float32",
+                         with_dma: bool = True) -> RCBProgram:
+    """``n_stages`` independent H2D -> GEMM -> D2H stages in one control
+    stream, one block a stage; ``with_dma=False`` emits the same compute
+    without the transfers."""
+    b = _Builder(f"dma_pipeline_{n_stages}" + ("" if with_dma else "_nodma"))
+    b.tensor("b", (n, n), dtype, "weight")
+    for i in range(n_stages):
+        b.tensor(f"in{i}", (n, n), dtype, "input")
+        b.tensor(f"out{i}", (n, n), dtype, "output")
+        if with_dma:
+            dev = b.scratch((n, n), dtype, f"dev{i}")
+            b.emit(Op.DMA_H2D, [dev], [f"in{i}"])
+            acc = b.scratch((n, n), dtype, f"acc{i}")
+            b.emit(Op.GEMM, [acc], [dev, "b"])
+            b.emit(Op.DMA_D2H, [f"out{i}"], [acc])
+        else:
+            b.emit(Op.GEMM, [f"out{i}"], [f"in{i}", "b"])
+        b.close_block("transfer")      # one block a stage: the partition
+    b.emit(Op.FENCE)                   # cuts at this granularity
+    return b.build()
+
+
+def compile_transfer_pipeline(n_blocks: int, floats: int,
+                              dtype="float32") -> RCBProgram:
+    """``n_blocks`` independent H2D -> D2H block transfers (no compute),
+    one block a transfer."""
+    b = _Builder(f"transfer_pipeline_{n_blocks}")
+    for i in range(n_blocks):
+        b.tensor(f"in{i}", (floats,), dtype, "input")
+        b.tensor(f"out{i}", (floats,), dtype, "output")
+        dev = b.scratch((floats,), dtype, f"dev{i}")
+        b.emit(Op.DMA_H2D, [dev], [f"in{i}"])
+        b.emit(Op.DMA_D2H, [f"out{i}"], [dev])
+        b.close_block("transfer")
+    b.emit(Op.FENCE)
+    return b.build()
+
+
+def compile_gemm_chain(depth: int, n: int = 32,
+                       dtype="float32") -> RCBProgram:
+    """``depth`` chained GEMM -> RELU layers, one RCB block a layer: every
+    block boundary the partition pass cuts at becomes a cut edge."""
+    b = _Builder(f"gemm_chain_{depth}")
+    b.tensor("input", (n, n), dtype, "input")
+    x = "input"
+    for i in range(depth):
+        w = b.tensor(f"w{i}", (n, n), dtype, "weight")
+        t = b.scratch((n, n), dtype, f"g{i}")
+        b.emit(Op.GEMM, [t], [x, w])
+        r = b.scratch((n, n), dtype, f"r{i}")
+        b.emit(Op.RELU, [r], [t])
+        x = r
+        b.close_block()
+    b.tensor("output", (n, n), dtype, "output")
+    b.emit(Op.PASSTHROUGH, ["output"], [x])
+    b.emit(Op.FENCE)
+    return b.build()
+
+
+def gemm_chain_weights(depth: int, n: int = 32, seed: int = 0) -> dict:
+    """Weight files for ``compile_gemm_chain`` (scaled by 1/sqrt(n) to keep
+    activations in range), the same numbers as the JAX package's."""
+    rng = np.random.RandomState(seed)
+    return {f"w{i}": (rng.randn(n, n) / np.sqrt(n)).astype(np.float32)
+            for i in range(depth)}
 
 
 def compile_conv_relu_softmax(n=1, h=8, w=8, cin=3, cout=9) -> RCBProgram:

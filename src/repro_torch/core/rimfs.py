@@ -309,8 +309,14 @@ class ResidentImage:
         """The zero-copy host view the upload consumed."""
         return self._host_views[name]
 
+    def pinned_ranges(self) -> list:
+        """Sorted [(arena_offset, nbytes), ...] of every pinned file."""
+        return sorted((off, nbytes(self._host_views[name]))
+                      for name, off in self._offsets.items())
+
     def revalidate(self) -> bool:
-        """CRC-compare every pinned DEVICE buffer against its file's CRC."""
+        """CRC-compare every pinned DEVICE buffer against its file's CRC
+        (the quarantine-lift check of ``TileMesh.revive``)."""
         for name, buf in self._bufs.items():
             if payload_crc(buf) != self.fs._index[name]["crc32"]:
                 return False

@@ -189,6 +189,14 @@ class HeartbeatMonitor:
                     w.gap_ewma = None      # revival: old rhythm is stale
                 w.last_beat, w.step, w.alive = now, step, True
 
+    def register_silent(self, worker: str, step: int = 0) -> None:
+        """Register a worker that did NOT answer the registration poll: it
+        fails the next deadline check instead of looking freshly alive (a
+        beat would stamp 'now' and mask the silence)."""
+        with self._lock:
+            if worker not in self.workers:
+                self.workers[worker] = WorkerState(float("-inf"), step)
+
     def check(self) -> dict:
         """Returns {"failed": [...], "stragglers": [...], "median_step": n,
         "verdicts": {worker: "failed"|"straggler"|"ok"}}.
@@ -513,14 +521,21 @@ class ServiceLoop:
 # ---------------------------------------------------------------------------
 
 class Platform:
-    """The executive: provisioning and binding on one device.
+    """The executive: provisioning, binding, readiness and elasticity on
+    one device.
 
     The platform owns the RHAL driver of its device (``device=``, default
-    ``"cuda"``), so every bind pins the weight image there once."""
+    ``"cuda"``), so every bind pins the weight image there once. Over a
+    ``TileMesh`` it orchestrates partitioned runs (``run_partitioned``):
+    every group a heartbeat-monitored worker, a failed stage re-queued on a
+    survivor, the ``worker_failed`` / ``stage_requeued`` /
+    ``stage_complete`` events fanned out through its dispatcher."""
 
     def __init__(self, deadline: float = 10.0,
                  clock: Callable[[], float] = time.monotonic,
                  device="cuda"):
+        self._boot_t0 = time.perf_counter()
+        self._ready_at: Optional[float] = None
         self.driver = rhal_mod.make_eager_driver(device)
         self.events = EventDispatcher()
         self.telemetry = Telemetry()
@@ -566,6 +581,7 @@ class Platform:
             self.rimfs = fs
         if program is not None:
             self.program = program
+        self._ready_at = time.perf_counter()
         self.events.post("provisioned",
                          {"files": self.rimfs.files() if self.rimfs else []})
 
@@ -582,6 +598,50 @@ class Platform:
         return rbl_mod.bind(self.program, rimfs=self.rimfs, inputs=inputs,
                             driver=driver or self.driver)
 
+    def time_to_service(self) -> float:
+        """Boot -> ready: seconds from the platform's creation to the end
+        of its last provision (the paper's Table 2 metric)."""
+        if self._ready_at is None:
+            raise RuntimeError("provision() first")
+        return self._ready_at - self._boot_t0
+
     def post(self, kind: str, payload: Optional[dict] = None) -> None:
         self.events.post(kind, payload)
         self.events.process()
+
+    # ---------------------------------------------------------- tile groups
+    def run_partitioned(self, bound, inputs: Optional[dict] = None,
+                        mesh=None, n_groups: int = 2, rimfs=None) -> dict:
+        """Partitioned execution over a ``TileMesh`` (default: a fresh
+        ``TileMesh(n_groups)`` on the platform's device) under this
+        platform: every group is a heartbeat-monitored worker ("tile<g>")
+        and a failed stage re-queues on a surviving group. ``bound`` is a
+        BoundProgram (cut once per group count, cached) or a
+        ``PartitionedProgram``; ``rimfs`` defaults to the provisioned
+        image."""
+        from repro_torch.core import partition as partition_mod
+        from repro_torch.core.executor import Executor
+        if mesh is None:
+            mesh = rhal_mod.TileMesh(n_groups, device=self.driver.device)
+        rimfs = rimfs if rimfs is not None else self.rimfs
+        if isinstance(bound, partition_mod.PartitionedProgram):
+            return partition_mod.execute(bound, mesh, inputs=inputs,
+                                         rimfs=rimfs, platform=self)
+        # the executor's driver is unused: the groups' drivers dispatch
+        return Executor(driver=self.driver).run_partitioned(
+            bound, inputs=inputs, rimfs=rimfs, mesh=mesh, platform=self)
+
+    # ------------------------------------------------------------ elasticity
+    def handle_failures(self, bound: rbl_mod.BoundProgram,
+                        on_shrink: Optional[Callable] = None) -> dict:
+        """Failure/straggler sweep. When workers died: post
+        ``worker_failed``, call ``on_shrink(failed)``, and re-bind the
+        program (the control stream is untouched, only the physical
+        resources change). Returns the monitor's verdict."""
+        verdict = self.heartbeats.check()
+        if verdict["failed"]:
+            self.post("worker_failed", {"workers": verdict["failed"]})
+            if on_shrink is not None:
+                on_shrink(verdict["failed"])
+            rbl_mod.rebind(bound)
+        return verdict

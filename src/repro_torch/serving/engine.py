@@ -18,8 +18,9 @@ engine (``serving/paged_engine.py``) shares ``EngineBase``: its admission
 veto (``feasible``) sheds what its KV block pool cannot hold.
 Entry points take ``device=`` (default ``"cuda"``) and raise without CUDA
 unless ``device="cpu"`` is given; parameters on another device raise too.
-The JAX package's ``mesh=`` / ``TileMesh`` arguments are absent until tile
-groups are ported.
+``from_rimfs`` takes a ``TileMesh`` in place of a driver: the weights pin in
+its primary group's arena and the mesh rides on the engine as
+``engine.mesh``.
 """
 from __future__ import annotations
 
@@ -35,6 +36,7 @@ from repro_torch.checkpoint.ckpt import flatten
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import rctc
 from repro_torch.core import rimfs as rimfs_mod
+from repro_torch.core.rhal import TileMesh
 from repro_torch.core.rtpm import Telemetry
 from repro_torch.dtypes import as_tensor, torch_dtype
 from repro_torch.launch.steps import (CompiledDecodeStep, make_prefill_step,
@@ -59,8 +61,11 @@ def params_from_rimfs(cfg: ModelConfig, fs: rimfs_mod.RIMFS, driver=None,
     weight once into the driver's arena, and later calls (a second engine
     over the same image) reuse the pinned device buffers and move zero
     bytes. The driver's device must be ``device``. Without a driver every
-    leaf is copied onto ``device``."""
+    leaf is copied onto ``device``. A ``TileMesh`` is accepted in place of
+    a driver: residency anchors on its primary (first live) group."""
     dev = device_mod.resolve(device)
+    if isinstance(driver, TileMesh):
+        driver = driver.primary
     if driver is not None and driver.device != dev:
         raise ValueError(f"driver on {driver.device}, engine on {dev}")
     resident = fs.resident(driver) if driver is not None else None
@@ -93,7 +98,8 @@ class EngineBase:
 
     def __init__(self, cfg: ModelConfig, params: dict, max_batch: int = 4,
                  max_seq: int = 256, greedy: bool = True, scheduler=None,
-                 temperature: float = 1.0, seed: int = 0, device="cuda"):
+                 temperature: float = 1.0, seed: int = 0, device="cuda",
+                 mesh: Optional[TileMesh] = None):
         self.device = device_mod.resolve(device)
         elsewhere = sorted(k for k, v in params.items()
                            if v.device != self.device)
@@ -107,6 +113,7 @@ class EngineBase:
         self.greedy = greedy
         self.temperature = temperature
         self.scheduler = scheduler      # optional DeadlineScheduler
+        self.mesh = mesh                # optional TileMesh the weights on
         self.telemetry = Telemetry()
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(int(seed))
@@ -120,7 +127,11 @@ class EngineBase:
         """Provision an engine straight from a RIMFS weight image. Weights
         resolve through ``RIMFS.resident(driver)``: building a second engine
         over the same image and driver re-binds the pinned device buffers
-        instead of uploading again (zero DMA bytes)."""
+        instead of uploading again (zero DMA bytes). ``driver`` may be a
+        ``TileMesh``: the weights pin into its primary group's arena and the
+        mesh is ``engine.mesh``."""
+        if isinstance(driver, TileMesh):
+            kwargs.setdefault("mesh", driver)
         return cls(cfg, params_from_rimfs(cfg, fs, driver, device),
                    device=device, **kwargs)
 
@@ -221,9 +232,10 @@ class ServingEngine(EngineBase):
 
     def __init__(self, cfg: ModelConfig, params: dict, max_batch: int = 4,
                  max_seq: int = 256, greedy: bool = True, scheduler=None,
-                 temperature: float = 1.0, seed: int = 0, device="cuda"):
+                 temperature: float = 1.0, seed: int = 0, device="cuda",
+                 mesh: Optional[TileMesh] = None):
         super().__init__(cfg, params, max_batch, max_seq, greedy, scheduler,
-                         temperature, seed, device)
+                         temperature, seed, device, mesh)
         self._prefill = make_prefill_step(cfg)
         self._cache = {
             k: torch.zeros(s.shape, dtype=torch_dtype(s.dtype),

@@ -36,12 +36,12 @@ cache with block tables over one shared pool (serving/paged_cache.py):
   is a shed verdict (``out_of_blocks``), so ``OutOfBlocksError`` cannot
   fire mid-step. Completion releases the sequence's blocks without moving
   any data.
-* **Residency** — the pool registers with the driver's DeviceArena.
+* **Residency** — the pool registers with the driver's DeviceArena (a
+  ``TileMesh``'s primary group's, when built from a mesh).
 
 Full-attention families only, as in the JAX package. Entry points take
 ``device=`` (default ``"cuda"``) and raise without CUDA unless
-``device="cpu"`` is given. The JAX package's ``mesh=`` / ``TileMesh`` is
-absent until tile groups are ported.
+``device="cpu"`` is given.
 """
 from __future__ import annotations
 
@@ -53,6 +53,7 @@ import numpy as np
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import rctc
+from repro_torch.core.rhal import TileMesh
 from repro_torch.dtypes import as_tensor
 from repro_torch.launch.steps import (CompiledPagedDecode,
                                       make_paged_prefill_step)
@@ -79,12 +80,12 @@ class PagedServingEngine(EngineBase):
                  max_seq: int = 256, greedy: bool = True, scheduler=None,
                  temperature: float = 1.0, seed: int = 0,
                  block_size: int = 16, num_blocks: Optional[int] = None,
-                 driver=None, device="cuda"):
+                 driver=None, device="cuda", mesh=None):
         tf._check_paged_family(cfg)
         if cfg.input_kind != "tokens":
             raise NotImplementedError("paged serving takes token prompts")
         super().__init__(cfg, params, max_batch, max_seq, greedy, scheduler,
-                         temperature, seed, device)
+                         temperature, seed, device, mesh)
         self.block_size = block_size
         self.blocks_per_seq = (max_seq + block_size - 1) // block_size
         if num_blocks is None:
@@ -98,6 +99,8 @@ class PagedServingEngine(EngineBase):
             head_dim=cfg.head_dim, dtype=cfg.dtype, device=self.device)
         self._seqs: list[Optional[int]] = [None] * max_batch
         self._seq_ctr = itertools.count(1)
+        if driver is None and mesh is not None:
+            driver = mesh.primary
         self.driver = driver
         if driver is not None:
             self.cache.register_residency(driver)
@@ -117,7 +120,10 @@ class PagedServingEngine(EngineBase):
     @classmethod
     def from_rimfs(cls, cfg, fs, driver=None, device="cuda", **kwargs):
         """Like the base provisioner, but the pool also registers with the
-        driver's arena."""
+        driver's arena (a mesh's primary group's)."""
+        if isinstance(driver, TileMesh):
+            kwargs.setdefault("mesh", driver)
+            driver = driver.primary
         return cls(cfg, params_from_rimfs(cfg, fs, driver, device),
                    driver=driver, device=device, **kwargs)
 

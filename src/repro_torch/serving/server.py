@@ -39,7 +39,12 @@ Flow per request:
   SHUTDOWN:        graceful drain — queued work is answered, then stop.
 
 PROVISION binds with the executor's driver, so the weight image is pinned
-on the device once and every request reuses it.
+on the device once and every request reuses it. With a ``TileMesh``
+(``mesh=``) plain-RCB requests go through ``Executor.run_partitioned``
+instead: the program binds to host views and each group pins its own
+tile's weights on its first stage; a backlog never coalesces; and the
+watchdog kills the group of the stage that hangs (``mesh.active_gid``),
+whose stage then fails over to a survivor.
 """
 from __future__ import annotations
 
@@ -56,6 +61,7 @@ from typing import Any, Optional
 import numpy as np
 
 from repro_torch.core import linker as linker_mod
+from repro_torch.core import rbl as rbl_mod
 from repro_torch.core.executor import Executor
 from repro_torch.core.integrity import IntegrityError
 from repro_torch.core.rhal import TileFailure
@@ -170,7 +176,7 @@ _KICK = _Work(frame=None, route=None)   # wake the dispatcher to drain
 class InferenceServer:
     def __init__(self, host: str = "127.0.0.1", port: int = 0,
                  device="cuda", artifacts: Optional[dict] = None,
-                 engine=None,
+                 engine=None, mesh=None,
                  scheduler: Optional[DeadlineScheduler] = None,
                  max_queue: int = 128, max_frame: int = proto.MAX_FRAME,
                  send_timeout: float = 30.0, batch_window: int = 8,
@@ -184,6 +190,10 @@ class InferenceServer:
         self.engine = engine            # optional ServingEngine (LM path)
         if engine is not None and engine.device != self.platform.driver.device:
             raise ValueError(f"engine on {engine.device}, server on "
+                             f"{self.platform.driver.device}")
+        self.mesh = mesh                # optional TileMesh (partitioned)
+        if mesh is not None and mesh.device != self.platform.driver.device:
+            raise ValueError(f"mesh on {mesh.device}, server on "
                              f"{self.platform.driver.device}")
         # the plain-RCB path and the engine each get their OWN scheduler: a
         # shared heap would let admit(1) pop the other path's entries
@@ -386,9 +396,16 @@ class InferenceServer:
 
     def _preempt_hung(self, token: Any) -> None:
         """Watchdog hook (on the watchdog thread): a dispatch blew its
-        deadline. One card has no tile group to kill, so the preemption is
-        recorded for the TELEMETRY counters."""
-        self.platform.post("watchdog_preempt", {"group": None})
+        deadline. Over a mesh, kill the hung stage's tile group through the
+        ``TileFailure`` path: its guarded slots start raising in the hung
+        dispatcher, which unwedges and fails the stage over to a survivor;
+        the dead group's arena stays quarantined until revived. Without a
+        mesh the preemption is only counted."""
+        mesh = self.mesh
+        gid = mesh.active_gid if mesh is not None else None
+        self.platform.post("watchdog_preempt", {"group": gid})
+        if gid is not None and mesh.alive(gid):
+            mesh.kill(gid)
 
     # ------------------------------------------------------ typed refusals
     def _retry_after_ms(self) -> int:
@@ -442,12 +459,14 @@ class InferenceServer:
                        rid=rid, version=ver)
 
     def _coalescible(self) -> bool:
-        """True when backlogged requests may batch: the program is
-        provisioned and passes the batch analysis — otherwise a batched
-        dispatch would just serialize inside run_batched and inflate queue
-        wait for nothing. (The JAX package also refuses while a tile mesh
-        or a canary is attached; the port has neither yet.)"""
-        return (self.batch_window > 1 and self._bound is not None
+        """True when backlogged requests may batch: no tile mesh is
+        attached (the partitioned path runs one sample through the stages),
+        the program is provisioned and it passes the batch analysis —
+        otherwise a batched dispatch would just serialize inside
+        run_batched and inflate queue wait for nothing. (The JAX package
+        also refuses while a canary is attached; the port has none yet.)"""
+        return (self.batch_window > 1 and self.mesh is None
+                and self._bound is not None
                 and linker_mod.batch_analysis(self._bound).batchable)
 
     @staticmethod
@@ -731,15 +750,28 @@ class InferenceServer:
             Executor.release_graphs(self._bound)
             self._bound = None
         self.platform.provision(image=image, program_bytes=prog)
-        self._bound = self.platform.bind(driver=self.executor.driver,
-                                         artifacts=self.artifacts)
+        if self.mesh is not None:
+            # host views: each tile group pins its own tile's weights
+            if self.artifacts:
+                self.platform.program.artifacts.update(self.artifacts)
+            self._bound = rbl_mod.bind(self.platform.program,
+                                       rimfs=self.platform.rimfs)
+        else:
+            self._bound = self.platform.bind(driver=self.executor.driver,
+                                             artifacts=self.artifacts)
 
     def _infer(self, tensors: dict) -> dict:
-        """Run on the device; results come back as host values."""
+        """Run on the device (over the mesh's groups when one is
+        attached); results come back as host values."""
         if self._bound is None:
             raise RuntimeError("not provisioned")
-        out = self.executor.run(self._bound, inputs=tensors,
-                                rimfs=self.platform.rimfs)
+        if self.mesh is not None:
+            out = self.executor.run_partitioned(
+                self._bound, inputs=tensors, rimfs=self.platform.rimfs,
+                mesh=self.mesh, platform=self.platform)
+        else:
+            out = self.executor.run(self._bound, inputs=tensors,
+                                    rimfs=self.platform.rimfs)
         return {k: to_host(v) for k, v in out.items()}
 
 

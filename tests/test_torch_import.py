@@ -32,7 +32,7 @@ def test_port_imports_no_jax_no_ml_dtypes_no_reference_package():
                  "models.attention", "models.mlp", "launch",
                  "launch.steps", "checkpoint", "checkpoint.ckpt",
                  "serving.engine", "serving.paged_cache",
-                 "serving.paged_engine"):
+                 "serving.paged_engine", "core.partition"):
         assert "repro_torch." + name in modules
     code = (
         "import importlib, sys\n"
@@ -64,7 +64,7 @@ def test_chip_smoke_imports_nothing_of_jax():
 def _entry_points():
     from repro_torch.configs import get_config
     from repro_torch.core.executor import Executor
-    from repro_torch.core.rhal import make_eager_driver
+    from repro_torch.core.rhal import TileMesh, make_eager_driver
     from repro_torch.core.rtpm import Platform
     from repro_torch.configs.resnet18 import CONFIG
     from repro_torch.core.quant import quantize_resnet
@@ -84,6 +84,7 @@ def _entry_points():
             lambda: PagedServingEngine.from_rimfs(cfg, None),
         "PagedKVCache": lambda: PagedKVCache(1, 4, 4, 2, 8),
         "make_eager_driver": make_eager_driver,
+        "TileMesh": lambda: TileMesh(2),
         "Executor": Executor,
         "Platform": Platform,
         "InferenceServer": InferenceServer,
@@ -93,8 +94,8 @@ def _entry_points():
     }
 
 
-@pytest.mark.parametrize("name", ["make_eager_driver", "Executor",
-                                  "Platform", "InferenceServer",
+@pytest.mark.parametrize("name", ["make_eager_driver", "TileMesh",
+                                  "Executor", "Platform", "InferenceServer",
                                   "init_params", "init_resnet",
                                   "quantize_resnet", "ServingEngine",
                                   "ServingEngine.from_rimfs",
