@@ -83,6 +83,22 @@ Phases, each printing one JSON line with its times:
      INT8: replies equal the single-driver server's, a held burst of 3
      not coalesced, a group hung on a DMA redemption killed by the
      watchdog and the answer still bit-identical);
+  6c. the fleet and overload control plane (``slice_fleet``): ResNet-18
+     INT8 served over ``TileMesh(2)`` under a ``FleetController`` and a
+     ``BrownoutController`` while 3 paced clients send 96 requests from a
+     pool of 8 images, every reply bit for bit against a local run: the
+     mesh scaled 2 -> 4 -> 8 -> 2 (the return to the cached mesh uploading
+     nothing), one group killed and replaced in place (the survivors'
+     counters still), two killed and healed, a journaled install through a
+     fault at each mid-write point on disk, 3 corrupted DMA payloads
+     retried, a good hot swap finalized and a bad one rolled back by its
+     probe, a good canary promoted and a bad one aborted with none of its
+     bytes served, a straggler replaced, a hung redemption preempted; then
+     the brown-out ladder walked 0 -> 4 -> 0 by held backlogs (a typed
+     ``brownout`` shed at rung 3; the circuit breaker's trip, half-open
+     probe and CRC-checked revive at rung 4); memory back after every
+     release; and qwen2-1.5B's 3.09 GB image swapped once over
+     ``TileMesh(2)`` and finalized, memory and each step's seconds printed;
   7. the LM serving engine: first at qwen2-1.5B's full width cut to 2
      layers in bf16 and 1 layer in fp32 (two ``engine_reduced_depth``
      lines: each prefill's last-position logits on the kernels
@@ -125,14 +141,18 @@ Phases, each printing one JSON line with its times:
      null one untouched), one replay of each rung the burst reached
      against its eager window, 28 ``flash_attention`` launches a prefill
      and none in a window, and the w = 8 window's device time at each
-     bucket and through tables of 8 and 16 blocks. Then the card-only tests of the fused and batched graphs
+     bucket and through tables of 8 and 16 blocks; ``slice_fleet_lm``, the
+     brown-out ladder's LM rungs on that image (at rung 2 a request of 32
+     new tokens clamped to 8, equal to the unclamped stream's prefix, at
+     rung 3 a priority-2 prompt shed). Then the card-only tests of the fused and batched graphs
      (``tests/test_torch_graphs_gpu.py``), of the engine's compiled steps
      (``tests/test_torch_engine_gpu.py``, with the per-op diagnosis of a
      grouped prefill) and of the paged windows
      (``tests/test_torch_paged_gpu.py``, with the per-op diagnosis of the
-     paged step's shapes against the dense step's) and of the tile groups'
-     streams (``tests/test_torch_partition_gpu.py``), each in a process of
-     its own;
+     paged step's shapes against the dense step's), of the tile groups'
+     streams (``tests/test_torch_partition_gpu.py``) and of the fleet's
+     flips and releases (``tests/test_torch_fleet_gpu.py``), each in a
+     process of its own;
   8. one ``kernels`` line: per kernel its launches on every served path
      (and on each one's fused and batched paths), its error against its
      plain version, its time, its bound and the library's.
@@ -2324,6 +2344,718 @@ def phase_served_mesh(torch, keep: dict) -> dict:
     return {"resnet18-int8-served-mesh": launches}
 
 
+# the fleet and overload control plane (core/fleet.py, serving/overload.py)
+# over a TileMesh: 3 paced clients, 96 requests from a pool of 8 images
+FLEET_REQUESTS, FLEET_CLIENTS, FLEET_PACE_S = 96, 3, 0.02
+FLEET_LADDER = (2, 4, 8)
+FLEET_MEMORY_TOL = 0.01            # of the image's pinned bytes
+QWEN2_PROBATION = 2                # qwen2 requests served in probation
+# a stall of each redemption on the slowed group, inside the watchdog's
+# 0.5 s floor (a longer one reads as a hang); against the peers' stages of
+# 3 to 6 ms on the card (2 groups, as the tile-group phase times them) it
+# reaches 50 to 90x their median, and its EWMA passes the straggler ratio
+# within two requests; the card's natural imbalance stays under 3x
+FLEET_SLOW_S = 0.3
+FLEET_STRAGGLER_RATIO = 20.0
+
+
+def run_lengths(kinds: list) -> list:
+    """[[kind, n], ...]: the event kinds in order, repeats folded."""
+    out: list = []
+    for k in kinds:
+        if out and out[-1][0] == k:
+            out[-1][1] += 1
+        else:
+            out.append([k, 1])
+    return out
+
+
+def cuda_memory(torch) -> dict:
+    """The caching allocator's bytes once the card is idle: ``allocated``
+    (``memory_allocated``, whole blocks) and ``requested`` (the bytes the
+    program asked for). A large block taken from a freed one keeps up to
+    1 MiB of its slack, so after a release the allocated count moves by
+    the history of freed blocks as well as by what is held; the requested
+    count moves by what is held alone. A freed block marked for another
+    stream (``record_stream``: a cut edge, a handed-back output) stays
+    counted until the allocator processes its events, which it does at
+    its next allocation: one tiny allocation after the sync settles both."""
+    torch.cuda.synchronize()
+    torch.empty(1, device="cuda")
+    stats = torch.cuda.memory_stats()
+    return {"allocated": stats["allocated_bytes.all.current"],
+            "requested": stats["requested_bytes.all.current"]}
+
+
+def resnet_int8_program(torch, seed: int) -> tuple:
+    """ResNet-18 INT8 at 224 px with weights from ``seed``, calibrated on
+    the card on 4 seeded images as ``phase_slice_resnet`` calibrates:
+    (program, image)."""
+    from repro_torch.configs.resnet18 import CONFIG
+    from repro_torch.core import quant
+    from repro_torch.core.rctc import compile_resnet18
+    from repro_torch.models.resnet import fold_bn, init_resnet
+    folded = fold_bn(init_resnet(CONFIG, seed))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 7)
+    size = CONFIG.image_size
+    calib_x = torch.rand((4, size, size, 3), generator=gen, device="cuda")
+    pack = quant.quantize_resnet(CONFIG, folded, calib_x)
+    return compile_resnet18(CONFIG, folded, batch=1, int8=pack)
+
+
+def check_fleet_memory(memory: dict, pinned: int, tol: int,
+                       old_elsewhere: int) -> None:
+    """The image was pinned while a swap or canary held two, and every
+    release gave its bytes back, read as requested bytes (the allocated
+    count also moves by the allocator's block slack): after the finalize,
+    less the old image's copies on the cached meshes other than the live
+    one (``old_elsewhere``), which go with it; after the probe's
+    rollback, the promotion and the abort, what it was before."""
+    def moved(a: str, b: str) -> int:
+        return memory[b]["requested"] - memory[a]["requested"]
+
+    bad = []
+    if abs(moved("before_swap", "after_finalize") + old_elsewhere) > tol:
+        bad.append("after_finalize")
+    for a, b in (("before_bad_swap", "after_bad_swap"),
+                 ("before_canary", "after_promote"),
+                 ("before_bad_canary", "after_abort")):
+        if abs(moved(a, b)) > tol:
+            bad.append(b)
+    for a, b in (("before_swap", "swap_probation"),
+                 ("before_canary", "canary")):
+        if moved(a, b) < pinned - tol:
+            bad.append(f"{b} (the new image not pinned)")
+    if bad:
+        raise AssertionError(f"slice_fleet memory {bad}: {memory}, old "
+                             f"image elsewhere {old_elsewhere}")
+
+
+def hold_dispatcher(server):
+    """Park the dispatcher on a control op until the returned gate is set
+    (the control op is the fleet's own flip point)."""
+    from repro_torch.serving.server import _Work
+    gate, entered = threading.Event(), threading.Event()
+
+    def ctl():
+        entered.set()
+        gate.wait(60)
+
+    if not server._loop.submit(_Work(frame=None, route=None, control=ctl)) \
+            or not entered.wait(30):
+        raise AssertionError("the dispatcher never took the hold")
+    return gate
+
+
+def phase_slice_fleet(torch, seed: int, keep: dict, qwen2: dict) -> dict:
+    """The fleet and overload control plane on the card: ResNet-18 INT8
+    (the ``slice_resnet18_int8`` phase's program, image and requests)
+    served by ``InferenceServer(mesh=TileMesh(2))`` under a
+    ``FleetController`` (ladder 2, 4, 8; the depth autoscaler parked) and a
+    ``BrownoutController``, while 3 paced clients send 96 requests from a
+    pool of 8 images and a coordinator, seeded from ``seed``, runs the
+    schedule: scale 2 -> 4 -> 8; one group killed and replaced in place
+    (the survivors' DMA counters still, the replacement uploading its
+    stage's weights); two groups killed and healed; back to the cached
+    2-mesh (zero bytes uploaded); a journaled install through a fault at
+    every mid-write point on disk (2 rolled back, 1 replayed); 3 DMA
+    payloads toward group 1 corrupted and retried; the journal-recovered
+    image swapped in, through probation, finalized; an image of weights
+    from ``seed + 1`` (calibrated) rolled back by the probe; a canary of
+    the good image at 0.25 promoted and one of the bad image at 0.5
+    aborted; a group slowed and replaced as a straggler; a redemption hung,
+    the group killed by the watchdog and replaced. Then the brown-out
+    ladder on the same server: four held backlogs walk rungs 0 -> 4 (a
+    priority-2 request shed at rung 3, typed and retryable; the worst
+    failing group tripped at rung 4, probed half-open with golden inputs
+    and revived with its CRC checked), and cool ticks walk back to 0.
+    Every reply, the clients' and the coordinator's, is checked bit for
+    bit against a local ``Executor.run`` of the same request. The card's
+    requested bytes fall back within 1% of the image's pinned bytes after
+    the finalize, the probe's rollback, the promotion and the abort, with
+    the traffic held for each reading (``cuda_memory``). Last, qwen2-1.5B (the ``slice`` phase's 3.09 GB
+    image) over ``TileMesh(2)`` gets one good swap and ``finalize_swap``,
+    memory and each step's seconds printed. Returns the launches."""
+    import tempfile
+    import numpy as np
+    from repro_torch.core import rhal
+    from repro_torch.core.fleet import (FleetConfig, FleetController,
+                                        same_outputs)
+    from repro_torch.serving import chaos
+    from repro_torch.serving.overload import (BrownoutController,
+                                              OverloadConfig)
+    from repro_torch.serving.server import Client, InferenceServer, \
+        RequestShed
+    t_phase = time.perf_counter()
+    big = (1 << 32) - 1
+    prog, image = keep["prog"], keep["image"]
+    pool = keep["requests"][:4] + keep["burst"][:4]
+    plat, ex, bound = local_bound(torch, prog, image)
+    refs = [{"output": ex.run(bound, inputs=r)["output"].cpu().numpy()}
+            for r in pool]
+    plat.rimfs.unpin_all()
+    del plat, ex, bound
+    _, bad_image = resnet_int8_program(torch, seed + 1)
+    work = chaos.Workload(prog, image, bad_image, pool, refs,
+                          max_frame=big)
+    pinned = RESNET_TENSOR_BYTES[True]
+    tol = int(pinned * FLEET_MEMORY_TOL)
+    per_run = kernel_launches_of(prog)["int8_matmul"]     # 20 at 224 px
+    rng = np.random.RandomState(seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    setup_s = time.perf_counter() - t_phase
+
+    server = InferenceServer(mesh=rhal.TileMesh(2), max_queue=256,
+                             max_frame=big, watchdog_floor=0.5,
+                             watchdog_slack=8.0, watchdog_poll=0.01)
+    addr = server.start()
+    boot = Client(addr, max_frame=big)
+    boot.provision(image, prog.encode())
+    boot.close()
+    fleet = FleetController(server, FleetConfig(
+        ladder=FLEET_LADDER, scale_up_depth=10 ** 6, scale_down_depth=-1,
+        straggler_ticks=2, stage_straggler_ratio=FLEET_STRAGGLER_RATIO))
+    over = BrownoutController(server, OverloadConfig(
+        p99_high=0.05, min_window=2, escalate_ticks=1, recover_ticks=2,
+        shed_priority=2, breaker_cooldown_ticks=1))
+    coord_client = Client(addr, retries=10, backoff=0.02, max_frame=big)
+    coord = {"requests": 0, "mismatches": 0}
+    steps: dict = {}
+    memory: dict = {}
+
+    def require(ok: bool, what: str) -> None:
+        if not ok:
+            raise AssertionError(f"slice_fleet: {what}")
+
+    def drive() -> None:
+        """One more checked request from the coordinator."""
+        k = coord["requests"] % len(pool)
+        out = coord_client.infer(**pool[k])
+        coord["requests"] += 1
+        coord["mismatches"] += not same_outputs(out, refs[k])
+
+    def drive_until(pred, what: str, tick: bool = True,
+                    limit: int = 400) -> None:
+        for _ in range(limit):
+            if pred():
+                return
+            drive()
+            if tick:
+                fleet.tick()
+        require(pred(), f"{what} never came")
+
+    def seen(kind: str) -> int:
+        return sum(1 for k, _ in fleet.events if k == kind)
+
+    def held_memory() -> int:
+        traffic.pause()
+        try:
+            return cuda_memory(torch)
+        finally:
+            traffic.resume()
+
+    def wait_frac(frac: float) -> None:
+        deadline = time.monotonic() + 120
+        while traffic.completed() < int(traffic.total * frac) \
+                and time.monotonic() < deadline:
+            fleet.tick()
+            time.sleep(0.02)
+
+    def dma_bytes(mesh) -> list:
+        return [g.driver.stats.get("dma_bytes", 0) for g in mesh.groups]
+
+    scales = []
+
+    def scale(n: int) -> dict:
+        traffic.pause()          # the counters then move for the scale only
+        try:
+            cached = fleet._mesh_cache.get(n)
+            before = sum(dma_bytes(cached)) if cached is not None else 0
+            rep = fleet.scale_to(n)
+            row = {"from": rep["from"], "to": n,
+                   "cached_mesh": rep["cached_mesh"],
+                   "seconds": rep["seconds"],
+                   **{f"{k}_s": v for k, v in
+                      fleet.timings["scale"].items()},
+                   "h2d_bytes": sum(dma_bytes(server.mesh)) - before,
+                   "pinned_bytes_by_cached_mesh": fleet.pinned_bytes(),
+                   "memory": cuda_memory(torch)}
+        finally:
+            traffic.resume()
+        scales.append(row)
+        return row
+
+    zero_launches()                          # the main path starts here
+    traffic = chaos.Traffic(addr, work, FLEET_REQUESTS, FLEET_CLIENTS, seed,
+                            pace_s=FLEET_PACE_S).start()
+    t_sched = time.perf_counter()
+    try:
+        # 1. scale up the ladder
+        wait_frac(0.04)
+        row = scale(4)
+        require(row["h2d_bytes"] == pinned, f"2 -> 4 uploaded {row}")
+        wait_frac(0.08)
+        scale(8)
+        # 2. one group lost: replaced in place
+        wait_frac(0.12)
+        kill_gid = int(rng.randint(1, 8))
+        t = time.perf_counter()
+        server.mesh.kill(kill_gid)           # in-flight stages fail over
+        traffic.pause()
+        try:
+            mesh = server.mesh
+            before = {g: mesh.group(g).driver.stats.get("dma_bytes", 0)
+                      for g in mesh.gids if g != kill_gid}
+            rep = fleet.tick()
+            require(rep["action"] == ("replace", kill_gid, "dead")
+                    and "error" not in rep, f"kill: {rep['action']}")
+            moved = {g: mesh.group(g).driver.stats.get("dma_bytes", 0) - b
+                     for g, b in before.items()}
+            tile = server._bound._partitions[8].tiles[kill_gid]
+            stage_bytes = sum(server.platform.rimfs.stat(s)["nbytes"]
+                              for s in tile.weight_syms)
+            fresh = mesh.group(kill_gid).driver.stats["dma_bytes"]
+            steps["replace"] = {
+                "group": kill_gid, "kill_to_repair_s":
+                    time.perf_counter() - t,
+                **{f"{k}_s": v for k, v in
+                   fleet.timings["reshape"].items()},
+                "survivor_bytes_moved": moved,
+                "replacement_h2d_bytes": fresh,
+                "stage_weight_bytes": stage_bytes}
+            require(not any(moved.values()) and fresh == stage_bytes,
+                    f"partial reshape moved {steps['replace']}")
+        finally:
+            traffic.resume()
+        # 3. two groups lost: a full heal
+        wait_frac(0.20)
+        dead = sorted(int(g) for g in rng.choice(np.arange(1, 8), 2,
+                                                 replace=False))
+        t = time.perf_counter()
+        for g in dead:
+            server.mesh.kill(g)
+        for _ in range(200):
+            fleet.tick()
+            if seen("heal_complete"):
+                break
+            time.sleep(0.01)
+        require(seen("heal_complete") == 1, "two dead groups never healed")
+        steps["heal"] = {"groups": dead,
+                         "kill_to_heal_s": time.perf_counter() - t,
+                         **{f"{k}_s": v for k, v in
+                            fleet.timings["heal"].items()}}
+        # back to 2 groups: the original mesh, cached, nothing uploaded
+        wait_frac(0.26)
+        row = scale(2)
+        require(row["cached_mesh"] and row["h2d_bytes"] == 0,
+                f"8 -> 2: {row}")
+        # 4. a journaled install through a fault at each mid-write point
+        with tempfile.TemporaryDirectory() as tmp:
+            t = time.perf_counter()
+            journal, recovered = chaos.journal_fault_matrix(
+                image, Path(tmp) / "resnet18_int8.rimfs")
+            journal["seconds"] = time.perf_counter() - t
+        require((journal["rolled_back"], journal["replayed"],
+                 journal["image_ok"]) == (2, 1, True)
+                and recovered == image, f"journal {journal}")
+        # 5. DMA payloads toward group 1 corrupted, retried in place
+        wait_frac(0.30)
+        drv = server.mesh.group(1).driver
+        keys = ("dma_crc_mismatch", "dma_retry", "dma_retry_recovered")
+        before = {k: drv.stats.get(k, 0) for k in keys}
+        undo, cstate = chaos.corrupt_dma_payload(server.mesh, 1, 3)
+        try:
+            drive_until(lambda: cstate["corrupted"] >= 3,
+                        "3 corrupted payloads", tick=False)
+        finally:
+            undo()
+        steps["dma_corruption"] = {k: drv.stats.get(k, 0) - before[k]
+                                   for k in keys}
+        require(steps["dma_corruption"]["dma_retry_recovered"] >= 3,
+                f"corruption {steps['dma_corruption']}")
+        # 6. good swap: the journal-recovered image through probation
+        wait_frac(0.36)
+        traffic.pause()
+        memory["before_swap"] = cuda_memory(torch)
+        # the old image's copies on the cached meshes other than the live
+        # one go with it at the finalize (the new image is pinned on the
+        # live mesh only)
+        old_elsewhere = sum(
+            v for k, v in fleet.pinned_bytes().items()
+            if k != server.mesh.n_groups)
+        t = time.perf_counter()
+        good = fleet.swap_weights(recovered, label="journal-recovered")
+        steps["swap_good"] = {"result": good,
+                              "seconds": time.perf_counter() - t,
+                              **{f"{k}_s": v for k, v in
+                                 fleet.timings["swap"].items()}}
+        memory["swap_probation"] = cuda_memory(torch)
+        traffic.resume()
+        require(good == "committed", f"good swap {good}")
+        drive_until(lambda: not fleet.summary()["swap_in_probation"],
+                    "the swap's finalize")
+        memory["after_finalize"] = held_memory()
+        # 7. bad swap: weights from seed + 1, caught by the probe
+        traffic.pause()
+        memory["before_bad_swap"] = cuda_memory(torch)
+        t = time.perf_counter()
+        bad = fleet.swap_weights(bad_image, label="seed+1")
+        steps["swap_bad"] = {"result": bad,
+                             "seconds": time.perf_counter() - t,
+                             **{f"{k}_s": v for k, v in
+                                fleet.timings["swap"].items()}}
+        memory["after_bad_swap"] = cuda_memory(torch)
+        traffic.resume()
+        probed = [p["ok"] for k, p in fleet.events if k == "swap_probed"]
+        require(bad == "rolled_back" and probed == [True, False],
+                f"bad swap {bad}, probes {probed}")
+        # 8. canaries: the good image at 0.25 promotes ...
+        wait_frac(0.45)
+        memory["before_canary"] = held_memory()
+        t = time.perf_counter()
+        require(fleet.canary(recovered, fraction=0.25, label="good")
+                == "started", "the good canary did not start")
+        state = fleet._canary
+        memory["canary"] = held_memory()
+        # launches of one plain and one dual-run (sampled) request
+        traffic.pause()
+        per_request = {}
+        counter = kernel_counters()["int8_matmul"]
+        one = Client(addr, max_frame=big)
+        try:
+            for rid in range(1, 64):
+                kind = "sampled" if state.routes(rid) and \
+                    state.samples(rid) else "plain"
+                n0 = counter.launches
+                out = one.infer(**pool[rid % len(pool)])
+                coord["mismatches"] += not same_outputs(
+                    out, refs[rid % len(pool)])
+                per_request.setdefault(kind, counter.launches - n0)
+                if len(per_request) == 2:
+                    break
+        finally:
+            one.close()
+            traffic.resume()
+        require(per_request == {"plain": per_run, "sampled": 2 * per_run},
+                f"int8_matmul launches a request {per_request}")
+        drive_until(lambda: state.sprt.verdict() is not None,
+                    "the good canary's verdict", tick=False)
+        traffic.pause()
+        fleet.tick()                         # the verdict acts
+        memory["after_promote"] = cuda_memory(torch)
+        traffic.resume()
+        promoted = [p for k, p in fleet.events if k == "canary_promoted"]
+        require(len(promoted) == 1, f"good canary: {state.sprt.summary()}")
+        steps["canary_good"] = {"seconds": time.perf_counter() - t,
+                                **promoted[0],
+                                **{f"{k}_s": v for k, v in
+                                   fleet.timings["canary"].items()}}
+        # ... and the bad image at 0.5 aborts, serving none of its bytes
+        memory["before_bad_canary"] = held_memory()
+        t = time.perf_counter()
+        require(fleet.canary(bad_image, fraction=0.5, label="bad")
+                == "started", "the bad canary did not start")
+        state = fleet._canary
+        drive_until(lambda: state.sprt.verdict() is not None,
+                    "the bad canary's verdict", tick=False)
+        traffic.pause()
+        fleet.tick()
+        memory["after_abort"] = cuda_memory(torch)
+        traffic.resume()
+        aborted = [p for k, p in fleet.events if k == "canary_aborted"]
+        require(len(aborted) == 1
+                and aborted[0]["stats"]["served_shadow"] == 0,
+                f"bad canary: {state.sprt.summary()} {state.stats}")
+        steps["canary_bad"] = {"seconds": time.perf_counter() - t,
+                               **aborted[0]}
+        # 9. a hung redemption (before the straggler, whose stalls would
+        # widen the watchdog's budget): the watchdog kills group 1, failover
+        wait_frac(0.60)
+        undo, hstate = chaos.hang_until_killed(server.mesh, 1)
+        probe: dict = {}
+        pt = threading.Thread(target=lambda: probe.update(
+            error=chaos.check_probe(addr, work, 0, seed)), daemon=True)
+        t = time.perf_counter()
+        pt.start()
+        try:
+            deadline = time.monotonic() + 60
+            while not hstate["released"] and time.monotonic() < deadline:
+                fleet.tick()
+                time.sleep(0.01)
+        finally:
+            undo()
+        pt.join(timeout=60)
+        hang_s = time.perf_counter() - t
+        for _ in range(100):
+            if all(server.mesh.alive(g) for g in server.mesh.gids):
+                break
+            fleet.tick()
+            time.sleep(0.01)
+        require(hstate["released"] and "error" in probe
+                and probe["error"] is None
+                and all(server.mesh.alive(g) for g in server.mesh.gids),
+                f"hang {hstate}, probe {probe}")
+        steps["hang"] = {"hang_to_answer_s": hang_s,
+                         "preemptions": server.platform.telemetry.counter(
+                             "watchdog_preemptions")}
+        # 10. a straggler: group 1's redemption slowed, replaced in place
+        wait_frac(0.70)
+        n0 = seen("reshape_complete")
+        t = time.perf_counter()
+        undo = chaos.slow_group_redeem(server.mesh, 1, FLEET_SLOW_S)
+        try:
+            drive_until(lambda: seen("reshape_complete") > n0,
+                        "the straggler's replacement")
+        finally:
+            undo()
+        last = [p for k, p in fleet.events if k == "reshape_complete"][-1]
+        require(last["group"] == 1 and last["reason"] == "straggler",
+                f"straggler: {last}")
+        steps["straggler"] = {"slow_to_reshape_s": time.perf_counter() - t,
+                              "stall_s": FLEET_SLOW_S, **last}
+        traffic.join()
+        schedule_s = time.perf_counter() - t_sched
+
+        # the brown-out ladder: held backlogs walk rungs 0 -> 4
+        t = time.perf_counter()
+        brown = Client(addr, max_frame=big)
+        try:
+            walk, shed = [over.rung], None
+            while over.rung < 4:
+                gate = hold_dispatcher(server)
+                try:
+                    rids = [brown.infer_async(priority=0, **pool[i])
+                            for i in range(4)]
+                    deadline = time.monotonic() + 30
+                    while server.scheduler.pending() < 4:
+                        require(time.monotonic() < deadline,
+                                "the backlog never queued")
+                        time.sleep(0.002)
+                    time.sleep(0.1)          # the backlog's queue wait
+                finally:
+                    gate.set()
+                for i, rid in enumerate(rids):
+                    coord["mismatches"] += not same_outputs(
+                        brown.result(rid, timeout=60), refs[i])
+                over.tick()
+                walk.append(over.rung)
+                require(walk[-1] == walk[-2] + 1 and len(walk) <= 5,
+                        f"rung walk {walk}")
+                if over.rung == 3:
+                    try:
+                        brown.infer(priority=2, **pool[0])
+                    except RequestShed as e:
+                        shed = {"kind": e.kind, "retryable": e.retryable,
+                                "retry_after_ms": e.retry_after_ms}
+                    require(shed is not None and shed["kind"] == "brownout"
+                            and shed["retryable"], f"rung 3 shed {shed}")
+            rung4 = [p for k, p in over.events if k == "brownout_rung"][-1]
+            require(rung4["tripped"] is not None
+                    and over.breaker.state == "open",
+                    f"rung 4 tripped nothing: {rung4}")
+            out = brown.infer(priority=0, **pool[1])   # the survivors serve
+            coord["mismatches"] += not same_outputs(out, refs[1])
+            for _ in range(200):                       # cool ticks
+                over.tick()
+                walk.append(over.rung)
+                if over.rung == 0 and over.breaker.state == "closed":
+                    break
+                time.sleep(0.01)
+            require(over.rung == 0 and over.breaker.state == "closed"
+                    and over.breaker.stats == {"trips": 1, "probes": 1,
+                                               "closes": 1},
+                    f"recovery: {over.summary()}")
+            out = brown.infer(priority=2, **pool[2])   # served again
+            coord["mismatches"] += not same_outputs(out, refs[2])
+        finally:
+            brown.close()
+        brownout = {"seconds": time.perf_counter() - t,
+                    "rung_walk": [r for i, r in enumerate(walk)
+                                  if i == 0 or r != walk[i - 1]],
+                    "ticks": len(walk) - 1, "rung3_shed": shed,
+                    "tripped_group": rung4["tripped"],
+                    "breaker": dict(over.breaker.stats)}
+        launches = launches_now()
+        coord_client.close()
+    finally:
+        fleet.stop()
+        over.stop()
+        server.stop()
+    traffic_report = traffic.report()
+    fields = dict(
+        client_failures=traffic_report["failed"],
+        mismatches=traffic_report["mismatches"] + coord["mismatches"],
+        client_p50_s=traffic_report["p50_s"],
+        client_p99_s=traffic_report["p99_s"],
+        coordinator_requests=coord["requests"],
+        events=run_lengths([k for k, _ in fleet.events]),
+        brownout_events=run_lengths([k for k, _ in over.events]),
+        scales=scales, steps=steps, journal=journal, brownout=brownout,
+        int8_matmul_launches_per_request=per_request,
+        launches=launches, image_pinned_bytes=pinned,
+        memory=memory, old_image_elsewhere_bytes=old_elsewhere,
+        memory_tolerance_bytes=tol,
+        setup_s=setup_s, schedule_s=schedule_s)
+    print(json.dumps({"slice_fleet_checked": fields}), file=sys.stderr)
+    require(traffic_report["failed"] == 0
+            and traffic_report["mismatches"] == 0
+            and traffic_report["ok"] == traffic_report["sent"]
+            == FLEET_REQUESTS and coord["mismatches"] == 0,
+            f"traffic {traffic_report}, coordinator {coord}")
+    check_fleet_memory(memory, pinned, tol, old_elsewhere)
+    # 20 an execution; a stage killed mid-run re-runs on a survivor, so the
+    # total only has a floor
+    n = launches["int8_matmul"]
+    require(n >= per_run * FLEET_REQUESTS, f"int8_matmul launched {n}")
+    qwen2_swap = fleet_qwen2_swap(torch, qwen2)
+    emit("slice_fleet", model="resnet18-int8", image_size=224, groups=2,
+         ladder=list(FLEET_LADDER), clients=FLEET_CLIENTS,
+         requests=FLEET_REQUESTS, pool=len(pool), seed=seed, **fields,
+         qwen2_swap=qwen2_swap, seconds=time.perf_counter() - t_phase)
+    return {"resnet18-int8-fleet": launches,
+            "qwen2-1.5b-fleet-swap": qwen2_swap["launches"]}
+
+
+def fleet_qwen2_swap(torch, keep: dict) -> dict:
+    """qwen2-1.5B (28 bf16 layers, the ``slice`` phase's program, image and
+    requests) provisioned over protocol v2 into
+    ``InferenceServer(mesh=TileMesh(2))``, then one good ``swap_weights`` of
+    the same image: mounted and CRC-checked, bound, probed on a driver of
+    its own against the live mesh's answer to the golden inputs (bf16
+    hidden states, int32 positions), prewarmed into the mesh beside the old
+    image, flipped; two requests served in probation, bit for bit against
+    the same request before the swap; ``finalize_swap``. Memory before, in
+    probation and after (requested bytes within 1% of the pinned image)."""
+    from repro_torch.core import rhal, rimfs
+    from repro_torch.core.fleet import FleetConfig, FleetController
+    from repro_torch.serving.server import Client, InferenceServer
+    prog, image, requests = keep["prog"], keep["image"], keep["requests"]
+    big = (1 << 32) - 1
+    pinned = sum(e["nbytes"] for e in rimfs.mount(image)._index.values())
+    server = InferenceServer(mesh=rhal.TileMesh(2), max_frame=big)
+    client = Client(server.start(), max_frame=big)
+    out: dict = {"image_bytes": len(image), "image_pinned_bytes": pinned}
+    try:
+        t = time.perf_counter()
+        client.provision(image, prog.encode())
+        out["provision_s"] = time.perf_counter() - t
+        want = client.infer(**requests[0])["logits"]
+        fleet = FleetController(server, FleetConfig(
+            probation_requests=QWEN2_PROBATION, probation_ticks=1,
+            stage_straggler_ratio=1e9))
+        memory = {"before": cuda_memory(torch)}
+        per_run = kernel_launches_of(prog)["flash_attention"]    # 28
+        zero_launches()
+        t = time.perf_counter()
+        result = fleet.swap_weights(image, label="qwen2-good")
+        out["swap_s"] = time.perf_counter() - t
+        out["swap_steps_s"] = dict(fleet.timings["swap"])
+        memory["probation"] = cuda_memory(torch)
+        same = [same_bits(client.infer(**requests[0])["logits"], want)
+                for _ in range(QWEN2_PROBATION)]
+        fleet.tick()
+        t = time.perf_counter()
+        fleet.finalize_swap()            # a no-op once the tick finalized
+        memory["after_finalize"] = cuda_memory(torch)
+        out["launches"] = launches_now()
+        fin = [p for k, p in fleet.events if k == "swap_finalized"]
+        client.shutdown()
+    finally:
+        client.close()
+        server.stop()
+    tol = int(pinned * FLEET_MEMORY_TOL)
+    if not (result == "committed" and all(same) and len(fin) == 1
+            and fin[0]["freed_bytes"] == pinned
+            and memory["probation"]["requested"]
+            - memory["before"]["requested"] >= pinned - tol
+            and abs(memory["after_finalize"]["requested"]
+                    - memory["before"]["requested"]) <= tol
+            and out["launches"]["flash_attention"]
+            == per_run * (2 + QWEN2_PROBATION)):
+        raise AssertionError(f"slice_fleet qwen2 swap: {result}, same "
+                             f"{same}, finalized {fin}, memory {memory}, "
+                             f"launches {out['launches']}")
+    out.update(result=result, memory=memory,
+               events=[k for k, _ in fleet.events],
+               probation_requests_bit_identical=same)
+    return out
+
+
+def phase_slice_fleet_lm(torch, seed: int, keep: dict) -> dict:
+    """The brown-out ladder's LM rungs on qwen2-1.5B at full width and
+    depth (bf16): a ``ServingEngine`` over the ``slice_engine`` phase's
+    pinned image (zero bytes moved) behind an ``InferenceServer`` and a
+    ``BrownoutController`` (clamp 8). At rung 2 a ``max_new=32`` request of
+    the first prompt returns the prefill's token and 8 decoded ones, equal
+    to the first 9 of the stream ``slice_engine`` served unclamped, with 28
+    ``flash_attention`` launches (one prefill); at rung 3 a priority-2
+    admission is shed, typed ``brownout`` and retryable, with no launch;
+    back at rung 0 the unclamped stream is served whole."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.overload import (BrownoutController,
+                                              OverloadConfig)
+    from repro_torch.serving.server import Client, InferenceServer, \
+        RequestShed
+    cfg = get_config(ENGINE_MODELS["slice_engine"])
+    prompts = engine_prompts(seed, cfg.vocab_size)
+    full = keep["tokens"][0]
+    driver = keep["driver"]
+    before = driver.stats.get("dma_bytes", 0)
+    eng = ServingEngine.from_rimfs(cfg, keep["fs"], driver=driver,
+                                   max_batch=ENGINE_SLOTS,
+                                   max_seq=ENGINE_MAX_SEQ)
+    server = InferenceServer(engine=eng)
+    client = Client(server.start())
+    over = BrownoutController(server, OverloadConfig(max_new_clamp=8,
+                                                     shed_priority=2))
+    try:
+        zero_launches()
+        over.set_rung(2, reason="clamp")
+        t = time.perf_counter()
+        clamped = client.infer(prompt=prompts[0],
+                               max_new=ENGINE_MAX_NEW)["tokens"].tolist()
+        clamped_s = time.perf_counter() - t
+        rung2 = launches_now()
+        over.set_rung(3, reason="shed")
+        shed = None
+        try:
+            client.infer(prompt=prompts[1], max_new=ENGINE_MAX_NEW,
+                         priority=2)
+        except RequestShed as e:
+            shed = {"kind": e.kind, "retryable": e.retryable,
+                    "retry_after_ms": e.retry_after_ms}
+        rung3 = launches_now()
+        over.set_rung(0, reason="recovered")
+        again = client.infer(prompt=prompts[0],
+                             max_new=ENGINE_MAX_NEW)["tokens"].tolist()
+        launches = launches_now()
+        client.shutdown()
+    finally:
+        client.close()
+        server.stop()
+    moved = driver.stats.get("dma_bytes", 0) - before
+    if not (clamped == full[:9] and again == full
+            and rung2["flash_attention"] == cfg.num_layers
+            and rung3 == rung2 and shed is not None
+            and shed["kind"] == "brownout" and shed["retryable"]
+            and moved == 0):
+        raise AssertionError(f"slice_fleet_lm: clamped {clamped} vs "
+                             f"{full[:9]}, again equal {again == full}, "
+                             f"launches {rung2} {rung3}, shed {shed}, "
+                             f"moved {moved}")
+    emit("slice_fleet_lm", model=cfg.name, layers=cfg.num_layers,
+         dtype=cfg.dtype, max_new=ENGINE_MAX_NEW, clamp=8,
+         clamped_tokens=len(clamped), clamped_equal_prefix=True,
+         clamped_request_s=clamped_s, rung2_launches=rung2,
+         rung3_shed=shed, unclamped_equal=True, launches=launches,
+         events=[k for k, _ in over.events], bytes_moved=moved)
+    del eng
+    return {"qwen2-1.5b-engine-rungs": launches}
+
+
 # the LM serving engine: 4 slots of 640 rows; six prompts, the first four
 # fill the slots (each prefilled alone), the last two wait
 ENGINE_PROMPTS = (512, 512, 256, 256, 100, 37)
@@ -3276,7 +4008,8 @@ def phase_slice_engine_paged(torch, seed: int, keep: dict) -> dict:
 GPU_TESTS = {"graphs_gpu_tests": "tests/test_torch_graphs_gpu.py",
              "engine_gpu_tests": "tests/test_torch_engine_gpu.py",
              "paged_gpu_tests": "tests/test_torch_paged_gpu.py",
-             "partition_gpu_tests": "tests/test_torch_partition_gpu.py"}
+             "partition_gpu_tests": "tests/test_torch_partition_gpu.py",
+             "fleet_gpu_tests": "tests/test_torch_fleet_gpu.py"}
 
 
 def start_gpu_tests(phase: str):
@@ -3309,7 +4042,8 @@ def phase_gpu_tests() -> None:
             lines = out.strip().splitlines()
             marked = {}
             for mark in ("GROUPED_PREFILL ", "PAGED_VS_DENSE ",
-                         "STREAM_ORDER ", "FREED_EDGE "):
+                         "STREAM_ORDER ", "FREED_EDGE ", "FLIP_ORDER ",
+                         "SWAP_MEMORY "):
                 # after a test's progress dot, maybe
                 found = [json.loads(ln[ln.index(mark) + len(mark):])
                          for ln in lines if mark in ln]
@@ -3385,11 +4119,14 @@ def main() -> int:
     # 6b. tile groups: qwen2-1.5B and ResNet-18 INT8 over 1, 2 and 4
     # groups, the stream schedule, failover, and the server's mesh route
     by_path.update(phase_slice_partitioned(torch, qwen2_keep))
-    qwen2_keep.clear()
     by_path.update(phase_slice_partitioned_resnet(torch, args.seed,
                                                   resnet_keep))
     phase_partitioned_failover(torch, args.seed, resnet_keep)
     by_path.update(phase_served_mesh(torch, resnet_keep))
+    # 6c. the fleet and overload control plane over the mesh
+    by_path.update(phase_slice_fleet(torch, args.seed, resnet_keep,
+                                     qwen2_keep))
+    qwen2_keep.clear()
     resnet_keep.clear()
     gc.collect()
     torch.cuda.empty_cache()
@@ -3408,6 +4145,8 @@ def main() -> int:
     # image slice_engine pinned
     phase_engine_paged_reduced_depth(torch, args.seed, prompts)
     by_path.update(phase_slice_engine_paged(torch, args.seed, keep))
+    # the brown-out ladder's LM rungs over slice_engine's pinned image
+    by_path.update(phase_slice_fleet_lm(torch, args.seed, keep))
     keep.clear()
     gc.collect()
     torch.cuda.empty_cache()

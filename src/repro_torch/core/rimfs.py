@@ -20,7 +20,10 @@ tags it; the port reads its bits as uint16 and views them as
 """
 from __future__ import annotations
 
+import itertools
 import json
+import os
+import pathlib
 import struct
 import weakref
 import zlib
@@ -134,7 +137,7 @@ class RIMFS:
     the first time it is opened, so a poisoned image is rejected before it
     binds; ``fsck()`` re-verifies everything and resets that memo."""
 
-    def __init__(self, data: Union[bytes, bytearray, memoryview],
+    def __init__(self, data: Union[bytes, bytearray, memoryview, np.memmap],
                  verify_reads: bool = True):
         self._data = data
         buf = memoryview(data)
@@ -182,6 +185,12 @@ class RIMFS:
                                  kind="file_crc")
             self._verified.add(name)
         return from_host_bits(view, e["dtype"])
+
+    def address_of(self, name: str) -> tuple:
+        """(offset, nbytes) of one file in the image: its stable host
+        address for DMA."""
+        e = self._index[name]
+        return e["offset"], e["nbytes"]
 
     def verify(self, name: Optional[str] = None) -> bool:
         for n in ([name] if name else self.files()):
@@ -235,6 +244,14 @@ class RIMFS:
         ri = ResidentImage(self, driver, names)
         self._resident[id(driver)] = (weakref.ref(driver), ri)
         return ri
+
+    def total_bytes(self) -> int:
+        return len(memoryview(self._data))
+
+    def overhead_bytes(self) -> int:
+        """Non-payload bytes (header, index, padding, trailer)."""
+        payload = sum(e["nbytes"] for e in self._index.values())
+        return self.total_bytes() - payload
 
     def unpin_all(self) -> None:
         """Release this image's residency on every driver it is pinned on
@@ -309,6 +326,10 @@ class ResidentImage:
         """The zero-copy host view the upload consumed."""
         return self._host_views[name]
 
+    def offset_of(self, name: str) -> Optional[int]:
+        """Arena offset of the pinned range (None without an arena)."""
+        return self._offsets.get(name)
+
     def pinned_ranges(self) -> list:
         """Sorted [(arena_offset, nbytes), ...] of every pinned file."""
         return sorted((off, nbytes(self._host_views[name]))
@@ -338,5 +359,186 @@ class ResidentImage:
             self.fs._resident.pop(id(driver), None)
 
 
+class Journal:
+    """Write-ahead intent log for journaled image installs.
+
+    Append-only records, one JSON object a line (``separators=(",",
+    ":")``, as the JAX package writes them, so either package recovers the
+    other's journal). When file-backed every append is flushed and
+    fsync'd BEFORE the caller proceeds. Record kinds:
+
+      intent   {txid, crc, nbytes}  an install is about to stage
+      commit   {txid}               staged payload is complete and valid
+      applied  {txid}               the visible image was flipped
+      rollback {txid}               fsck discarded the staging
+    """
+
+    def __init__(self, path: Optional[Union[str, pathlib.Path]] = None):
+        self.path = pathlib.Path(path) if path is not None else None
+        self._records: list = []
+        if self.path is not None and self.path.exists():
+            for line in self.path.read_text().splitlines():
+                if line.strip():
+                    self._records.append(json.loads(line))
+        last = max((r["seq"] for r in self._records), default=0)
+        self._seq = itertools.count(last + 1)
+
+    def append(self, kind: str, txid: int, **meta) -> dict:
+        rec = {"seq": next(self._seq), "kind": kind, "txid": txid, **meta}
+        self._records.append(rec)
+        if self.path is not None:
+            with open(self.path, "a") as f:
+                f.write(json.dumps(rec, separators=(",", ":")) + "\n")
+                f.flush()
+                os.fsync(f.fileno())
+        return rec
+
+    def records(self) -> list:
+        return list(self._records)
+
+    def pending(self) -> dict:
+        """txid -> {"intent": rec, "committed": bool} for every intent
+        without an applied/rollback resolution (the fsck worklist)."""
+        state: dict = {}
+        for r in self._records:
+            if r["kind"] == "intent":
+                state[r["txid"]] = {"intent": r, "committed": False}
+            elif r["kind"] == "commit" and r["txid"] in state:
+                state[r["txid"]]["committed"] = True
+            elif r["kind"] in ("applied", "rollback"):
+                state.pop(r["txid"], None)
+        return state
+
+
+class ImageStore:
+    """Durable home of a serving image with journaled installs.
+
+    Every install is write-ahead journaled: intent record -> stage the new
+    bytes (side buffer; a ``.stage<txid>`` file when disk-backed) ->
+    commit mark -> atomic flip (``os.replace``) -> applied mark. A fault at
+    ANY point leaves the visible image wholly old or wholly new; ``fsck()``
+    REPLAYS committed installs whose flip never landed (redo) and ROLLS
+    BACK uncommitted staging (undo), then runs the mounted image's own
+    per-file-CRC ``fsck``. The files on disk are the JAX package's: either
+    package's ``fsck`` recovers a crash of the other's ``install``.
+
+    ``fail_at`` on ``install`` is the fault-injection hook: raise at a named
+    step ("after_intent" / "after_stage" / "after_commit") to model a crash
+    mid-write; recovery is then exercised by ``fsck()`` on the survivor.
+    """
+
+    def __init__(self, image: Optional[bytes] = None,
+                 path: Optional[Union[str, pathlib.Path]] = None):
+        self.path = pathlib.Path(path) if path is not None else None
+        self.journal = Journal(
+            f"{self.path}.journal" if self.path is not None else None)
+        last_tx = max((r["txid"] for r in self.journal.records()),
+                      default=0)
+        self._txids = itertools.count(last_tx + 1)
+        self._staging: dict[int, bytes] = {}
+        self._image: Optional[bytes] = None
+        if self.path is not None and self.path.exists():
+            self._image = self.path.read_bytes()
+        if image is not None:
+            self.install(image)
+
+    # ------------------------------------------------------------------ api
+    def image(self) -> Optional[bytes]:
+        """The committed (fully visible) image bytes."""
+        return self._image
+
+    def mount(self) -> RIMFS:
+        if self._image is None:
+            raise RIMFSError("image store is empty")
+        return RIMFS(self._image)
+
+    def _stage_path(self, txid: int) -> pathlib.Path:
+        return pathlib.Path(f"{self.path}.stage{txid}")
+
+    def install(self, image_bytes: bytes,
+                fail_at: Optional[str] = None) -> int:
+        """Journaled install; returns the transaction id."""
+        txid = next(self._txids)
+        self.journal.append("intent", txid,
+                            crc=zlib.crc32(image_bytes) & 0xFFFFFFFF,
+                            nbytes=len(image_bytes))
+        if fail_at == "after_intent":
+            raise IntegrityError(
+                f"injected fault: crash after intent (tx {txid})",
+                kind="journal_fault")
+        self._staging[txid] = bytes(image_bytes)
+        if self.path is not None:
+            self._stage_path(txid).write_bytes(image_bytes)
+        if fail_at == "after_stage":
+            raise IntegrityError(
+                f"injected fault: crash after stage (tx {txid})",
+                kind="journal_fault")
+        self.journal.append("commit", txid)
+        if fail_at == "after_commit":
+            raise IntegrityError(
+                f"injected fault: crash after commit (tx {txid})",
+                kind="journal_fault")
+        self._apply(txid, image_bytes)
+        return txid
+
+    def _apply(self, txid: int, image_bytes: bytes) -> None:
+        if self.path is not None:
+            tmp = pathlib.Path(f"{self.path}.tmp")
+            tmp.write_bytes(image_bytes)
+            os.replace(tmp, self.path)           # the atomic flip
+        self._image = bytes(image_bytes)
+        self.journal.append("applied", txid)
+        self._staging.pop(txid, None)
+        if self.path is not None:
+            sp = self._stage_path(txid)
+            if sp.exists():
+                sp.unlink()
+
+    def fsck(self, strict: bool = True) -> dict:
+        """Replay or roll back the journal, then fsck the mounted image.
+
+        Committed transactions whose flip never became visible are
+        re-applied from staging (CRC-checked against the intent record
+        first); everything else pending is rolled back. The visible image
+        is therefore always a fully written, CRC-clean state."""
+        report: dict = {"replayed": [], "rolled_back": [], "image": None}
+        pend = self.journal.pending()
+        for txid in sorted(pend):
+            st = pend[txid]
+            staged = self._staging.get(txid)
+            if staged is None and self.path is not None:
+                sp = self._stage_path(txid)
+                if sp.exists():
+                    staged = sp.read_bytes()
+            intact = staged is not None and \
+                (zlib.crc32(staged) & 0xFFFFFFFF) == st["intent"]["crc"]
+            if st["committed"] and intact:
+                self._apply(txid, staged)        # redo
+                report["replayed"].append(txid)
+            else:                                # undo
+                self._staging.pop(txid, None)
+                if self.path is not None:
+                    sp = self._stage_path(txid)
+                    if sp.exists():
+                        sp.unlink()
+                self.journal.append("rollback", txid)
+                report["rolled_back"].append(txid)
+        if self._image is not None:
+            report["image"] = self.mount().fsck(strict=strict)
+        return report
+
+
 def mount(data: Union[bytes, bytearray, memoryview]) -> RIMFS:
     return RIMFS(data)
+
+
+def mount_file(path: Union[str, pathlib.Path]) -> RIMFS:
+    """mmap-backed mount: zero-copy straight from the page cache."""
+    return RIMFS(np.memmap(str(path), dtype=np.uint8, mode="r"))
+
+
+def save_file(path: Union[str, pathlib.Path],
+              files: Mapping[str, object]) -> int:
+    img = pack(files)
+    pathlib.Path(path).write_bytes(img)
+    return len(img)

@@ -109,6 +109,13 @@ class Telemetry:
     def record_latency(self, seconds: float) -> None:
         self._lat.append(seconds)
 
+    def count(self) -> int:
+        """Samples recorded so far (ring-capped). With ``summary(warmup=
+        prev_count)`` this gives windowed stats over only the samples that
+        landed since a controller's previous observation (the brown-out
+        ladder's queue-wait p99 signal)."""
+        return len(self._lat)
+
     def record_dma(self, bytes_moved: int, bytes_overlapped: int = 0) -> None:
         """Data-movement accounting from the residency plan: total DMA
         payload vs the split-phase share that overlapped compute (the
@@ -116,6 +123,11 @@ class Telemetry:
         with self._lock:
             self.bytes_moved += int(bytes_moved)
             self.bytes_overlapped += int(bytes_overlapped)
+
+    def dma_summary(self) -> dict:
+        moved, over = self.bytes_moved, self.bytes_overlapped
+        return {"bytes_moved": moved, "bytes_overlapped": over,
+                "overlap_fraction": over / moved if moved else 0.0}
 
     def record(self, **metrics) -> None:
         self._metrics.append(dict(metrics, t=time.time()))

@@ -73,6 +73,14 @@ def from_host_bits(a: np.ndarray, name: str) -> torch.Tensor:
         return torch.from_numpy(a)
 
 
+def bf16_from_float(a) -> torch.Tensor:
+    """A CPU ``torch.bfloat16`` tensor of ``a``'s values, each rounded to
+    nearest even through float32: the bits ml_dtypes' ``astype(bfloat16)``
+    gives the JAX package."""
+    return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(
+        torch.bfloat16)
+
+
 def to_host(t) -> object:
     """A device result as the host value the wire carries: a numpy array,
     or a CPU ``torch.bfloat16`` tensor (numpy has no bfloat16)."""

@@ -36,6 +36,10 @@ Flow per request:
   idle hook:       after the plain backlog, one engine step (admission,
                    grouped prefill, one decode across the live slots);
                    finished prompts reply ``tokens`` by request id
+  control op:      a callable the fleet or brown-out controller hands in
+                   (``run_on_dispatcher``): it runs between two requests,
+                   so a mesh flip, a binding swap or a rung change lands
+                   atomically and no lock is added to the request path
   SHUTDOWN:        graceful drain — queued work is answered, then stop.
 
 PROVISION binds with the executor's driver, so the weight image is pinned
@@ -168,9 +172,19 @@ class _Work:
     route: Optional[_Route]
     tensors: Optional[dict] = None      # parsed npz (INFER, LM path)
     meta: Optional[dict] = None         # admission metadata (LM path)
+    control: Optional[Any] = None       # control op (callable): runs ON the
+                                        # dispatcher thread, between requests
 
 
 _KICK = _Work(frame=None, route=None)   # wake the dispatcher to drain
+
+
+def _no_delay(sock: socket.socket) -> None:
+    """A frame goes out as its head, payload parts and 4-byte CRC trailer
+    (``protocol.send_frame``, so a multi-GB payload is never joined);
+    with Nagle's algorithm on, the trailer waits for the peer's delayed
+    ACK, tens of ms on each side of a request."""
+    sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
 
 
 class InferenceServer:
@@ -213,6 +227,18 @@ class InferenceServer:
         self.batched_stats = {"dispatches": 0, "requests": 0,
                               "max_batch": 0, "fallbacks": 0,
                               "seconds": 0.0}
+        # canary A/B state (core.fleet.CanaryState), installed and cleared
+        # by the FleetController through control ops: dispatcher-owned, so
+        # the request path reads it without a lock
+        self.canary = None
+        # brown-out rung 2 (serving.overload): the admission-time clamp on
+        # an LM request's max_new; None is no clamp
+        self.max_new_clamp: Optional[int] = None
+        # control ops submitted and not yet run: the plain drain yields to
+        # them after each admission round, so a flip is not held back for
+        # as long as clients keep the admission queue non-empty
+        self._controls_waiting = 0
+        self._controls_lock = threading.Lock()
         self._sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
         self._sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
         self._sock.bind((host, port))
@@ -286,6 +312,7 @@ class InferenceServer:
             if self._stop.is_set():
                 conn.close()
                 return
+            _no_delay(conn)
             t = threading.Thread(target=self._handle, args=(conn,),
                                  daemon=True)
             t.start()
@@ -435,6 +462,9 @@ class InferenceServer:
     # ---------------------------------------------------------- dispatcher
     def _dispatch_one(self, work: _Work) -> None:
         """Runs ONLY on the ServiceLoop worker thread."""
+        if work.control is not None:            # control op: between
+            work.control()                      # requests IS the drain point
+            return
         if work.frame is None:                  # kick: drain the admission q
             self._drain_plain()
             return
@@ -461,12 +491,12 @@ class InferenceServer:
     def _coalescible(self) -> bool:
         """True when backlogged requests may batch: no tile mesh is
         attached (the partitioned path runs one sample through the stages),
-        the program is provisioned and it passes the batch analysis —
-        otherwise a batched dispatch would just serialize inside
-        run_batched and inflate queue wait for nothing. (The JAX package
-        also refuses while a canary is attached; the port has none yet.)"""
+        no canary is installed (its A/B split and per-request compare are
+        defined per request id), the program is provisioned and it passes
+        the batch analysis — otherwise a batched dispatch would just
+        serialize inside run_batched and inflate queue wait for nothing."""
         return (self.batch_window > 1 and self.mesh is None
-                and self._bound is not None
+                and self._bound is not None and self.canary is None
                 and linker_mod.batch_analysis(self._bound).batchable)
 
     @staticmethod
@@ -520,6 +550,35 @@ class InferenceServer:
                 else:
                     self._dispatch_batch(run)
                 progressed = True
+            if self._controls_waiting:      # the rest drains after it
+                return progressed
+
+    def _execute_request(self, tensors: dict, rid: int) -> tuple:
+        """One plain-RCB execution, canary-aware. Returns (out, flags).
+
+        With a canary installed, a hash-routed fraction of requests runs on
+        the shadow binding; a sampled subset of those ALSO runs the primary
+        and bit-compares, feeding the SPRT an agree/disagree observation. A
+        sampled disagreement is answered with the PRIMARY's bytes: the
+        canary never serves a byte it has been caught getting wrong.
+        Shadow-served replies carry F_CANARY."""
+        canary = self.canary
+        if canary is None or not canary.routes(rid):
+            return self._infer(tensors), 0
+        canary.stats["routed"] += 1
+        shadow_out = self._infer(tensors, bound=canary.bound, fs=canary.fs)
+        if canary.samples(rid):
+            primary_out = self._infer(tensors)
+            agree = canary.judge(primary_out, shadow_out)
+            canary.record(agree)
+            self.platform.post("canary_sample",
+                               {"rid": rid, "agree": agree})
+            if not (agree and canary.serve_shadow):
+                return primary_out, 0
+        elif not canary.serve_shadow:
+            return self._infer(tensors), 0
+        canary.stats["served_shadow"] += 1
+        return shadow_out, proto.F_CANARY
 
     def _dispatch_single(self, s) -> None:
         r, srid, sver, sts = s.payload
@@ -530,7 +589,7 @@ class InferenceServer:
             if wd is not None:
                 wd.arm(s)
             try:
-                out = self._infer(sts)
+                out, oflags = self._execute_request(sts, srid)
             except (TileFailure, IntegrityError) as e:
                 # recoverable fault taxonomy: one re-run (a corrupted
                 # transfer re-issues from its retained source)
@@ -540,7 +599,7 @@ class InferenceServer:
                                           "error": str(e)})
                 if wd is not None:
                     wd.arm(s)           # fresh budget for the re-run
-                out = self._infer(sts)
+                out, oflags = self._execute_request(sts, srid)
         except Exception as e:                  # report, keep draining
             r.send_final(s, proto.Msg.ERROR,
                          proto.pack_json({"error": str(e)}),
@@ -554,7 +613,7 @@ class InferenceServer:
         self.platform.telemetry.record_latency(dt)
         self.scheduler.observe_step_latency(dt)
         r.send_final(s, proto.Msg.INFER_RESPONSE, proto.pack_tensors(out),
-                     rid=srid, version=sver)
+                     rid=srid, version=sver, flags=oflags)
 
     def _dispatch_batch(self, run: list) -> None:
         """One coalesced dispatch for a same-signature request run.
@@ -634,6 +693,10 @@ class InferenceServer:
                        rid=rid, flags=proto.F_BUSY, version=ver)
             return
         max_new = work.meta["max_new"]
+        if self.max_new_clamp is not None:
+            # brown-out rung 2: bound every admission's decode budget so a
+            # queue of long generations cannot starve the fleet
+            max_new = min(max_new, self.max_new_clamp)
         prompt = np.asarray(work.tensors["prompt"]).astype(
             np.int32).reshape(-1)
         if prompt.size + max_new >= self.engine.max_seq:
@@ -694,6 +757,12 @@ class InferenceServer:
     def _drop_work(self, work: _Work) -> None:
         """close(drain=False) hand-back: refuse explicitly, never drop a
         request whose submit was already acknowledged."""
+        if work.control is not None:
+            if work.meta is not None:           # fail the waiting caller
+                work.meta["error"] = RuntimeError(
+                    "control op dropped: dispatcher closing")
+                work.meta["done"].set()
+            return
         if work.frame is not None:
             work.route.send(proto.Msg.ERROR,
                             proto.pack_json({"error": "draining"}),
@@ -713,6 +782,47 @@ class InferenceServer:
             r, srid, sver, _ = s.payload
             r.send_final(s, proto.Msg.ERROR, payload, rid=srid,
                          flags=proto.F_DRAINING, version=sver)
+
+    def run_on_dispatcher(self, fn, timeout: float = 60.0):
+        """Execute ``fn`` ON the dispatcher thread and return its result.
+
+        The dispatcher runs exactly one work item at a time, so a control
+        op observes the server between requests: no request is
+        mid-execution while it runs. That makes it the fleet controller's
+        atomic flip point for mesh reshapes and binding swaps, with no lock
+        on the request path. While it waits, the plain drain stops after
+        each admission round, so requests that keep arriving do not hold
+        it back. Called from the dispatcher thread itself the op runs
+        inline (re-entrant control flows)."""
+        if threading.current_thread() is self._loop._thread:
+            return fn()
+        box: dict = {"done": threading.Event(), "result": None,
+                     "error": None}
+
+        def ctl():
+            with self._controls_lock:
+                self._controls_waiting -= 1
+            try:
+                box["result"] = fn()
+            except BaseException as e:
+                box["error"] = e
+            finally:
+                box["done"].set()
+
+        with self._controls_lock:
+            self._controls_waiting += 1
+        if not self._loop.submit(_Work(frame=None, route=None, control=ctl,
+                                       meta=box)):
+            with self._controls_lock:
+                self._controls_waiting -= 1
+            raise ServerBusy("dispatcher refused control op "
+                             "(draining or queue full)")
+        if not box["done"].wait(timeout):
+            raise TimeoutError(f"control op not executed in {timeout}s "
+                               f"(dispatcher wedged?)")
+        if box["error"] is not None:
+            raise box["error"]
+        return box["result"]
 
     def _telemetry_summary(self) -> dict:
         s = dict(self.platform.telemetry.summary(warmup=1))
@@ -760,18 +870,21 @@ class InferenceServer:
             self._bound = self.platform.bind(driver=self.executor.driver,
                                              artifacts=self.artifacts)
 
-    def _infer(self, tensors: dict) -> dict:
-        """Run on the device (over the mesh's groups when one is
-        attached); results come back as host values."""
-        if self._bound is None:
+    def _infer(self, tensors: dict, bound=None, fs=None) -> dict:
+        """Run on the device (over the mesh's groups when one is attached)
+        on the primary binding, or, when the fleet passes a (bound, fs)
+        pair, on a canary's shadow binding; results come back as host
+        values."""
+        if bound is None:
+            bound, fs = self._bound, self.platform.rimfs
+        if bound is None:
             raise RuntimeError("not provisioned")
         if self.mesh is not None:
             out = self.executor.run_partitioned(
-                self._bound, inputs=tensors, rimfs=self.platform.rimfs,
-                mesh=self.mesh, platform=self.platform)
+                bound, inputs=tensors, rimfs=fs, mesh=self.mesh,
+                platform=self.platform)
         else:
-            out = self.executor.run(self._bound, inputs=tensors,
-                                    rimfs=self.platform.rimfs)
+            out = self.executor.run(bound, inputs=tensors, rimfs=fs)
         return {k: to_host(v) for k, v in out.items()}
 
 
@@ -799,6 +912,7 @@ class Client:
                  backoff: float = 0.05, backoff_cap: float = 2.0,
                  retry_seed: Optional[int] = None):
         self.sock = socket.create_connection(address)
+        _no_delay(self.sock)
         self.version = version
         self.max_frame = max_frame
         self.retries = int(retries)
@@ -932,14 +1046,18 @@ class Client:
                    proto.pack_tensors({**tensors, **meta}), rid=rid)
         return rid
 
-    def result(self, rid: int, timeout: Optional[float] = None) -> dict:
+    def result(self, rid: int, timeout: Optional[float] = None,
+               with_flags: bool = False):
         """Collect the response for a pipelined request id (any order).
         ``timeout`` raises ``TimeoutError`` for an orphaned id (e.g. a
-        dead server that will never answer) instead of parking forever."""
+        dead server that will never answer) instead of parking forever.
+        ``with_flags=True`` returns ``(tensors, flags)``, so a caller sees
+        reply metadata such as F_CANARY (shadow-served bytes)."""
         f = self._await(rid, timeout=timeout)
         if f.kind == proto.Msg.ERROR:
             self._raise_error(f)
-        return proto.unpack_tensors(f.payload)
+        out = proto.unpack_tensors(f.payload)
+        return (out, f.flags) if with_flags else out
 
     def infer(self, deadline_ms: Optional[float] = None,
               priority: Optional[int] = None,

@@ -32,7 +32,8 @@ def test_port_imports_no_jax_no_ml_dtypes_no_reference_package():
                  "models.attention", "models.mlp", "launch",
                  "launch.steps", "checkpoint", "checkpoint.ckpt",
                  "serving.engine", "serving.paged_cache",
-                 "serving.paged_engine", "core.partition"):
+                 "serving.paged_engine", "core.partition", "core.fleet",
+                 "serving.overload", "serving.chaos"):
         assert "repro_torch." + name in modules
     code = (
         "import importlib, sys\n"
@@ -73,6 +74,7 @@ def _entry_points():
     from repro_torch.serving.engine import ServingEngine
     from repro_torch.serving.paged_cache import PagedKVCache
     from repro_torch.serving.paged_engine import PagedServingEngine
+    from repro_torch.serving import chaos
     from repro_torch.serving.server import InferenceServer
     cfg = get_config("qwen2-1.5b-smoke")
     return {
@@ -91,6 +93,9 @@ def _entry_points():
         "init_params": lambda: init_params(cfg, 0),
         "init_resnet": lambda: init_resnet(CONFIG.smoke(), 0),
         "quantize_resnet": lambda: quantize_resnet(CONFIG.smoke(), {}, None),
+        "chaos.gemm_workload": chaos.gemm_workload,
+        "chaos.run_chaos": chaos.run_chaos,
+        "chaos.run_rollout_chaos": chaos.run_rollout_chaos,
     }
 
 
@@ -101,7 +106,9 @@ def _entry_points():
                                   "ServingEngine.from_rimfs",
                                   "PagedServingEngine",
                                   "PagedServingEngine.from_rimfs",
-                                  "PagedKVCache"])
+                                  "PagedKVCache", "chaos.gemm_workload",
+                                  "chaos.run_chaos",
+                                  "chaos.run_rollout_chaos"])
 def test_default_device_is_cuda_and_raises_without_it(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default does not raise")

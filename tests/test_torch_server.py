@@ -202,3 +202,31 @@ def test_reprovision_releases_the_old_weights():
     finally:
         client.close()
         server.stop()
+
+
+def test_both_ends_of_a_connection_send_without_nagle_delay():
+    """A frame goes out as head, payload parts and a 4-byte CRC trailer;
+    with Nagle's algorithm the trailer waits for the peer's delayed ACK
+    (tens of ms a request on a warm connection), so every connection the
+    server accepts and every client opens sets TCP_NODELAY."""
+    import socket
+    accepted = []
+    server = InferenceServer(device="cpu")
+    handle = server._handle
+
+    def recording(conn):
+        accepted.append(conn.getsockopt(socket.IPPROTO_TCP,
+                                        socket.TCP_NODELAY))
+        handle(conn)
+
+    server._handle = recording
+    client = Client(server.start())
+    try:
+        with pytest.raises(RuntimeError, match="not provisioned"):
+            client.infer(hidden=np.zeros((1, 1), np.float32))
+        assert client.sock.getsockopt(socket.IPPROTO_TCP,
+                                      socket.TCP_NODELAY)
+        assert accepted and all(accepted)
+    finally:
+        client.close()
+        server.stop()
