@@ -20,9 +20,23 @@ Phases, each printing one JSON line with its times:
      bytes its plan moves beside the bound's, and the in-block build of the
      entering states timed against the carry kernel at T = 512 to 4096;
      then ``int8_matmul``, bit for bit);
+  2b. the kernel autotune cache (``autotune``): every tunable kernel swept
+     at its served shapes (``int8_matmul`` at 512 x 1536 x 8960 and every
+     ResNet-18 INT8 convolution's GEMM, ``ssm_scan`` at hymba's shape,
+     ``wkv6`` at rwkv6's in fp32 and bf16; ``flash_attention`` at qwen2's
+     and moonshot's, one plan, 0 trials): each candidate plan's ms by CUDA
+     events, the winner, the default, the trials, every plan's output
+     against the default plan's (bit for bit, ``wkv6`` within its
+     tolerance); the table packed into an image and reloaded by a fresh
+     ``Platform`` (``autotune_loaded``, a second sweep of 0 trials); then
+     ResNet-18 INT8 served with the table in its image, bit for bit against
+     the default plans, its linked run's host wall with the table empty
+     and loaded; then the table is reset;
   3. a two-layer full-width fp32 program of each served model (qwen2-1.5B,
-     hymba-1.5B, then rwkv6-1.6B): the linked run with the kernels against
-     the same program with ``impl="ref"`` on every kernel op;
+     hymba-1.5B, then rwkv6-1.6B, then moonshot-v1-16b-a3b, the last as
+     ``moe_two_layer_fp32`` with each layer's worst gap between a token's
+     6th and 7th router probabilities): the linked run with the kernels
+     against the same program with ``impl="ref"`` on every kernel op;
   4. the served paths, qwen2-1.5B (``slice``), hymba-1.5B
      (``slice_hybrid``) then rwkv6-1.6B (``slice_ssm``), each at full width
      and depth (bf16, random weights
@@ -144,15 +158,24 @@ Phases, each printing one JSON line with its times:
      bucket and through tables of 8 and 16 blocks; ``slice_fleet_lm``, the
      brown-out ladder's LM rungs on that image (at rung 2 a request of 32
      new tokens clamped to 8, equal to the unclamped stream's prefix, at
-     rung 3 a priority-2 prompt shed). Then the card-only tests of the fused and batched graphs
+     rung 3 a priority-2 prompt shed). Then the moe family, moonshot-v1-16b-a3b
+     (64 experts, top-6): its 2-layer bf16 program served as the LM
+     programs are (``slice_moe``, 2 ``flash_attention`` launches a
+     request, fused and batched lines), an ``engine_reduced_depth`` line at
+     1 fp32 layer run dropless (every stream against the recompute), and
+     ``slice_engine_moe``: all 48 layers with the weights drawn on the
+     card (56.1 GB, no image), the six prompts served as ``slice_engine``
+     serves them, 48 ``flash_attention`` launches a prefill, the decode
+     step's p50 beside its bytes bound. Then the card-only tests of the fused and batched graphs
      (``tests/test_torch_graphs_gpu.py``), of the engine's compiled steps
      (``tests/test_torch_engine_gpu.py``, with the per-op diagnosis of a
      grouped prefill) and of the paged windows
      (``tests/test_torch_paged_gpu.py``, with the per-op diagnosis of the
      paged step's shapes against the dense step's), of the tile groups'
-     streams (``tests/test_torch_partition_gpu.py``) and of the fleet's
-     flips and releases (``tests/test_torch_fleet_gpu.py``), each in a
-     process of its own;
+     streams (``tests/test_torch_partition_gpu.py``), of the fleet's
+     flips and releases (``tests/test_torch_fleet_gpu.py``) and of the
+     autotune cache's sweep and reload (``tests/test_torch_autotune_gpu.py``),
+     each in a process of its own;
   8. one ``kernels`` line: per kernel its launches on every served path
      (and on each one's fused and batched paths), its error against its
      plain version, its time, its bound and the library's.
@@ -366,7 +389,8 @@ def device_breakdown(torch, fn, top: int = 12) -> dict:
 
 # the served paths: model name -> (B, S, H, Hkv, D) of its attention
 ATTENTION_SHAPES = {"qwen2-1.5b": (1, SEQ, 12, 2, 128),
-                    "hymba-1.5b": (1, SEQ, 25, 5, 64)}
+                    "hymba-1.5b": (1, SEQ, 25, 5, 64),
+                    "moonshot-v1-16b-a3b": (1, SEQ, 16, 16, 128)}
 SSM_SHAPE = (1, SEQ, 1600, 16)          # hymba-1.5B's SSM_SCAN, fp32
 WKV_SHAPE = (1, SEQ, 32, 64)            # rwkv6-1.6B's WKV6 (B, T, H, K), fp32
 
@@ -387,7 +411,8 @@ def phase_attention(torch, seed: int) -> dict:
         return [(q * q_scale).to(dt), k.to(dt), v.to(dt)]
 
     # (b, s, sk, h, hkv, d, dtype, causal[, q scale])
-    served = ((1, 512, 512, 12, 2, 128), (1, 512, 512, 25, 5, 64))
+    served = ((1, 512, 512, 12, 2, 128), (1, 512, 512, 25, 5, 64),
+              (1, 512, 512, 16, 16, 128))
     cases = [(*shape, "float16", True) for shape in served]
     # S or Sk at the 64-row/64-key tile boundaries and one past them
     for dtype in ("bfloat16", "float16", "float32"):
@@ -1028,11 +1053,16 @@ def request_inputs(torch, cfg, glob, gen):
 
 
 def phase_two_layer_fp32(torch, cfg, seed: int) -> None:
-    """Phase 3: full-width fp32 program, kernels vs their plain versions."""
+    """Phase 3: full-width fp32 program, kernels vs their plain versions.
+    A config with experts prints ``moe_two_layer_fp32``, with each layer's
+    worst gap between a token's K-th and (K+1)-th router probabilities in
+    either run (a gap near the kernels' rounding would explain a routing
+    flip) and the slots its capacity dropped (``router_gaps``)."""
     from repro_torch.core import rbl
     from repro_torch.core.executor import Executor
     from repro_torch.core.rctc import compile_transformer_block
     from repro_torch.core.rtpm import Platform
+    from repro_torch.models import mlp
     from repro_torch.models.transformer import init_params, split_params
     t0 = time.perf_counter()
     cfg2 = dataclasses.replace(cfg, num_layers=2, dtype="float32")
@@ -1047,19 +1077,309 @@ def phase_two_layer_fp32(torch, cfg, seed: int) -> None:
     plat.provision(image=image, program_bytes=prog.encode())
     ex = Executor(driver=plat.driver)
     t1 = time.perf_counter()
-    out = ex.run(plat.bind(artifacts=prog.artifacts), inputs=ins)["logits"]
-    plain = ex.run(rbl.bind(with_plain_kernels(prog), rimfs=plat.rimfs,
-                            driver=plat.driver), inputs=ins)["logits"]
+    inner, gaps = mlp.moe_ffn, []
+    if cfg.num_experts:
+        mlp.moe_ffn = router_gaps(torch, gaps)
+    try:
+        out = ex.run(plat.bind(artifacts=prog.artifacts),
+                     inputs=ins)["logits"]
+        kernel_gaps = list(gaps)
+        plain = ex.run(rbl.bind(with_plain_kernels(prog), rimfs=plat.rimfs,
+                                driver=plat.driver), inputs=ins)["logits"]
+    finally:
+        mlp.moe_ffn = inner
     torch.cuda.synchronize()
     err = (out - plain).abs().max().item()
+    moe = {}
+    if cfg.num_experts:
+        moe = {"experts": cfg.num_experts, "top_k": cfg.experts_per_token,
+               "router_by_layer": kernel_gaps,
+               "plain_router_by_layer": gaps[len(kernel_gaps):]}
+    emit("moe_two_layer_fp32" if cfg.num_experts else "two_layer_fp32",
+         model=cfg.name, layers=2, seq=SEQ, image_bytes=len(image),
+         setup_s=t1 - t0, run_s=time.perf_counter() - t1,
+         logits_max_abs_err=err, atol=PROGRAM_ATOL, **moe)
     if not (torch.isfinite(out).all() and err <= PROGRAM_ATOL):
         raise AssertionError(f"two-layer fp32 {cfg.name} program: kernels "
                              f"vs plain versions max |err| {err} > "
                              f"{PROGRAM_ATOL}")
-    emit("two_layer_fp32", model=cfg.name, layers=2, seq=SEQ,
-         image_bytes=len(image),
-         setup_s=t1 - t0, run_s=time.perf_counter() - t1,
-         logits_max_abs_err=err, atol=PROGRAM_ATOL)
+
+
+# ---------------------------------------------------------------------------
+# The kernel autotune cache
+# ---------------------------------------------------------------------------
+
+def autotune_sites(torch, seed: int) -> list:
+    """(label, registry name, operands, keywords) of every tunable kernel
+    at the served paths' shapes: ``int8_matmul`` at the ``MATMUL_INT8``
+    program's 512 x 1536 x 8960 (fp32 out) and at every ResNet-18 INT8
+    convolution's GEMM (int32 out: the stem's 12544 x 147 x 64, 49 x 4608
+    x 512 and the rest), ``ssm_scan`` at hymba's shape, ``wkv6`` at
+    rwkv6's in fp32 and bf16; then ``flash_attention`` at qwen2's and
+    moonshot's (one plan: the default, 0 trials)."""
+    from repro_torch.configs.resnet18 import CONFIG
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 11)
+
+    def rnd(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+    def i8(*shape):
+        return torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                             dtype=torch.int8)
+
+    m, k, n = MATMUL_INT8_SHAPE
+    sites = [(f"int8_matmul {m}x{k}x{n} float32", "matmul_int8",
+              (i8(m, k), i8(k, n), rnd(n).abs() + 0.01),
+              {"out_dtype": torch.float32})]
+    for m, k, n in resnet_conv_gemms(CONFIG):
+        sites.append((f"int8_matmul {m}x{k}x{n} int32", "matmul_int8_i32",
+                      (i8(m, k), i8(k, n)), {}))
+    b, t, di, n = SSM_SHAPE
+    sites.append((f"ssm_scan {b}x{t}x{di}x{n} float32", "ssm_scan",
+                  (-rnd(b, t, di, n).abs() * 0.1, rnd(b, t, di, n),
+                   rnd(b, t, n)), {}))
+    b, t, h, kk = WKV_SHAPE
+    for dt in (torch.float32, torch.bfloat16):
+        lw = -torch.exp(rnd(b, t, h, kk) * 0.5 - 1.0)
+        label = f"wkv6 {b}x{t}x{h}x{kk} {str(dt).removeprefix('torch.')}"
+        sites.append((label, "wkv6",
+                      tuple(a.to(dt) for a in (rnd(b, t, h, kk),
+                                               rnd(b, t, h, kk),
+                                               rnd(b, t, h, kk), lw))
+                      + (rnd(h, kk),), {}))
+    for model in ("qwen2-1.5b", MOE_MODEL):
+        b, s, h, hkv, d = ATTENTION_SHAPES[model]
+        sites.append((f"flash_attention {model} {b}x{s}x{h}/{hkv}x{d} "
+                      f"bfloat16", "attention",
+                      (rnd(b, s, h, d, dtype=torch.bfloat16),
+                       rnd(b, s, hkv, d, dtype=torch.bfloat16),
+                       rnd(b, s, hkv, d, dtype=torch.bfloat16)),
+                      {"causal": True}))
+    return sites
+
+
+def default_plan(name: str, args) -> dict:
+    """The plan a wrapper takes with no winner."""
+    from repro_torch.kernels.common import sm_count
+    from repro_torch.kernels.int8_matmul import ops as im_ops
+    from repro_torch.kernels.ssm_scan import ops as ss_ops
+    from repro_torch.kernels.wkv6 import ops as wk_ops
+    if name.startswith("matmul_int8"):
+        x, w = args[0], args[1]
+        tile, splits = im_ops.plan_for(x.shape[0], w.shape[1], x.shape[1],
+                                       sm_count(x.device.index))
+        return {"tile": tile, "splits": splits}
+    if name == "ssm_scan":
+        plan = ss_ops.plan_of(*args)
+        return {"instance": plan.instance, "w": plan.w}
+    if name == "wkv6":
+        chunks = -(-args[0].shape[1] // 64)
+        return {"states": wk_ops.INBLOCK if chunks <= wk_ops.INBLOCK_CHUNKS
+                else wk_ops.CARRY}
+    return {}
+
+
+def same_as_default(torch, name: str, got, want) -> tuple:
+    """(held, max |err|) of a plan's output against the default plan's:
+    bit for bit for ``int8_matmul`` and ``ssm_scan`` (its ring against the
+    row-wise instance); ``wkv6`` within WKV_TOLERANCE, fp32 at atol =
+    rtol, bf16 of the output's scale (max |y|)."""
+    err = (got.float() - want.float()).abs().max().item()
+    if name != "wkv6":
+        return same_bits(got, want), err
+    dt = str(want.dtype).removeprefix("torch.")
+    tol = WKV_TOLERANCE[dt]
+    if dt == "float32":
+        return bool(torch.allclose(got, want, atol=tol, rtol=tol)), err
+    return err <= tol * want.float().abs().max().item(), err
+
+
+def phase_autotune(torch, seed: int) -> dict:
+    """Phase 2b: the kernel autotune cache. Every kernel at its served
+    shapes (``autotune_sites``) swept from an empty table: each candidate
+    plan's ms (CUDA events, the median of 10 launches after a warm-up),
+    the winner, the default plan, the trials, and every candidate's output
+    against the default plan's (``same_as_default``). The table is packed
+    into an image and a fresh ``Platform`` provisioned with it: it must
+    post ``autotune_loaded`` with every entry, and a second sweep must
+    cost 0 trials and hand back the same winners, whose outputs (through
+    ``registry.call``) hold against the defaults again. Then ResNet-18
+    INT8 is served once with the table in its image: its replies equal
+    the local linked run on an empty table bit for bit, and the linked
+    run's host wall is printed with the table empty and loaded, in turns.
+    Ends with ``reset()``: the later phases run their default plans.
+    Returns the served run's launches (the ``resnet18-int8-autotuned``
+    path)."""
+    import numpy as np
+    from repro_torch.core import rimfs
+    from repro_torch.core.rtpm import Platform
+    from repro_torch.kernels import registry as kreg
+    t0 = time.perf_counter()
+    kreg.reset()
+    sites = autotune_sites(torch, seed)
+    rows, defaults = [], []
+    for label, name, args, kw in sites:
+        want = kreg.call(name, *args, **kw)       # the default plan
+        defaults.append(want)
+        plan, trials = kreg.autotune(name, *args, **kw)
+        key = kreg.REGISTRY.signature(name, args, kw)
+        cands = []
+        for c in kreg.REGISTRY.sweeps.get(key, []):
+            held, err = same_as_default(
+                torch, name, kreg.get(name).kernel(*args, plan=c["params"],
+                                                   **kw), want)
+            if not held:
+                raise AssertionError(f"autotune {label}: plan {c['params']}"
+                                     f" differs from the default's by {err}")
+            cands.append({"plan": c["params"], "ms": c["ms"],
+                          "max_abs_err_vs_default": err})
+        rows.append({"site": label, "key": key, "trials": trials,
+                     "winner": plan, "default": default_plan(name, args),
+                     "winner_is_default": plan in ({}, default_plan(
+                         name, args)),
+                     "candidates": cands})
+    trials_first = kreg.REGISTRY.sweep_trials
+    if not trials_first:
+        raise AssertionError("autotune: the first sweep ran no trial")
+    table = kreg.pack_image()
+    winners = {k: dict(v) for k, v in kreg.REGISTRY.winners.items()}
+    kreg.reset()
+    plat = Platform()
+    loaded = []
+    plat.events.register("autotune_loaded", loaded.append)
+    plat.provision(image=table)
+    plat.events.process()
+    if loaded != [{"entries": len(winners)}]:
+        raise AssertionError(f"autotune: provision posted {loaded}, not "
+                             f"{len(winners)} entries loaded")
+    second, tuned_checks = 0, []
+    for (label, name, args, kw), want, row in zip(sites, defaults, rows):
+        plan, trials = kreg.autotune(name, *args, **kw)
+        second += trials
+        if plan != row["winner"]:
+            raise AssertionError(f"autotune {label}: reloaded {plan}, swept "
+                                 f"{row['winner']}")
+        held, err = same_as_default(torch, name, kreg.call(name, *args, **kw),
+                                    want)
+        if not held:
+            raise AssertionError(f"autotune {label}: the tuned call differs "
+                                 f"from the default plan's by {err}")
+        tuned_checks.append(err)
+    if second or kreg.REGISTRY.sweep_trials:
+        raise AssertionError(f"autotune: the reloaded table swept {second} "
+                             f"trials")
+    del sites, defaults
+    t_sweeps = time.perf_counter() - t0
+
+    # ResNet-18 INT8 served with the table in its image
+    prog, image = resnet_int8_program(torch, seed)
+    prog_bytes = prog.encode()
+    fs = rimfs.mount(image)
+    files = {name: fs.read(name) for name in fs.files()}
+    files[kreg.AUTOTUNE_FILE] = np.frombuffer(
+        rimfs.mount(table).read(kreg.AUTOTUNE_FILE).numpy().tobytes(),
+        np.uint8)
+    tuned_image = rimfs.pack(files)
+    size = 224
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 12)
+    requests = [{"input": torch.rand((1, size, size, 3), generator=gen,
+                                     device="cuda").cpu().numpy()}
+                for _ in range(N_REQUESTS)]
+    kreg.reset()                                  # an empty table
+    _, ex, bound, _, _ = local_platform(torch, image, prog_bytes)
+    want = [ex.run(bound, inputs=r)["output"] for r in requests]
+    served = serve(torch, tuned_image, prog_bytes, requests, "output")
+    n_loaded = len(kreg.REGISTRY.winners)
+    if n_loaded != len(winners):
+        raise AssertionError(f"autotune: serving the image loaded "
+                             f"{n_loaded} entries, not {len(winners)}")
+    for i, (got, ref) in enumerate(zip(served["responses"], want)):
+        if not same_bits(got, ref.cpu()):
+            raise AssertionError(f"autotune: served request {i} on the "
+                                 f"tuned plans differs from the default's")
+    check_launches("resnet18-int8-autotuned", served["launches"],
+                   {"int8_matmul": 20 * N_REQUESTS})
+    hits = kreg.REGISTRY.stats.get("params_hit", 0)
+
+    def wall(n=7):
+        walls = []
+        for _ in range(n):
+            t1 = time.perf_counter()
+            ex.run(bound, inputs=requests[0])
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t1)
+        return sorted(walls)[n // 2]
+    walls = {"empty": [], "loaded": []}
+    for _ in range(3):                            # in turns
+        kreg.reset()
+        walls["empty"].append(wall())
+        kreg.load_image(table)
+        walls["loaded"].append(wall())
+    tuned = ex.run(bound, inputs=requests[0])["output"]
+    if not same_bits(tuned, want[0]):
+        raise AssertionError("autotune: the local run on the loaded table "
+                             "differs from the empty table's")
+    kreg.reset()
+    emit("autotune", sites=rows, trials_first=trials_first,
+         entries=len(winners), table_bytes=len(table),
+         autotune_loaded=loaded, trials_second=second,
+         tuned_max_abs_err_vs_default=tuned_checks,
+         resnet18_int8={"image_bytes": len(tuned_image),
+                        "requests": N_REQUESTS, "bit_identical": True,
+                        "params_hits": hits,
+                        "launches": served["launches"],
+                        "provision_s": served["provision_s"],
+                        "linked_wall_s_empty_table": walls["empty"],
+                        "linked_wall_s_loaded_table": walls["loaded"]},
+         sweeps_s=t_sweeps, seconds=time.perf_counter() - t0)
+    del prog, image, tuned_image, ex, bound
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"resnet18-int8-autotuned": served["launches"]}
+
+
+# ---------------------------------------------------------------------------
+# The moe family
+# ---------------------------------------------------------------------------
+
+def router_gaps(torch, log: list):
+    """A wrapper of ``mlp.moe_ffn`` that records into ``log``, per call,
+    the worst token's gap between its K-th and (K+1)-th router
+    probabilities (where a rounding could flip the routing) and how many
+    (token, choice) slots its capacity dropped."""
+    from repro_torch.models import mlp
+    inner = mlp.moe_ffn
+
+    def moe_ffn(cfg_, p, x, group_size=1024):
+        r = mlp.route(cfg_, p["router"], mlp._group(x, group_size))
+        top = torch.sort(r["probs"], dim=-1, descending=True).values
+        k = cfg_.experts_per_token
+        gap = top[..., k - 1] - top[..., k]
+        log.append({"min_gap": gap.min().item(),
+                    "p_k": top[..., k - 1].flatten()[gap.argmin()].item(),
+                    "dropped": int((r["keep"] == 0).sum().item()),
+                    "slots": r["keep"].numel(), "capacity": r["cap"]})
+        return inner(cfg_, p, x, group_size)
+    return moe_ffn
+
+
+def decode_bytes_bound(cfg, params: dict, cache: dict, pos) -> dict:
+    """The least bytes one decode step at ``pos`` (B,) must move, and the
+    time they take at HBM_BYTES_PER_S: every weight once (the dense MoE
+    reads every expert), the embedding's B rows instead of its table, each
+    lane's K and V rows up to its position, and the new rows written."""
+    weights = sum(v.numel() * v.element_size() for k, v in params.items()
+                  if k != "embed")
+    emb = params["embed"]
+    rows = emb.shape[1] * emb.element_size() * len(pos)
+    k = cache["k"]
+    row_bytes = k.shape[0] * k.shape[3] * k.shape[4] * k.element_size()
+    kv = 2 * row_bytes * (sum(int(p) for p in pos) + len(pos))
+    total = weights + rows + kv
+    return {"bytes": total, "weights_bytes": weights, "kv_bytes": kv,
+            "bound_ms": total / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
 
 
 def kernel_counters() -> dict:
@@ -1083,8 +1403,13 @@ def held_burst(torch, server, client, burst: list, output: str) -> dict:
         gate.wait(120)
         inner(item)
 
-    server._loop.handler = gated
-    server._loop.on_idle = lambda: idle() if gate.is_set() else False
+    def install():
+        # on the dispatcher thread, between items: no call of the old idle
+        # hook is under way that could admit a request around the hold
+        server._loop.handler = gated
+        server._loop.on_idle = lambda: idle() if gate.is_set() else False
+
+    server.run_on_dispatcher(install)
     try:
         rids = [client.infer_async(**req) for req in burst]
         if not started.wait(60):
@@ -3066,7 +3391,12 @@ ENGINE_TOL = TOLERANCE["bfloat16"]           # of max |logit|, as bf16 is held
 PAGED_BLOCK = 16                # the paged engine's rows a KV block
 ENGINE_MODELS = {"slice_engine": "qwen2-1.5b",
                  "slice_engine_hybrid": "hymba-1.5b",
-                 "slice_engine_ssm": "rwkv6-1.6b"}
+                 "slice_engine_ssm": "rwkv6-1.6b",
+                 "slice_engine_moe": "moonshot-v1-16b-a3b"}
+# the moe family: moonshot-v1-16b-a3b, 56.1 GB of bf16 weights; its engine
+# phase needs them plus the KV cache and the decode graph on the card
+MOE_MODEL = "moonshot-v1-16b-a3b"
+MOE_MIN_FREE_BYTES = 62e9
 # hymba's ring at full width: 1280 rows keep a ring of W = 1024 rows; a
 # prompt of 1100 tokens prefills on the windowed route (S > W, not a
 # multiple of W) and one of 1000 on flash_attention, its decode crossing W
@@ -3215,7 +3545,8 @@ def kernels_in_model(torch, fn) -> list:
                        "rel_err": err / scale if scale else 0.0,
                        "ok": ok and bool(torch.isfinite(out).all())})
 
-    kernel, saved = attn_mod.flash_attention, dict(registry.SPECS)
+    specs = registry.REGISTRY.specs
+    kernel, saved = attn_mod.flash_attention, dict(specs)
 
     def attention(q, k, v, causal=True):
         o = kernel(q, k, v, causal=causal)
@@ -3224,20 +3555,20 @@ def kernels_in_model(torch, fn) -> list:
         return o
 
     def checked(spec):
-        def call(*args, **kw):
-            o = spec.kernel(*args, **kw)
+        def call(*args, plan=None, **kw):
+            o = spec.kernel(*args, plan=plan, **kw)
             record(spec.name, args[0], o, spec.ref(*args, **kw))
             return o
         return dataclasses.replace(spec, kernel=call)
 
     attn_mod.flash_attention = attention
     for name in ("ssm_scan", "wkv6"):
-        registry.SPECS[name] = checked(saved[name])
+        specs[name] = checked(saved[name])
     try:
         fn()
     finally:
         attn_mod.flash_attention = kernel
-        registry.SPECS.update(saved)
+        specs.update(saved)
     return checks
 
 
@@ -3259,7 +3590,8 @@ def kernel_check_summary(checks: list) -> dict:
 
 def phase_engine_reduced_depth(torch, seed: int, model: str, prompts: list,
                                layers: int, dtype: str, gate_recompute: bool,
-                               max_seq: int = ENGINE_MAX_SEQ) -> None:
+                               max_seq: int = ENGINE_MAX_SEQ,
+                               capacity: float = None) -> None:
     """Phase 7a: a local engine at ``model``'s full width cut to ``layers``
     layers in ``dtype``, over ``prompts`` with ENGINE_SLOTS slots of
     ``max_seq`` rows. Gates: each prefill's hand-kernel launches; each
@@ -3273,12 +3605,18 @@ def phase_engine_reduced_depth(torch, seed: int, model: str, prompts: list,
     gated on one fp32 layer. With a sliding window, each prompt whose
     decode passes W must have its recompute checked past the step that
     first writes a key over the ring's oldest (``ring_wrap_checked``,
-    gated with the recompute)."""
+    gated with the recompute). ``capacity`` sets an MoE config's capacity
+    factor: the recompute holds only where no token is dropped (a prompt's
+    last token, routed in one group with the whole prompt, can be; alone
+    in a decode step it never is), so the moe line runs dropless, as the
+    smoke configs do."""
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as tf
     from repro_torch.serving.engine import Request, ServingEngine
     cfg = dataclasses.replace(get_config(model), num_layers=layers,
                               dtype=dtype)
+    if capacity is not None:
+        cfg = dataclasses.replace(cfg, moe_capacity_factor=capacity)
     eng = ServingEngine(cfg, tf.init_params(cfg, seed),
                         max_batch=ENGINE_SLOTS, max_seq=max_seq)
     log = instrument_engine(torch, eng, keep=True)
@@ -3318,6 +3656,7 @@ def phase_engine_reduced_depth(torch, seed: int, model: str, prompts: list,
                                  f"wrap: {ring}")
     emit("engine_reduced_depth", model=cfg.name, layers=layers,
          dtype=dtype, max_seq=max_seq, prompts=[len(p) for p in prompts],
+         moe_capacity_factor=capacity,
          prefill_groups=prefill_groups(log),
          prefill_launches=[e["launches"] for e in log
                            if e["step"] == "prefill"],
@@ -3344,7 +3683,9 @@ def engine_burst(server, client, eng, prompts: list, log: list, what: str,
     idle = server._loop.on_idle
     gate = threading.Event()
     if held:                             # step nothing until all are queued
-        server._loop.on_idle = lambda: idle() if gate.is_set() else False
+        server.run_on_dispatcher(lambda: setattr(
+            server._loop, "on_idle",
+            lambda: idle() if gate.is_set() else False))
     first = len(log)
     sent = [(client.infer_async(prompt=p, max_new=ENGINE_MAX_NEW),
              time.perf_counter()) for p in prompts]
@@ -3399,7 +3740,15 @@ def phase_slice_engine(torch, seed: int, phase: str,
     and a prefill's. Returns the launches of the held run, the main
     path's. With ``keep``, leaves in it the mounted image (``fs``), the
     driver its weights are pinned on and the held run's streams
-    (``tokens``), for the paged engine's phase."""
+    (``tokens``), for the paged engine's phase.
+
+    ``slice_engine_moe`` (moonshot-v1-16b-a3b, 48 layers, 64 experts top-6)
+    keeps its 56.1 GB of weights where ``init_params`` drew them, on the
+    card: no image is packed (56 GB of host bytes the path does not need),
+    both engines are built over the same tensors, and the plain fp32
+    forward is not run (its weights would not fit). It needs
+    MOE_MIN_FREE_BYTES free when it starts, and adds the decode step's
+    bytes bound (``decode_bytes_bound``) beside its p50."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.core import rhal, rimfs
@@ -3409,16 +3758,32 @@ def phase_slice_engine(torch, seed: int, phase: str,
                                             pack_params_image)
     from repro_torch.serving.server import Client, InferenceServer
     cfg = get_config(ENGINE_MODELS[phase])
+    from_image = phase != "slice_engine_moe"
+    free_before = torch.cuda.mem_get_info()[0]
+    if not from_image and free_before < MOE_MIN_FREE_BYTES:
+        raise AssertionError(f"{phase}: {free_before} bytes free on the "
+                             f"card, not {MOE_MIN_FREE_BYTES}")
     t0 = time.perf_counter()
     params = tf.init_params(cfg, seed)
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
-    image = pack_params_image(params)
-    t_pack = time.perf_counter() - t0 - t_init
-    del params
-    gc.collect()
-    torch.cuda.empty_cache()
-    fs = rimfs.mount(image)
+    image = fs = None
+    t_pack = None
+    if from_image:
+        image = pack_params_image(params)
+        t_pack = time.perf_counter() - t0 - t_init
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        fs = rimfs.mount(image)
+
+    def engine():
+        if from_image:
+            return ServingEngine.from_rimfs(cfg, fs, driver=driver,
+                                            max_batch=ENGINE_SLOTS,
+                                            max_seq=ENGINE_MAX_SEQ)
+        return ServingEngine(cfg, params, max_batch=ENGINE_SLOTS,
+                             max_seq=ENGINE_MAX_SEQ)
     prompts = engine_prompts(seed, cfg.vocab_size)
     n_req = len(prompts)
 
@@ -3429,9 +3794,7 @@ def phase_slice_engine(torch, seed: int, phase: str,
         wrapper.launches = 0
     driver = rhal.make_eager_driver()
     t1 = time.perf_counter()
-    eng = ServingEngine.from_rimfs(cfg, fs, driver=driver,
-                                   max_batch=ENGINE_SLOTS,
-                                   max_seq=ENGINE_MAX_SEQ)
+    eng = engine()
     torch.cuda.synchronize()
     pin_s = time.perf_counter() - t1
     served_log = instrument_engine(torch, eng)
@@ -3474,9 +3837,7 @@ def phase_slice_engine(torch, seed: int, phase: str,
     # decode step swapped for the eager one, fed the same prefills: the
     # served tokens bit for bit
     dma_before = dict(driver.stats)
-    local = ServingEngine.from_rimfs(cfg, fs, driver=driver,
-                                     max_batch=ENGINE_SLOTS,
-                                     max_seq=ENGINE_MAX_SEQ)
+    local = engine()
     if driver.stats.get("dma_bytes", 0) != dma_before.get("dma_bytes", 0):
         raise AssertionError(f"{phase}: a second from_rimfs moved bytes")
     compiled = local.program.artifacts["decode"]     # its captured step
@@ -3555,15 +3916,18 @@ def phase_slice_engine(torch, seed: int, phase: str,
     recompute = [greedy_recompute(torch, cfg, local.params, p, r.out_tokens)
                  for p, r in zip(prompts, reqs)]
     small = next(e for e in reversed(local_log) if e["step"] == "prefill")
-    fp32_cfg = dataclasses.replace(cfg, dtype="float32")
-    fp32 = tf.forward_full(fp32_cfg, {k: v.float() for k, v in
-                                      local.params.items()},
-                           small["tokens"], impl="ref")[0][:, -1]
-    bf16 = tf.forward_full(cfg, local.params, small["tokens"],
-                           impl="ref")[0][:, -1].float()
-    plain_bf16_vs_fp32 = {"shape": small["shape"], "rel_err": (
-        (bf16 - fp32).abs().max() / fp32.abs().max()).item()}
-    del fp32, bf16
+    plain_bf16_vs_fp32 = "not run: an fp32 copy of the weights does not " \
+        "fit the card"
+    if from_image:
+        fp32_cfg = dataclasses.replace(cfg, dtype="float32")
+        fp32 = tf.forward_full(fp32_cfg, {k: v.float() for k, v in
+                                          local.params.items()},
+                               small["tokens"], impl="ref")[0][:, -1]
+        bf16 = tf.forward_full(cfg, local.params, small["tokens"],
+                               impl="ref")[0][:, -1].float()
+        plain_bf16_vs_fp32 = {"shape": small["shape"], "rel_err": (
+            (bf16 - fp32).abs().max() / fp32.abs().max()).item()}
+        del fp32, bf16
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3590,10 +3954,18 @@ def phase_slice_engine(torch, seed: int, phase: str,
                                             {"inputs": e["tokens"]}), top=6)
     walls = sorted(held_pass["walls"])
     generated = n_req * (ENGINE_MAX_NEW + 1)
+    moe = {}
+    if not from_image:
+        moe = {"free_bytes_before": free_before,
+               "weight_bytes": sum(v.numel() * v.element_size()
+                                   for v in params.values()),
+               "decode_bound_4_slots": decode_bytes_bound(
+                   cfg, local.params, local._cache, pos.tolist())}
     emit(phase, model=cfg.name, layers=cfg.num_layers,
          dtype=cfg.dtype, slots=ENGINE_SLOTS, max_seq=ENGINE_MAX_SEQ,
          prompts=list(ENGINE_PROMPTS), max_new=ENGINE_MAX_NEW,
-         image_bytes=len(image), init_s=t_init, pack_s=t_pack,
+         image_bytes=len(image) if from_image else None, init_s=t_init,
+         pack_s=t_pack,
          pin_s=pin_s, decode_capture_s=served_step.graph.capture_s,
          cache_bytes={k: c.numel() * c.element_size()
                       for k, c in eng._cache.items()},
@@ -3631,11 +4003,13 @@ def phase_slice_engine(torch, seed: int, phase: str,
          decode_replay_device_ms=replay_device_ms,
          decode_step_4_slots=decode_time,
          decode_step_4_slots_eager=decode_eager_time,
-         prefill_by_shape=prefill_time)
+         prefill_by_shape=prefill_time, **moe)
     if keep is not None:
         keep.update(fs=fs, driver=driver,
                     tokens=[t.tolist() for t in held_pass["tokens"]])
     del eng, local, compiled, served_step, replay, image, fs, driver
+    if not from_image:
+        del params
     gc.collect()
     torch.cuda.empty_cache()
     return {phase: launches}
@@ -4009,7 +4383,8 @@ GPU_TESTS = {"graphs_gpu_tests": "tests/test_torch_graphs_gpu.py",
              "engine_gpu_tests": "tests/test_torch_engine_gpu.py",
              "paged_gpu_tests": "tests/test_torch_paged_gpu.py",
              "partition_gpu_tests": "tests/test_torch_partition_gpu.py",
-             "fleet_gpu_tests": "tests/test_torch_fleet_gpu.py"}
+             "fleet_gpu_tests": "tests/test_torch_fleet_gpu.py",
+             "autotune_gpu_tests": "tests/test_torch_autotune_gpu.py"}
 
 
 def start_gpu_tests(phase: str):
@@ -4043,7 +4418,7 @@ def phase_gpu_tests() -> None:
             marked = {}
             for mark in ("GROUPED_PREFILL ", "PAGED_VS_DENSE ",
                          "STREAM_ORDER ", "FREED_EDGE ", "FLIP_ORDER ",
-                         "SWAP_MEMORY "):
+                         "SWAP_MEMORY ", "AUTOTUNE_GPU "):
                 # after a test's progress dot, maybe
                 found = [json.loads(ln[ln.index(mark) + len(mark):])
                          for ln in lines if mark in ln]
@@ -4093,6 +4468,8 @@ def main() -> int:
             phase_ssm_scan(torch, args.seed, info["ptxas"]),
             phase_wkv6(torch, args.seed),
             phase_int8_matmul(torch, args.seed)]
+    # the kernel autotune cache: swept, reloaded at provision, served
+    by_path = phase_autotune(torch, args.seed)
 
     # 3. two-layer full-width fp32 programs
     models = {"slice": get_config("qwen2-1.5b"),
@@ -4101,9 +4478,10 @@ def main() -> int:
     for cfg in models.values():
         phase_two_layer_fp32(torch, cfg, args.seed)
 
+    phase_two_layer_fp32(torch, get_config(MOE_MODEL), args.seed)
+
     # 4. the served paths, at full depth; each kernel's launches on each,
     # fused and batched too
-    by_path = {}
     qwen2_keep, resnet_keep = {}, {}
     for phase, cfg in models.items():
         by_path.update(phase_slice(torch, cfg, args.seed, phase,
@@ -4162,6 +4540,19 @@ def main() -> int:
         engine_prompts(args.seed, get_config("rwkv6-1.6b").vocab_size), 1,
         "float32", gate_recompute=True)
     by_path.update(phase_slice_engine(torch, args.seed, "slice_engine_ssm"))
+    # the moe family: moonshot's 2-layer program served, its engine at one
+    # dropless fp32 layer, then at full depth with its weights on the card
+    moe2 = dataclasses.replace(get_config(MOE_MODEL), num_layers=2)
+    moe_paths = phase_slice(torch, moe2, args.seed, "slice_moe")
+    by_path.update({f"{k}-2-layers": v for k, v in moe_paths.items()})
+    moe_cfg = get_config(MOE_MODEL)
+    phase_engine_reduced_depth(
+        torch, args.seed, MOE_MODEL,
+        engine_prompts(args.seed, moe_cfg.vocab_size), 1, "float32",
+        gate_recompute=True, capacity=float(moe_cfg.num_experts))
+    by_path.update(phase_slice_engine(torch, args.seed, "slice_engine_moe"))
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # the card-only tests of the fused and batched graphs and of the
     # engine's compiled steps

@@ -1,6 +1,7 @@
 """Model configurations: the port's copy of ``repro.configs.base``.
 
-Every architecture is a frozen ``ModelConfig``. Reduced ("smoke") variants
+Every architecture is a frozen ``ModelConfig``; input shapes are
+``ShapeConfig``s. Reduced ("smoke") variants
 are derived mechanically, so the CPU tests run the same code path as the
 full configurations. Field names, defaults and ``smoke()`` match the JAX
 package exactly: both packages must compile the same configuration to the
@@ -143,6 +144,40 @@ def _smoke_kv(cfg: ModelConfig) -> int:
     if cfg.num_kv_heads == cfg.num_heads:       # MHA stays MHA
         return q
     return max(1, min(2, cfg.num_kv_heads))     # GQA stays grouped
+
+
+# ---------------------------------------------------------------------------
+# Input shapes
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    kind: str            # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+    def smoke(self) -> "ShapeConfig":
+        return dataclasses.replace(
+            self, name=self.name + "-smoke",
+            seq_len=min(32, self.seq_len), global_batch=min(4, self.global_batch))
+
+
+SHAPES = {
+    "train_4k":    ShapeConfig("train_4k", "train", 4_096, 256),
+    "prefill_32k": ShapeConfig("prefill_32k", "prefill", 32_768, 32),
+    "decode_32k":  ShapeConfig("decode_32k", "decode", 32_768, 128),
+    "long_500k":   ShapeConfig("long_500k", "decode", 524_288, 1),
+}
+
+
+def applicable_shapes(cfg: ModelConfig) -> list[str]:
+    """Shape cells for an architecture (long_500k only for sub-quadratic)."""
+    names = ["train_4k", "prefill_32k", "decode_32k"]
+    if cfg.subquadratic:
+        names.append("long_500k")
+    return names
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,19 @@
+"""Mistral-Nemo-12B — dense GQA, 128k context.
+
+[hf:mistralai/Mistral-Nemo-Base-2407] 40L d_model=5120 32H (GQA kv=8,
+head_dim=128) d_ff=14336 vocab=131072.
+"""
+from repro_torch.configs.base import ModelConfig, register
+
+CONFIG = register(ModelConfig(
+    name="mistral-nemo-12b",
+    family="dense",
+    num_layers=40,
+    d_model=5120,
+    num_heads=32,
+    num_kv_heads=8,
+    head_dim=128,
+    d_ff=14336,
+    vocab_size=131072,
+    rope_theta=1_000_000.0,
+))

@@ -35,8 +35,8 @@ def gemm(a, b, attrs):
 
 
 def gemm_i8(a, b, attrs):
-    from repro_torch.kernels.int8_matmul.ops import int8_matmul_i32
-    return int8_matmul_i32(a, b)
+    from repro_torch.kernels import registry
+    return registry.call("matmul_int8_i32", a, b)
 
 
 def same_pads(size: int, window: int, stride: int) -> tuple:
@@ -85,14 +85,16 @@ def _im2col_nhwc(x, kh: int, kw: int, stride, pads):
 
 
 def conv2d_i8(x, w, attrs):
-    """int8 x (N,H,W,C), int8 w (KH,KW,C,O) -> exact int32 (N,OH,OW,O)."""
-    from repro_torch.kernels.int8_matmul.ops import int8_matmul_i32
+    """int8 x (N,H,W,C), int8 w (KH,KW,C,O) -> exact int32 (N,OH,OW,O):
+    im2col, then the INT8 GEMM kernel through the registry (its tuned
+    plan, where the autotune cache holds one)."""
+    from repro_torch.kernels import registry
     stride = tuple(attrs.get("stride", (1, 1)))
     kh, kw, c, o = w.shape
     pads = _pads(x.shape[1:3], (kh, kw), stride,
                  attrs.get("padding", "SAME"))
     cols, (n, oh, ow) = _im2col_nhwc(x, kh, kw, stride, pads)
-    y = int8_matmul_i32(cols, w.reshape(kh * kw * c, o))
+    y = registry.call("matmul_int8_i32", cols, w.reshape(kh * kw * c, o))
     return y.reshape(n, oh, ow, o)
 
 

@@ -4,18 +4,18 @@ The port's counterpart of ``repro.core.rctc``: the paper's Conv2D -> ReLU ->
 Softmax pipeline (``compile_conv_relu_softmax``), ResNet-18 in fp32 and INT8
 (``compile_resnet18``: one op per conv / folded BN / relu / residual add /
 pool, the INT8 variant quantizing around every conv), and the per-layer LM
-lowering of the dense, hybrid and ssm families: every attention,
-projection, norm and residual of the layer stack becomes its own RCB op —
-``Op.ATTENTION``, ``Op.SSM_SCAN`` and ``Op.WKV6`` dispatch through the
-kernel registry, the glue (RMSNORM / ROPE / SILU_MUL / SCALE_SHIFT / GEMM /
-ADD / RESHAPE) through the generic vtable, and the Mamba branch's projections and the
-RWKV-6 token-shift mixes run as ``GRAPH_EXEC`` artifacts (plain torch
-callables) — and the weights flatten into a RIMFS image; and the LM
-serving engines' service programs (``compile_lm_service``,
-``compile_paged_lm_service``). From the same
+lowering of every LM family (dense, vlm and audio on pre-embedded
+input, moe, hybrid and ssm): every attention, projection, norm and
+residual of the layer stack becomes its own RCB op — ``Op.ATTENTION``,
+``Op.SSM_SCAN`` and ``Op.WKV6`` dispatch through the kernel registry, the
+glue (RMSNORM / ROPE / SILU_MUL / SCALE_SHIFT / GEMM / ADD / RESHAPE)
+through the generic vtable, and the Mamba branch's projections, the
+RWKV-6 token-shift mixes and the expert FFN run as ``GRAPH_EXEC``
+artifacts (plain torch callables) — and the weights flatten into a RIMFS
+image; and the LM serving engines' service programs
+(``compile_lm_service``, ``compile_paged_lm_service``). From the same
 parameters it emits the same program bytes and the same image bytes as the
-JAX package. Other LM families (experts, vision, audio) raise
-``NotImplementedError``. The microbenchmark programs (pass-through,
+JAX package. The microbenchmark programs (pass-through,
 transfer chains, GEMM, the DMA pipelines and the GEMM chain the partition
 tests cut) come out byte-identical too.
 """
@@ -31,7 +31,7 @@ from repro_torch.core import opt as opt_mod
 from repro_torch.core import rimfs as rimfs_mod
 from repro_torch.core.rcb import Op, RCB, RCBOp, RCBProgram, TensorDesc
 from repro_torch.dtypes import as_tensor, name_of, torch_dtype
-from repro_torch.models import mamba, rwkv6
+from repro_torch.models import mamba, mlp, rwkv6
 
 
 class _Builder:
@@ -445,6 +445,12 @@ def _rwkv_cm_artifact(cfg, keys):
     return fn
 
 
+def _moe_artifact(cfg, keys):
+    def fn(h, *ws):
+        return mlp.moe_ffn(cfg, dict(zip(keys, ws)), h)[0]
+    return fn
+
+
 def compile_transformer_block(cfg, params: dict, batch: int, seq_len: int,
                               optimize: bool = True):
     """Translate an LM's layer stack into a per-layer RCB program.
@@ -456,8 +462,10 @@ def compile_transformer_block(cfg, params: dict, batch: int, seq_len: int,
     (B,S,V). Returns (RCBProgram, RIMFS image bytes); the glue artifacts
     ride on the program under the JAX package's ids (hybrid:
     ``L{li}.ssm_pre``, ``L{li}.ssm_post``; ssm: ``L{li}.tm_pre``,
-    ``L{li}.tm_post``, ``L{li}.cm``)."""
-    from repro_torch.models.transformer import check_ported, split_params
+    ``L{li}.tm_post``, ``L{li}.cm``; moe: ``L{li}.moe``, the whole
+    expert FFN)."""
+    from repro_torch.models.transformer import (check_ported, has_experts,
+                                                split_params)
 
     check_ported(cfg)
     if cfg.attention == "sliding" and seq_len > cfg.sliding_window:
@@ -551,6 +559,17 @@ def compile_transformer_block(cfg, params: dict, batch: int, seq_len: int,
         b.emit(Op.GEMM, [o], [m, wo])
         return o
 
+    def emit_moe(h2, li, pl):
+        keys = ["router", "we_gate", "we_up", "we_out"]
+        if cfg.moe_dense_residual:
+            keys += ["dense_wi_gate", "dense_wi_up", "dense_wo"]
+        srcs = [h2] + layer_weights(li, pl, keys)
+        y2 = b.scratch((B, S, d), dt, "moe")
+        name = f"L{li}.moe"
+        artifacts[name] = _moe_artifact(cfg, keys)
+        b.emit(Op.GRAPH_EXEC, [y2], srcs, artifact=name)
+        return y2
+
     def emit_mamba(h, li, pl):
         di, N = cfg.d_model, cfg.ssm_state
         pre_keys = ["m_in", "m_x", "m_dt", "m_dt_b", "m_alog"]
@@ -630,7 +649,8 @@ def compile_transformer_block(cfg, params: dict, batch: int, seq_len: int,
         else:
             x = emit_add(x, ya)
         h2 = emit_rmsnorm(x, f"L{li}.ln2", pl["ln2"])
-        x = emit_add(x, emit_swiglu(h2, li, pl))
+        ffn = emit_moe if has_experts(cfg) else emit_swiglu
+        x = emit_add(x, ffn(h2, li, pl))
         b.close_block("layer")
 
     xf = emit_rmsnorm(x, "final_norm", glob["final_norm"])

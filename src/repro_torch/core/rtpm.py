@@ -578,7 +578,9 @@ class Platform:
                   verify: bool = True) -> None:
         """Paper phase 1: load the model binary (RCBs + weights). Nothing
         parses before its CRC checks out: the program's whole-program CRC,
-        the image's trailer CRC; then every file's CRC, before any bind."""
+        the image's trailer CRC; then every file's CRC, before any bind.
+        An image holding ``kernels/autotune.json`` loads its winner table
+        into the kernel registry and posts ``autotune_loaded``."""
         if program_bytes is not None:
             program = RCBProgram.decode(bytes(program_bytes))
         if image is not None:
@@ -591,6 +593,14 @@ class Platform:
             if self.rimfs is not None:           # a re-provision frees the
                 self.rimfs.unpin_all()           # old image's arena ranges
             self.rimfs = fs
+            # the autotune cache's reload: an image carrying the kernel
+            # registry's winner table installs it now (merged, an existing
+            # key wins), so the kernels run their tuned plans with zero
+            # sweep trials
+            from repro_torch.kernels import registry as kreg
+            if kreg.AUTOTUNE_FILE in fs.files():
+                n = kreg.load_image(fs)
+                self.events.post("autotune_loaded", {"entries": n})
         if program is not None:
             self.program = program
         self._ready_at = time.perf_counter()

@@ -11,7 +11,9 @@ raise; on CPU tensors they compute the plain version (``ref.py``). Nothing
 falls back from one to the other. Under ``torch.func.vmap`` the lane axis
 folds into M when only x carries it, else the kernel launches once per
 lane. ``int8_matmul.launches`` counts the kernel's launches through
-either wrapper.
+either wrapper. Each takes a ``plan`` ({"tile": code, "splits": n}, an
+autotuned winner from ``kernels/registry.py``); without one the kernel
+takes ``plan_for``'s.
 """
 from __future__ import annotations
 
@@ -127,11 +129,51 @@ def splits_for(m: int, n: int, k: int, sms: int) -> int:
     return plan_for(m, n, k, sms)[1]
 
 
-def _launch(x, w, scale, out, out_code: int) -> torch.Tensor:
+def normal_splits(k: int, want: int) -> int:
+    """``want`` K splits as the kernel takes them: each split the same
+    number of k steps, none left empty (``plan_for``'s rule)."""
+    steps = -(-k // _STEP_K)
+    per = -(-steps // max(1, min(int(want), steps)))
+    return -(-steps // per)
+
+
+def candidates(m: int, n: int, k: int, sms: int) -> list:
+    """The plans an autotune sweep times at one shape: every tile, each
+    with K unsplit and split 2 to 16 ways where every split keeps
+    ``_MIN_STEPS_PER_SPLIT`` k steps; ``plan_for``'s plan first."""
+    tile, splits = plan_for(m, n, k, sms)
+    out = [{"tile": tile, "splits": splits}]
+    steps = -(-k // _STEP_K)
+    for code in range(len(TILES)):
+        for want in (1, 2, 3, 4, 6, 8, 12, 16):
+            if want > 1 and steps // want < _MIN_STEPS_PER_SPLIT:
+                continue
+            plan = {"tile": code, "splits": normal_splits(k, want)}
+            if plan not in out:
+                out.append(plan)
+    return out
+
+
+def _plan_args(plan) -> tuple:
+    """A plan dict as the custom ops' (tile, splits) ints; (-1, 0) is
+    ``plan_for``'s plan."""
+    if plan is None:
+        return -1, 0
+    tile, splits = int(plan["tile"]), int(plan["splits"])
+    if not 0 <= tile < len(TILES) or splits < 1:
+        raise ValueError(f"int8_matmul: bad plan {plan!r}")
+    return tile, splits
+
+
+def _launch(x, w, scale, out, out_code: int, tile: int = -1,
+            splits: int = 0) -> torch.Tensor:
     m, k = x.shape
     n = w.shape[1]
     x, w = x.contiguous(), w.contiguous()
-    tile, splits = plan_for(m, n, k, sm_count(x.device.index))
+    if tile < 0:
+        tile, splits = plan_for(m, n, k, sm_count(x.device.index))
+    else:
+        splits = normal_splits(k, splits)
     acc = None
     if splits > 1 and out_code >= 0:
         acc = torch.empty((m, n), dtype=torch.int32, device=x.device)
@@ -148,55 +190,60 @@ def _launch(x, w, scale, out, out_code: int) -> torch.Tensor:
 
 
 def int8_matmul(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
-                out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                out_dtype: torch.dtype = torch.float32,
+                plan=None) -> torch.Tensor:
     """x: (M, K) int8; w: (K, N) int8; scale: (N,) floating, per output
     channel, already times the activation scale. Returns
-    ``f32(x @ w) * scale`` as (M, N) ``out_dtype``."""
+    ``f32(x @ w) * scale`` as (M, N) ``out_dtype``. ``plan``: the tile
+    and K splits on CUDA (``plan_for``'s when None); every plan gives the
+    same bits."""
     check_contract(x, w, scale)
     if out_dtype not in FLOAT_DTYPES:
         raise ValueError(f"int8_matmul: unsupported out_dtype {out_dtype}; "
                          f"supported: float32, bfloat16, float16")
     _device_of(x, w, scale)
-    return _scaled_op(x, w, scale, name_of(out_dtype))
+    return _scaled_op(x, w, scale, name_of(out_dtype), *_plan_args(plan))
 
 
-def int8_matmul_i32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def int8_matmul_i32(x: torch.Tensor, w: torch.Tensor,
+                    plan=None) -> torch.Tensor:
     """x: (M, K) int8; w: (K, N) int8. Returns the exact int32 sums."""
     check_contract_i32(x, w)
     _device_of(x, w)
-    return _i32_op(x, w)
+    return _i32_op(x, w, *_plan_args(plan))
 
 
 @torch.library.custom_op(
     "aeg::int8_matmul", mutates_args=(), device_types="cpu",
-    schema="(Tensor x, Tensor w, Tensor scale, str out_dtype) -> Tensor")
-def _scaled_op(x, w, scale, out_dtype):
+    schema="(Tensor x, Tensor w, Tensor scale, str out_dtype, int tile, "
+           "int splits) -> Tensor")
+def _scaled_op(x, w, scale, out_dtype, tile, splits):
     """The op ``int8_matmul`` dispatches to: the plain version on the CPU,
     the hand kernel on CUDA, nothing elsewhere."""
     return int8_matmul_ref(x, w, scale, torch_dtype(out_dtype))
 
 
 @_scaled_op.register_kernel("cuda")
-def _scaled_cuda(x, w, scale, out_dtype):
+def _scaled_cuda(x, w, scale, out_dtype, tile, splits):
     dt = torch_dtype(out_dtype)
     scale = scale.float().contiguous()   # exact, as the TPU kernel reads it
     out = torch.empty((x.shape[0], w.shape[1]), dtype=dt, device=x.device)
-    return _launch(x, w, scale, out, DTYPE_CODE[dt])
+    return _launch(x, w, scale, out, DTYPE_CODE[dt], tile, splits)
 
 
 @torch.library.custom_op(
     "aeg::int8_matmul_i32", mutates_args=(), device_types="cpu",
-    schema="(Tensor x, Tensor w) -> Tensor")
-def _i32_op(x, w):
+    schema="(Tensor x, Tensor w, int tile, int splits) -> Tensor")
+def _i32_op(x, w, tile, splits):
     """The op ``int8_matmul_i32`` dispatches to, as ``_scaled_op``."""
     return int8_matmul_i32_ref(x, w)
 
 
 @_i32_op.register_kernel("cuda")
-def _i32_cuda(x, w):
+def _i32_cuda(x, w, tile, splits):
     out = torch.empty((x.shape[0], w.shape[1]), dtype=torch.int32,
                       device=x.device)
-    return _launch(x, w, None, out, -1)
+    return _launch(x, w, None, out, -1, tile, splits)
 
 
 def _lanes(op, info, in_dims, tensors, extra=()):
@@ -216,10 +263,11 @@ def _lanes(op, info, in_dims, tensors, extra=()):
 
 
 _scaled_op.register_vmap(
-    lambda info, in_dims, x, w, scale, out_dtype: _lanes(
-        _scaled_op, info, in_dims, (x, w, scale), (out_dtype,)))
+    lambda info, in_dims, x, w, scale, out_dtype, tile, splits: _lanes(
+        _scaled_op, info, in_dims, (x, w, scale), (out_dtype, tile, splits)))
 _i32_op.register_vmap(
-    lambda info, in_dims, x, w: _lanes(_i32_op, info, in_dims, (x, w)))
+    lambda info, in_dims, x, w, tile, splits: _lanes(
+        _i32_op, info, in_dims, (x, w), (tile, splits)))
 
 
 int8_matmul.launches = 0

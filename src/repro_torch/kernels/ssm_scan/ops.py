@@ -8,7 +8,10 @@ picks the instance and its launch shape. On a CPU tensor it computes the
 plain version (``ref.py``). Nothing falls back from one to the other. The
 wrapper reaches either through the custom op ``torch.ops.aeg.ssm_scan``,
 whose vmap rule folds the lane axis into B (one launch for every lane).
-``ssm_scan.launches`` counts kernel launches.
+``ssm_scan.launches`` counts kernel launches. A ``plan`` ({"instance":
+"ring", "w": W} or {"instance": "rowwise"}, an autotuned winner from
+``kernels/registry.py``) takes the place of ``plan_for``'s where the ring
+can run at all; both instances give the same bits.
 """
 from __future__ import annotations
 
@@ -115,11 +118,40 @@ def aligned16(*tensors) -> bool:
     return all(a.data_ptr() % 16 == 0 for a in tensors)
 
 
-def plan_of(da, bx, c) -> Plan:
-    """The plan the wrapper takes for these (contiguous, CUDA) operands."""
+def plan_of(da, bx, c, ring_w: int = 0) -> Plan:
+    """The plan the wrapper takes for these (contiguous, CUDA) operands:
+    ``plan_for``'s (``ring_w`` 0), the row-wise instance (-1) or the ring
+    at W = ``ring_w`` lanes. Where the ring cannot run (rows not of 16-byte
+    units, an unaligned operand) it is the row-wise instance whatever
+    ``ring_w``."""
     b, _, di, n = da.shape
-    return plan_for(b, di, n, da.dtype, sm_count(da.device.index),
-                    aligned16(da, bx, c))
+    default = plan_for(b, di, n, da.dtype, sm_count(da.device.index),
+                       aligned16(da, bx, c))
+    if ring_w == 0 or default.instance == ROWWISE:
+        return default
+    if ring_w < 0:
+        return rowwise_plan(b, di, n)
+    return ring_plan(b, di, n, da.element_size(), ring_w, STAGE_STEPS,
+                     DEPTH)
+
+
+def candidates() -> list:
+    """The plans an autotune sweep times: the ring at each of
+    ``RING_WIDTHS``, then the row-wise instance."""
+    return [{"instance": RING, "w": w} for w in RING_WIDTHS] + \
+        [{"instance": ROWWISE}]
+
+
+def _ring_w(plan) -> int:
+    """A plan dict as the custom op's int: 0 is ``plan_for``'s plan, -1 the
+    row-wise instance, W > 0 the ring at W lanes."""
+    if plan is None:
+        return 0
+    if plan["instance"] == ROWWISE:
+        return -1
+    if plan["instance"] != RING or int(plan["w"]) not in RING_WIDTHS:
+        raise ValueError(f"ssm_scan: bad plan {plan!r}")
+    return int(plan["w"])
 
 
 def run_plan(da, bx, c, plan: Plan) -> torch.Tensor:
@@ -145,8 +177,8 @@ def run_plan(da, bx, c, plan: Plan) -> torch.Tensor:
     return y
 
 
-def ssm_scan(da: torch.Tensor, bx: torch.Tensor,
-             c: torch.Tensor) -> torch.Tensor:
+def ssm_scan(da: torch.Tensor, bx: torch.Tensor, c: torch.Tensor,
+             plan=None) -> torch.Tensor:
     """da/bx: (B,T,di,N) with da the per-step log-decay (<= 0); c: (B,T,N).
     Returns y (B,T,di) in da's dtype, from a zero initial state."""
     check_contract(da, bx, c)
@@ -160,36 +192,37 @@ def ssm_scan(da: torch.Tensor, bx: torch.Tensor,
                          f"{sorted(map(str, devices))}")
     if da.device.type not in ("cpu", "cuda"):
         raise ValueError(f"ssm_scan: unsupported device {da.device}")
-    return _ssm_scan_op(da, bx, c)
+    return _ssm_scan_op(da, bx, c, _ring_w(plan))
 
 
 @torch.library.custom_op(
     "aeg::ssm_scan", mutates_args=(), device_types="cpu",
-    schema="(Tensor da, Tensor bx, Tensor c) -> Tensor")
-def _ssm_scan_op(da, bx, c):
+    schema="(Tensor da, Tensor bx, Tensor c, int ring_w) -> Tensor")
+def _ssm_scan_op(da, bx, c, ring_w):
     """The op ``ssm_scan`` dispatches to: the plain version on the CPU, the
     hand kernel on CUDA (``_launch``), nothing elsewhere."""
     return ssm_scan_ref(da, bx, c)
 
 
 @_ssm_scan_op.register_kernel("cuda")
-def _launch(da, bx, c):
+def _launch(da, bx, c, ring_w):
     if bx.dtype != da.dtype or c.dtype != da.dtype:
         raise ValueError(f"ssm_scan: the kernel takes one dtype, got "
                          f"da {da.dtype}, bx {bx.dtype}, c {c.dtype}")
     da, bx, c = da.contiguous(), bx.contiguous(), c.contiguous()
-    y = run_plan(da, bx, c, plan_of(da, bx, c))
+    y = run_plan(da, bx, c, plan_of(da, bx, c, ring_w))
     ssm_scan.launches += 1
     return y
 
 
 @_ssm_scan_op.register_vmap
-def _vmap(info, in_dims, da, bx, c):
+def _vmap(info, in_dims, da, bx, c, ring_w):
     """Under ``torch.func.vmap`` the lane axis folds into B: one launch
     covers every lane."""
     n = info.batch_size
-    return unfold_lanes(n, _ssm_scan_op(*fold_lanes(n, in_dims,
-                                                    (da, bx, c)))), 0
+    return unfold_lanes(n, _ssm_scan_op(*fold_lanes(n, in_dims[:3],
+                                                    (da, bx, c)),
+                                        ring_w)), 0
 
 
 ssm_scan.launches = 0

@@ -6,7 +6,10 @@ version (``ref.py``). Nothing falls back from one to the other. The wrapper
 reaches either through the custom op ``torch.ops.aeg.wkv6``, whose vmap rule
 folds the lane axis into B. ``wkv6.launches`` counts calls that launched the scan: each is two kernel
 launches (local chunk states, then outputs), three above ``INBLOCK_CHUNKS``
-chunks of 64 steps, where a carry kernel builds the entering states.
+chunks of 64 steps, where a carry kernel builds the entering states. A
+``plan`` ({"states": "inblock"} or {"states": "carry"}, an autotuned
+winner from ``kernels/registry.py``) picks the build whatever the number of
+chunks; the two agree within the kernel's tolerance.
 """
 from __future__ import annotations
 
@@ -22,6 +25,24 @@ HEAD_SIZES = (8, 16, 32, 64)      # the CUDA kernel's template instances
 # itself; above, the carry kernel does. On an H100 the in-block build was
 # ahead up to 11 chunks (T = 704) and behind from 12 (PERF.md, "wkv6").
 INBLOCK_CHUNKS = 11
+INBLOCK, CARRY = "inblock", "carry"
+_ALWAYS_INBLOCK = 1 << 30          # more chunks than any T gives
+
+
+def candidates() -> list:
+    """The plans an autotune sweep times: each output block building its
+    entering states, then the carry kernel building them."""
+    return [{"states": INBLOCK}, {"states": CARRY}]
+
+
+def _max_inblock(plan) -> int:
+    """A plan dict as the custom op's int: the most chunks the in-block
+    build takes (-1: ``INBLOCK_CHUNKS``)."""
+    if plan is None:
+        return -1
+    if plan["states"] not in (INBLOCK, CARRY):
+        raise ValueError(f"wkv6: bad plan {plan!r}")
+    return _ALWAYS_INBLOCK if plan["states"] == INBLOCK else 0
 
 
 def check_contract(r, k, v, lw, u) -> None:
@@ -47,7 +68,7 @@ def check_contract(r, k, v, lw, u) -> None:
 
 
 def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-         lw: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+         lw: torch.Tensor, u: torch.Tensor, plan=None) -> torch.Tensor:
     """r/k/v/lw: (B,T,H,K) with lw the per-step log-decay (<= 0); u: (H,K)
     the bonus. Returns y (B,T,H,K) in r's dtype, from a zero state."""
     check_contract(r, k, v, lw, u)
@@ -61,20 +82,21 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{sorted(map(str, devices))}")
     if r.device.type not in ("cpu", "cuda"):
         raise ValueError(f"wkv6: unsupported device {r.device}")
-    return _wkv6_op(r, k, v, lw, u)
+    return _wkv6_op(r, k, v, lw, u, _max_inblock(plan))
 
 
 @torch.library.custom_op(
     "aeg::wkv6", mutates_args=(), device_types="cpu",
-    schema="(Tensor r, Tensor k, Tensor v, Tensor lw, Tensor u) -> Tensor")
-def _wkv6_op(r, k, v, lw, u):
+    schema="(Tensor r, Tensor k, Tensor v, Tensor lw, Tensor u, "
+           "int max_inblock) -> Tensor")
+def _wkv6_op(r, k, v, lw, u, max_inblock):
     """The op ``wkv6`` dispatches to: the plain version on the CPU, the
     hand kernel on CUDA (``_launch``), nothing elsewhere."""
     return wkv6_ref_bthk(r, k, v, lw, u)
 
 
 @_wkv6_op.register_kernel("cuda")
-def _launch(r, k, v, lw, u):
+def _launch(r, k, v, lw, u, max_inblock):
     if not k.dtype == v.dtype == lw.dtype == r.dtype:
         raise ValueError(f"wkv6: the kernel takes one dtype for r, k, v, lw, "
                          f"got {r.dtype}, {k.dtype}, {v.dtype}, {lw.dtype}")
@@ -93,7 +115,8 @@ def _launch(r, k, v, lw, u):
         err = lib.aeg_wkv6(
             r.data_ptr(), k.data_ptr(), v.data_ptr(), lw.data_ptr(),
             u.data_ptr(), y.data_ptr(), scratch.data_ptr(), b, t, h, kk,
-            DTYPE_CODE[r.dtype], INBLOCK_CHUNKS,
+            DTYPE_CODE[r.dtype],
+            INBLOCK_CHUNKS if max_inblock < 0 else max_inblock,
             torch.cuda.current_stream(r.device).cuda_stream)
     build.check(lib, err, "wkv6")
     wkv6.launches += 1
@@ -101,7 +124,7 @@ def _launch(r, k, v, lw, u):
 
 
 @_wkv6_op.register_vmap
-def _vmap(info, in_dims, r, k, v, lw, u):
+def _vmap(info, in_dims, r, k, v, lw, u, max_inblock):
     """Under ``torch.func.vmap`` the lane axis folds into B: one call
     covers every lane. The kernel takes one u (H, K) for all of B, so a u
     that differs by lane cannot fold, and raises."""
@@ -111,7 +134,7 @@ def _vmap(info, in_dims, r, k, v, lw, u):
                          "the lanes cannot fold into B")
     n = info.batch_size
     r, k, v, lw = fold_lanes(n, in_dims[:4], (r, k, v, lw))
-    return unfold_lanes(n, _wkv6_op(r, k, v, lw, u)), 0
+    return unfold_lanes(n, _wkv6_op(r, k, v, lw, u, max_inblock)), 0
 
 
 wkv6.launches = 0

@@ -29,8 +29,8 @@ def make_prefill_step(cfg: ModelConfig):
     (B,V), cache)``, the cache stacked by layer with ``tf.cache_specs``'
     keys."""
     def prefill_step(params, batch):
-        logits, cache = tf.forward_full(cfg, params, batch["inputs"],
-                                        want_cache=True)
+        logits, cache, _ = tf.forward_full(cfg, params, batch["inputs"],
+                                           want_cache=True)
         return logits[:, -1], cache
     return prefill_step
 
@@ -104,8 +104,8 @@ def make_paged_prefill_step(cfg: ModelConfig):
     block tables. ``paged_prefill_step(params, pool_k, pool_v, {"inputs":
     (B,S), "tables": (B,W)}) -> (last_logits (B,V), pool_k, pool_v)``."""
     def paged_prefill_step(params, pool_k, pool_v, batch):
-        logits, cache = tf.forward_full(cfg, params, batch["inputs"],
-                                        want_cache=True)
+        logits, cache, _ = tf.forward_full(cfg, params, batch["inputs"],
+                                           want_cache=True)
         tf.scatter_prefill_cache(pool_k, pool_v, cache["k"], cache["v"],
                                  batch["tables"])
         return logits[:, -1], pool_k, pool_v

@@ -21,6 +21,9 @@ class ParamSpec(NamedTuple):
     scale: float = 1.0
 
 
+SLICE_DRAW_BYTES = 4 << 30   # a larger fp32 draw goes slice by slice
+
+
 def draw_param(s: ParamSpec, gen: torch.Generator,
                dev: torch.device) -> torch.Tensor:
     """One parameter from ``gen`` on ``dev``, following the JAX package's
@@ -28,25 +31,43 @@ def draw_param(s: ParamSpec, gen: torch.Generator,
     U(0, 1), the rwkv decay base), embed (normal, std d^-1/2) and normal
     (normal truncated at +-3, std scale / sqrt(fan_in)). The values differ
     from the JAX package's (another generator); parity tests carry weights
-    across instead."""
+    across instead.
+
+    Each kind draws in fp32 and casts. Where that fp32 draw would pass
+    ``SLICE_DRAW_BYTES`` (the experts of moonshot-v1-16b-a3b: 35.4 GB a
+    spec), the spec is drawn slice by slice along its leading (layers)
+    axis into a tensor of its own dtype, so the fp32 copy never exceeds
+    one slice. Every smaller spec is drawn whole, as before."""
     dt = torch_dtype(s.dtype)
     if s.init == "zeros":
         return torch.zeros(s.shape, dtype=dt, device=dev)
     if s.init == "ones":
         return torch.ones(s.shape, dtype=dt, device=dev)
+    if len(s.shape) < 2 or math.prod(s.shape) * 4 <= SLICE_DRAW_BYTES:
+        return _draw(s, s.shape, gen, dev).to(dt)
+    out = torch.empty(s.shape, dtype=dt, device=dev)
+    for i in range(s.shape[0]):
+        out[i] = _draw(s, s.shape[1:], gen, dev)
+    return out
+
+
+def _draw(s: ParamSpec, shape: tuple, gen: torch.Generator,
+          dev: torch.device) -> torch.Tensor:
+    """An fp32 draw of ``shape`` (the spec's, or one slice of it) of the
+    spec's init kind; fan-in and scale come from the whole spec."""
     if s.init == "uniform":
-        v = torch.rand(s.shape, generator=gen, device=dev) * 2.0 - 1.0
-        return (v * s.scale).to(dt)
+        v = torch.rand(shape, generator=gen, device=dev) * 2.0 - 1.0
+        return v * s.scale
     if s.init == "decay":
-        v = torch.rand(s.shape, generator=gen, device=dev)
-        return (-6.0 + 5.0 * v).to(dt)
+        v = torch.rand(shape, generator=gen, device=dev)
+        return -6.0 + 5.0 * v
     if s.init == "embed":
-        v = torch.randn(s.shape, generator=gen, device=dev)
-        return (v * s.shape[-1] ** -0.5).to(dt)
+        v = torch.randn(shape, generator=gen, device=dev)
+        return v * s.shape[-1] ** -0.5
     fan_in = s.shape[-2] if len(s.shape) >= 2 else s.shape[-1]
-    v = torch.empty(s.shape, device=dev)
+    v = torch.empty(shape, device=dev)
     torch.nn.init.trunc_normal_(v, 0.0, 1.0, -3.0, 3.0, generator=gen)
-    return (v * (s.scale / math.sqrt(max(1, fan_in)))).to(dt)
+    return v * (s.scale / math.sqrt(max(1, fan_in)))
 
 
 def group_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,

@@ -1,6 +1,7 @@
 """Parameter layout, initialization and input embedding of the LM families
-ported so far (dense; hybrid: attention + Mamba + SwiGLU; ssm: RWKV-6), and
-their forward passes for the serving engine.
+(dense, vlm and audio; moe: attention + a top-k mixture of experts; hybrid:
+attention + Mamba + SwiGLU; ssm: RWKV-6), and their forward passes for the
+serving engine.
 
 The port's counterpart of the parts of ``repro.models.transformer`` and
 ``repro.models.common`` that the per-layer RCB lowering and the engine
@@ -12,7 +13,8 @@ sliding window; plus the SSM state in the hybrid family; the WKV state and
 token-shift rows in the ssm family), ``forward_full`` (prefill: attention
 on the flash-attention kernel, the scans on ``ssm_scan`` and ``wkv6``),
 ``forward_decode`` (one token against the cache, which it writes in place,
-recurrent states included), and for the paged engine (full attention
+recurrent states included; an expert layer routes it as a group of one
+token, which drops nothing), and for the paged engine (full attention
 only) ``forward_decode_paged`` (one token against a KV block pool through
 block tables, written in place) and ``scatter_prefill_cache`` (a dense
 prefill cache into the pool). The reference scans its layers with
@@ -32,19 +34,19 @@ from repro_torch.models import attention as attn
 from repro_torch.models.common import ParamSpec, draw_param, rms_norm
 from repro_torch.models import mamba
 from repro_torch.models import rwkv6 as rwkv
-from repro_torch.models.mlp import swiglu
+from repro_torch.models.mlp import mlp_specs, moe_ffn, moe_specs, swiglu
 
-PORTED_FAMILIES = ("dense", "hybrid", "ssm")
+PORTED_FAMILIES = ("dense", "hybrid", "ssm", "moe", "vlm", "audio")
 
 
 def check_ported(cfg: ModelConfig, engine: bool = False) -> None:
-    """Refuse what the port lacks: experts and families other than dense,
-    hybrid and ssm everywhere; with ``engine`` (the forward passes of the
-    serving engine), also inputs other than tokens."""
-    if cfg.family not in PORTED_FAMILIES or cfg.num_experts:
+    """Refuse what the port lacks: families other than ``PORTED_FAMILIES``
+    everywhere; with ``engine`` (the forward passes of the serving engine),
+    also inputs other than tokens."""
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported to PyTorch yet (dense, "
-            f"hybrid and ssm only, no experts)")
+            f"family {cfg.family!r} is not ported to PyTorch yet "
+            f"({', '.join(PORTED_FAMILIES)} only)")
     if engine and cfg.input_kind != "tokens":
         raise NotImplementedError(
             f"the serving engine's forward passes take tokens only, not "
@@ -54,8 +56,9 @@ def check_ported(cfg: ModelConfig, engine: bool = False) -> None:
 def model_specs(cfg: ModelConfig) -> dict:
     """Stacked parameter specs (names and shapes as in
     ``repro.models.transformer.model_specs``): the norms, embedding and
-    head, then attention and the SwiGLU MLP, plus the Mamba branch in the
-    hybrid family, or the RWKV-6 time and channel mixes in the ssm one."""
+    head, then attention and the SwiGLU MLP (the experts in its place where
+    the config has experts), plus the Mamba branch in the hybrid family, or
+    the RWKV-6 time and channel mixes in the ssm one."""
     check_ported(cfg)
     L, d, V = cfg.num_layers, cfg.d_model, cfg.vocab_size
     dt = cfg.dtype
@@ -71,15 +74,12 @@ def model_specs(cfg: ModelConfig) -> dict:
     if cfg.family == "ssm":
         specs.update(rwkv.rwkv_specs(cfg))
         return specs
-    H, Hkv, D, F = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.d_ff
+    H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     specs.update({
         "wq": ParamSpec((L, d, H, D), dt),
         "wk": ParamSpec((L, d, Hkv, D), dt),
         "wv": ParamSpec((L, d, Hkv, D), dt),
         "wo": ParamSpec((L, H, D, d), dt),
-        "mlp_wi_gate": ParamSpec((L, d, F), dt),
-        "mlp_wi_up": ParamSpec((L, d, F), dt),
-        "mlp_wo": ParamSpec((L, F, d), dt),
     })
     if cfg.qkv_bias:
         specs["bq"] = ParamSpec((L, H, D), dt, "zeros")
@@ -90,7 +90,22 @@ def model_specs(cfg: ModelConfig) -> dict:
         specs["k_norm"] = ParamSpec((L, D), dt, "ones")
     if cfg.family == "hybrid":
         specs.update(mamba.mamba_specs(cfg))
+    specs.update(moe_specs(cfg) if has_experts(cfg) else mlp_specs(cfg))
     return specs
+
+
+def has_experts(cfg: ModelConfig) -> bool:
+    """The FFN is a mixture of experts (the hybrid family ignores
+    ``num_experts``, as the reference does)."""
+    return cfg.num_experts > 0 and cfg.family != "hybrid"
+
+
+def _ffn(cfg: ModelConfig, p: dict, h2):
+    """The block's FFN on the normed hidden state: (y, aux), aux the MoE
+    load-balance loss, None for a SwiGLU."""
+    if has_experts(cfg):
+        return moe_ffn(cfg, p, h2)
+    return swiglu(p, h2), None
 
 
 def init_params(cfg: ModelConfig, seed: int, device="cuda") -> dict:
@@ -146,7 +161,8 @@ def cache_specs(cfg: ModelConfig, batch: int, seq_len: int) -> dict:
 def block_full(cfg: ModelConfig, p: dict, x, positions, want_cache: bool,
                impl=None, rope=None):
     """Full-sequence block from zero recurrent states. Returns (x,
-    cache_entry). ``impl="ref"`` runs every kernel's plain version."""
+    cache_entry, aux), aux the MoE load-balance loss (None without
+    experts). ``impl="ref"`` runs every kernel's plain version."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     cache: dict = {}
     B = x.shape[0]
@@ -162,7 +178,7 @@ def block_full(cfg: ModelConfig, p: dict, x, positions, want_cache: bool,
         if want_cache:
             dt = torch_dtype(cfg.dtype)
             cache = {"wkv": s1, "ts_tm": ts_tm.to(dt), "ts_cm": ts_cm.to(dt)}
-        return x + y2, cache
+        return x + y2, cache, None
     if want_cache:
         ya, (kc, vc) = attn.prefill_attention(cfg, p, h, positions, impl,
                                               rope)
@@ -179,7 +195,8 @@ def block_full(cfg: ModelConfig, p: dict, x, positions, want_cache: bool,
     else:
         x = x + ya
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + swiglu(p, h2), cache
+    y2, aux = _ffn(cfg, p, h2)
+    return x + y2, cache, aux
 
 
 def block_decode(cfg: ModelConfig, p: dict, x, pos, cache: dict,
@@ -208,7 +225,7 @@ def block_decode(cfg: ModelConfig, p: dict, x, pos, cache: dict,
     else:
         x = x + ya
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + swiglu(p, h2), cache
+    return x + _ffn(cfg, p, h2)[0], cache
 
 
 def _slice_layer(tree: dict, i: int) -> dict:
@@ -217,15 +234,21 @@ def _slice_layer(tree: dict, i: int) -> dict:
 
 def run_blocks_full(cfg: ModelConfig, blocks: dict, x, positions,
                     want_cache: bool, impl=None):
+    """Every layer in turn; returns (x, cache, aux), aux summed over the
+    layers from an fp32 zero, as the reference's scan carries it."""
     rope = attn.rope_for(cfg, positions)
     caches = []
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.num_layers):
-        x, c = block_full(cfg, _slice_layer(blocks, i), x, positions,
-                          want_cache, impl, rope)
+        x, c, a = block_full(cfg, _slice_layer(blocks, i), x, positions,
+                             want_cache, impl, rope)
         caches.append(c)
+        if a is not None:
+            aux = aux + a
     if not want_cache:
-        return x, {}
-    return x, {k: torch.stack([c[k] for c in caches]) for k in caches[0]}
+        return x, {}, aux
+    return x, {k: torch.stack([c[k] for c in caches]) for k in caches[0]}, \
+        aux
 
 
 def run_blocks_decode(cfg: ModelConfig, blocks: dict, x, pos, cache: dict):
@@ -254,10 +277,12 @@ def logits_head(cfg: ModelConfig, glob: dict, x):
 def forward_full(cfg: ModelConfig, params: dict, inputs,
                  want_cache: bool = False, impl=None):
     """Prefill forward from zero recurrent states. inputs: (B,S) int
-    tokens. Returns (logits (B,S,V), cache), the cache stacked by layer
+    tokens (the engine's input: a vlm or audio config's embeddings run
+    through ``rctc.compile_transformer_block``'s program). Returns
+    (logits (B,S,V), cache, aux), the cache stacked by layer
     (``cache_specs``' keys; K/V (L,B,S',Hkv,D) with S' = min(S, W) in a
-    sliding window) when ``want_cache``. The reference also returns the MoE
-    auxiliary loss, which is zero for every family ported here.
+    sliding window) when ``want_cache``, aux the MoE load-balance loss
+    summed over the layers (an fp32 zero without experts).
     ``impl="ref"`` runs every kernel (attention, ``ssm_scan``, ``wkv6``) on
     its plain version: a check of the kernels inside the model, which the
     engine never asks for."""
@@ -267,8 +292,9 @@ def forward_full(cfg: ModelConfig, params: dict, inputs,
     B, S = x.shape[:2]
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device)[None].expand(B, S)
-    x, cache = run_blocks_full(cfg, blocks, x, positions, want_cache, impl)
-    return logits_head(cfg, glob, x), cache
+    x, cache, aux = run_blocks_full(cfg, blocks, x, positions, want_cache,
+                                    impl)
+    return logits_head(cfg, glob, x), cache, aux
 
 
 def forward_decode(cfg: ModelConfig, params: dict, inputs, pos, cache: dict):
@@ -304,7 +330,7 @@ def block_decode_paged(cfg: ModelConfig, p: dict, x, pos, pool_k, pool_v,
                                            tables, consts)
     x = x + ya
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + swiglu(p, h2), pool_k, pool_v
+    return x + _ffn(cfg, p, h2)[0], pool_k, pool_v
 
 
 def forward_decode_paged(cfg: ModelConfig, params: dict, inputs, pos,

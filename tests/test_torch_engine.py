@@ -111,14 +111,15 @@ def test_forward_full_logits_and_cache_match_jax(rng):
     jl, jcache, _ = jax_tf.forward_full(jcfg, jp, jnp.asarray(toks),
                                         want_cache=True)
     params = _port_params()
-    tl, tcache = tf.forward_full(cfg, params, toks, want_cache=True)
+    tl, tcache, _ = tf.forward_full(cfg, params, toks,
+                                     want_cache=True)
     _close(tl, jl, LOGITS_TOL)
     for k in ("k", "v"):
         assert tuple(tcache[k].shape) == jcache[k].shape
         _close(tcache[k], jcache[k], OP_TOL)
     # the plain attention the card's check asks for: on the CPU the same
     # function as the kernel's CPU path
-    plain, _ = tf.forward_full(cfg, params, toks, impl="ref")
+    plain, _, _ = tf.forward_full(cfg, params, toks, impl="ref")
     assert torch.equal(plain, tl)
 
 
@@ -146,10 +147,14 @@ def test_forward_decode_after_prefill_matches_jax(rng):
 
 
 def test_engine_path_refuses_the_families_it_lacks():
-    """What the engine path still lacks raises: experts, and input that is
-    not tokens (the vlm and audio frontends)."""
+    """What the engine path still lacks raises: input that is not tokens
+    (the vlm and audio frontends) and a family the port does not have.
+    Experts are served (``tests/test_torch_moe.py``)."""
     base = get_config(CFG)
-    for cfg in (dataclasses.replace(base, num_experts=4),
+    assert set(tf.cache_specs(dataclasses.replace(base, num_experts=4,
+                                                  family="moe"), 1, 8)) \
+        == {"k", "v"}
+    for cfg in (dataclasses.replace(base, family="encoder"),
                 dataclasses.replace(base, input_kind="embeddings")):
         with pytest.raises(NotImplementedError, match="not ported|tokens"):
             tf.cache_specs(cfg, 1, 8)
@@ -247,7 +252,8 @@ def test_engine_matches_an_offline_greedy_recompute(rng):
                2, device="cpu")[0]
     toks, want = list(prompt), []
     for _ in range(5):
-        logits, _ = tf.forward_full(cfg, params, np.asarray(toks)[None])
+        logits, _, _ = tf.forward_full(cfg, params,
+                                       np.asarray(toks)[None])
         want.append(int(torch.argmax(logits[0, -1])))
         toks.append(want[-1])
     assert got == want
@@ -366,8 +372,13 @@ def _hold_engine(server):
     """Keep the dispatcher from stepping the engine (it still parses and
     submits prompts) until the returned event is set."""
     gate = threading.Event()
-    idle = server._loop.on_idle
-    server._loop.on_idle = lambda: idle() if gate.is_set() else False
+
+    def install():
+        # on the dispatcher thread: no call of the old hook is under way
+        idle = server._loop.on_idle
+        server._loop.on_idle = lambda: idle() if gate.is_set() else False
+
+    server.run_on_dispatcher(install)
     return gate
 
 
@@ -439,14 +450,18 @@ def test_in_flight_cap_answers_busy(rng):
     prompts = _prompts(rng, (5, 5), cfg.vocab_size)
     server, client = _lm_server(max_queue=1)
     gate, started = threading.Event(), threading.Event()
-    inner = server._loop.handler
 
-    def gated(item):
-        started.set()
-        gate.wait(30)
-        inner(item)
+    def install():                      # on the dispatcher thread
+        inner = server._loop.handler
 
-    server._loop.handler = gated
+        def gated(item):
+            started.set()
+            gate.wait(30)
+            inner(item)
+
+        server._loop.handler = gated
+
+    server.run_on_dispatcher(install)
     try:
         first = client.infer_async(prompt=prompts[0], max_new=4)
         assert started.wait(10)                 # the first prompt, held

@@ -212,7 +212,8 @@ def test_forward_full_logits_and_state_match_jax(name, S, rng):
     jl, jcache, _ = jax_tf.forward_full(jcfg, jp, jnp.asarray(toks),
                                         want_cache=True)
     params = _port_params(name)
-    tl, tcache = tf.forward_full(cfg, params, toks, want_cache=True)
+    tl, tcache, _ = tf.forward_full(cfg, params, toks,
+                                     want_cache=True)
     _close(tl, jl, LOGITS_TOL)
     assert sorted(tcache) == sorted(jcache)
     for k, v in tcache.items():
@@ -223,7 +224,7 @@ def test_forward_full_logits_and_state_match_jax(name, S, rng):
         _close(v, want, STATE_TOL[k])
         if k in ("k", "v"):
             _close(v[0], want[0], OP_TOL)
-    plain, _ = tf.forward_full(cfg, params, toks, impl="ref")
+    plain, _, _ = tf.forward_full(cfg, params, toks, impl="ref")
     assert torch.equal(plain, tl)
 
 
@@ -287,7 +288,8 @@ def _recompute(cfg, params, prompt, n):
     far, one token at a time."""
     toks, out = list(prompt), []
     for _ in range(n):
-        logits, _ = tf.forward_full(cfg, params, np.asarray(toks)[None])
+        logits, _, _ = tf.forward_full(cfg, params,
+                                       np.asarray(toks)[None])
         out.append(int(torch.argmax(logits[0, -1])))
         toks.append(out[-1])
     return out

@@ -167,6 +167,11 @@ def test_autoscaler_decides_up_on_real_backlog(chain_setup):
             gate.set()
         for rid in rids:
             _check(client.result(rid), 2)
+        # the idle hook may drain the backlog while the burst's kicks, each
+        # counted in the depth, still wait in the dispatcher's queue
+        deadline = time.monotonic() + 10
+        while server._loop.depth() and time.monotonic() < deadline:
+            time.sleep(0.005)
         obs = fleet.observe()                 # drained: pressure gone
         assert fleet.decide(obs) is None and fleet._up_streak == 0
     finally:

@@ -33,7 +33,11 @@ def test_port_imports_no_jax_no_ml_dtypes_no_reference_package():
                  "launch.steps", "checkpoint", "checkpoint.ckpt",
                  "serving.engine", "serving.paged_cache",
                  "serving.paged_engine", "core.partition", "core.fleet",
-                 "serving.overload", "serving.chaos"):
+                 "serving.overload", "serving.chaos", "kernels.registry",
+                 "models.frontends", "configs.moonshot_v1_16b_a3b",
+                 "configs.arctic_480b", "configs.qwen3_14b",
+                 "configs.phi3_medium_14b", "configs.mistral_nemo_12b",
+                 "configs.pixtral_12b", "configs.musicgen_medium"):
         assert "repro_torch." + name in modules
     code = (
         "import importlib, sys\n"

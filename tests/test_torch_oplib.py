@@ -281,8 +281,8 @@ def test_unported_opcode_raises_naming_it(op):
 def test_unported_kernel_raises(name):
     with pytest.raises(NotImplementedError, match=name) as err:
         registry.get(name)
-    assert ("ported: ['attention', 'matmul_int8', 'ssm_scan', 'wkv6']"
-            in str(err.value))
+    assert ("ported: ['attention', 'matmul_int8', 'matmul_int8_i32', "
+            "'ssm_scan', 'wkv6']" in str(err.value))
 
 
 def test_unknown_impl_is_rejected(rng):

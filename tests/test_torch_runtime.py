@@ -193,7 +193,8 @@ def test_arena_holds_offsets_and_refuses_overflow():
 
 
 def test_other_families_are_not_ported():
-    cfg = dataclasses.replace(get_config("qwen2-1.5b-smoke"), family="vlm")
+    cfg = dataclasses.replace(get_config("qwen2-1.5b-smoke"),
+                              family="encoder")
     with pytest.raises(NotImplementedError, match="not ported"):
         tf.model_specs(cfg)
     with pytest.raises(NotImplementedError, match="not ported"):

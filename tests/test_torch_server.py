@@ -102,15 +102,21 @@ def _gate_dispatcher(server):
     """Hold the dispatcher at its next item (and keep the idle hook from
     draining around the gate); returns (gate, started)."""
     gate, started = threading.Event(), threading.Event()
-    inner, idle = server._loop.handler, server._loop.on_idle
 
-    def gated(item):
-        started.set()
-        gate.wait(30)
-        inner(item)
+    def install():
+        # on the dispatcher thread, between items: no call of the old idle
+        # hook is under way, so none can admit a request around the gate
+        inner, idle = server._loop.handler, server._loop.on_idle
 
-    server._loop.handler = gated
-    server._loop.on_idle = lambda: idle() if gate.is_set() else False
+        def gated(item):
+            started.set()
+            gate.wait(30)
+            inner(item)
+
+        server._loop.handler = gated
+        server._loop.on_idle = lambda: idle() if gate.is_set() else False
+
+    server.run_on_dispatcher(install)
     return gate, started
 
 
