@@ -176,6 +176,18 @@ Phases, each printing one JSON line with its times:
      flips and releases (``tests/test_torch_fleet_gpu.py``) and of the
      autotune cache's sweep and reload (``tests/test_torch_autotune_gpu.py``),
      each in a process of its own;
+  7b. training (before the card-only tests): ``train_two_layer_fp32``
+     (qwen2-1.5B at full width, 2 fp32 layers: one training step's loss
+     and every gradient leaf against the port's CPU path), ``slice_train``
+     (``repro_torch.launch.train.main`` at 28 bf16 layers, 30 AdamW steps
+     on ``SyntheticLM`` with a 15.44 GB RIMFS checkpoint at step 20; a
+     second run restored from it ends bit for bit on the first's
+     parameters and moments; no hand kernel launched; step walls,
+     tokens/s, peak memory, save and restore seconds, one step's device
+     time by part and kernel) and ``serve_trained`` (the step-30
+     checkpoint's and the in-memory weights answer the same greedy tokens
+     through two ``ServingEngine``s, 28 ``flash_attention`` a prefill),
+     and the card-only training test (``tests/test_torch_train_gpu.py``);
   8. one ``kernels`` line: per kernel its launches on every served path
      (and on each one's fused and batched paths), its error against its
      plain version, its time, its bound and the library's.
@@ -4379,12 +4391,475 @@ def phase_slice_engine_paged(torch, seed: int, keep: dict) -> dict:
     return {phase: launches}
 
 
+# ---------------------------------------------------------------------------
+# Training: qwen2-1.5B takes AdamW steps, checkpoints, restarts, serves
+# ---------------------------------------------------------------------------
+
+TRAIN_MODEL = "qwen2-1.5b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 16, 128, 30
+TRAIN_LR, TRAIN_CKPT_AT = 3e-3, 20
+TRAIN_LOSS_TOL = 1e-5        # relative: one step's loss, card against CPU
+TRAIN_GRAD_TOL = 1e-4        # of each leaf's max |gradient| (in fp64)
+TRAIN_FP32_GRAD_TOL = 1e-2   # of each leaf's max |gradient| (in fp32)
+ADAMW_TOL = 1e-6             # of each leaf's max: AdamW, card against CPU
+TRAIN_FP32_SHAPE = (2, 64)   # train_two_layer_fp32's (B, S)
+TRAINED_PROMPTS = (128, 100, 64)
+TRAINED_MAX_NEW = 16
+
+
+def train_ckpt_root() -> Path:
+    """The training phases' checkpoints: under the checkout's ignored
+    ``build/``, removed when the phases end (each image is 15.44 GB)."""
+    return Path(__file__).resolve().parent / "build" / "train_ckpt"
+
+
+def train_grads(torch, cfg, params: dict, batch: dict) -> dict:
+    """One training step's loss and gradients through ``make_train_step``'s
+    own ``forward`` and ``backward`` (remat ``"full"``), and the global
+    norm AdamW clips by."""
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim.adamw import global_norm
+    step = make_train_step(cfg, remat=True, remat_policy="full")
+    leaves, total, (loss, _) = step.forward(params, batch)
+    grads = step.backward(leaves, total)
+    return {"loss": float(loss.detach()), "grads": grads,
+            "grad_norm": float(global_norm(grads))}
+
+
+def fp64_train_grads(torch, cfg, params: dict, batch: dict,
+                     device: str) -> dict:
+    """``train_grads`` on ``device`` with the parameters in fp64 and every
+    fp32 cast of the port's code (``Tensor.float``) taken to fp64 for the
+    call. What is built as fp32 stays fp32: on qwen2's path RoPE's inverse
+    frequencies (``rope_freqs``, then multiplied by fp64 positions) and
+    the zero that the MoE aux loss starts from (0 for a dense model). For
+    this check only; the cast is restored after."""
+    cast = torch.Tensor.float
+    torch.Tensor.float = torch.Tensor.double
+    try:
+        return train_grads(
+            torch, cfg, {k: v.to(device, torch.float64)
+                         for k, v in params.items()},
+            {k: torch.as_tensor(v, device=device) for k, v in batch.items()})
+    finally:
+        torch.Tensor.float = cast
+
+
+def grad_errors(torch, got: dict, want: dict) -> dict:
+    """Each leaf's max |got - want| over want's max |value|."""
+    return {k: ((got[k].cpu().double() - want[k].cpu().double()).abs().max()
+                / want[k].abs().max().clamp(min=1e-300)).item()
+            for k in want}
+
+
+def adamw_card_vs_cpu(torch, grads: dict, params: dict, seed: int) -> dict:
+    """One ``adamw_update`` on the card and on the CPU from the same fp32
+    gradients, parameters and state (each device's copy made from the
+    card's tensors): moments drawn from ``seed`` at the
+    clipped gradients' scale (so the gradient term moves each parameter
+    by about lr) and the step count at 9, lr TRAIN_LR. Returns each leaf's
+    max |card - CPU| over the CPU's max, for the parameters, m and v, and
+    both updates' grad_norm and clip_scale."""
+    from repro_torch.optim.adamw import AdamWConfig, AdamWState, adamw_update
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def draw(g):
+        return torch.randn(g.shape, generator=gen, device="cuda") * 1e-5
+    m = {k: draw(g) for k, g in sorted(grads.items())}
+    v = {k: torch.square(draw(g)) for k, g in sorted(grads.items())}
+    out = {}
+    for dev in ("cuda", "cpu"):
+        state = AdamWState(torch.tensor(9, dtype=torch.int32, device=dev),
+                           {k: t.to(dev, copy=True) for k, t in m.items()},
+                           {k: t.to(dev, copy=True) for k, t in v.items()})
+        p, state, gm = adamw_update(
+            AdamWConfig(), {k: g.to(dev) for k, g in grads.items()}, state,
+            {k: t.to(dev, copy=True) for k, t in params.items()},
+            torch.tensor(TRAIN_LR, dtype=torch.float32, device=dev))
+        out[dev] = ({"params": p, "m": state.m, "v": state.v},
+                    {k: float(t) for k, t in gm.items()})
+    errs = {part: grad_errors(torch, out["cuda"][0][part],
+                              out["cpu"][0][part])
+            for part in ("params", "m", "v")}
+    return {"errors": errs, "card": out["cuda"][1], "cpu": out["cpu"][1]}
+
+
+def phase_train_two_layer_fp32(torch, seed: int) -> None:
+    """qwen2-1.5B at full width cut to 2 fp32 layers: one training step
+    (``make_train_step``'s ``forward`` and ``backward``, remat ``"full"``)
+    on the card and through the port's CPU path, on the same weights
+    (drawn on the card) and the same ``SyntheticLM`` batch: its loss,
+    gradient norm and every gradient leaf; then one AdamW update on both
+    (``adamw_card_vs_cpu``). Gates: the fp32 loss within TRAIN_LOSS_TOL
+    relative of the CPU's; each fp32 gradient leaf within
+    TRAIN_FP32_GRAD_TOL of the leaf's max |gradient|; the same step in
+    fp64 (``fp64_train_grads``) on both devices, its loss within
+    TRAIN_LOSS_TOL and each leaf within TRAIN_GRAD_TOL; the AdamW update's
+    parameters, m and v within ADAMW_TOL of each leaf's max; no hand
+    kernel launched. The fp32 limit is wider than the fp64 one because at
+    this random init each fp32 path is off the fp64 step by up to 1.2e-3
+    (the CPU's) and 5.8e-3 (the card's) of a leaf's max, their roundings
+    differing; the same step with the weights in bf16 on the card
+    (printed, ungated) shows what the limit keeps out. This is the card's
+    hold on autograd, remat, the loss and AdamW (JAX is not on this
+    machine; the CPU path is held against it in the tests)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models.transformer import init_params
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(TRAIN_MODEL), num_layers=2,
+                              dtype="float32")
+    B, S = TRAIN_FP32_SHAPE
+    batch = SyntheticLM(cfg.vocab_size, S, B, seed=seed).global_batch_at(0)
+    on_card = {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
+    params = init_params(cfg, seed)
+    before = launches_now()
+    card = train_grads(torch, cfg, params, on_card)
+    card64 = fp64_train_grads(torch, cfg, params, batch, "cuda")
+    bf16 = train_grads(
+        torch, dataclasses.replace(cfg, dtype="bfloat16"),
+        {k: v.to(torch.bfloat16) if v.is_floating_point() else v
+         for k, v in params.items()}, on_card)
+    torch.cuda.synchronize()
+    launched = {k: n - before[k] for k, n in launches_now().items()}
+    t1 = time.perf_counter()
+    host = train_grads(torch, cfg, {k: v.cpu() for k, v in params.items()},
+                       batch)
+    host64 = fp64_train_grads(torch, cfg, params, batch, "cpu")
+    t2 = time.perf_counter()
+    adamw = adamw_card_vs_cpu(torch, card["grads"], params, seed)
+    fp32 = grad_errors(torch, card["grads"], host["grads"])
+    fp64 = grad_errors(torch, card64["grads"], host64["grads"])
+    bad = [k for k, e in fp64.items() if not e <= TRAIN_GRAD_TOL]
+    bad32 = [k for k, e in fp32.items() if not e <= TRAIN_FP32_GRAD_TOL]
+    bad_adamw = [f"{part}/{k}" for part, errs in adamw["errors"].items()
+                 for k, e in errs.items() if not e <= ADAMW_TOL]
+    loss_rel = abs(card["loss"] - host["loss"]) / abs(host["loss"])
+    loss_rel64 = abs(card64["loss"] - host64["loss"]) / abs(host64["loss"])
+    emit("train_two_layer_fp32", model=cfg.name, layers=2, batch=B, seq=S,
+         remat="full", loss=card["loss"], cpu_loss=host["loss"],
+         loss_rel_err=loss_rel, fp64_loss=card64["loss"],
+         fp64_cpu_loss=host64["loss"], fp64_loss_rel_err=loss_rel64,
+         loss_tol=TRAIN_LOSS_TOL, grad_norm=card["grad_norm"],
+         cpu_grad_norm=host["grad_norm"], fp64_grad_norm=host64["grad_norm"],
+         grad_tol=TRAIN_GRAD_TOL, fp32_grad_tol=TRAIN_FP32_GRAD_TOL,
+         fp64_card_vs_cpu=fp64, fp32_card_vs_cpu=fp32,
+         fp32_card_vs_cpu_max=max(fp32.values()),
+         bf16_card_vs_cpu=grad_errors(torch, bf16["grads"], host["grads"]),
+         bf16_card_vs_cpu_max=max(grad_errors(
+             torch, bf16["grads"], host["grads"]).values()),
+         fp32_card_vs_fp64=grad_errors(torch, card["grads"],
+                                       host64["grads"]),
+         fp32_cpu_vs_fp64=grad_errors(torch, host["grads"],
+                                      host64["grads"]),
+         adamw_tol=ADAMW_TOL, adamw_card_vs_cpu=adamw["errors"],
+         adamw_card_vs_cpu_max={part: max(errs.values()) for part, errs in
+                                adamw["errors"].items()},
+         adamw_card=adamw["card"], adamw_cpu=adamw["cpu"],
+         kernel_launches=launched, card_s=t1 - t0, cpu_s=t2 - t1,
+         adamw_s=time.perf_counter() - t2)
+    if not (math.isfinite(card["loss"]) and loss_rel <= TRAIN_LOSS_TOL
+            and loss_rel64 <= TRAIN_LOSS_TOL and not bad and not bad32
+            and not bad_adamw and not any(launched.values())):
+        raise AssertionError(f"train_two_layer_fp32: loss {card['loss']} "
+                             f"against {host['loss']} (fp64 "
+                             f"{card64['loss']} against {host64['loss']}), "
+                             f"fp64 leaves past {TRAIN_GRAD_TOL}: {bad}, "
+                             f"fp32 leaves past {TRAIN_FP32_GRAD_TOL}: "
+                             f"{bad32}, AdamW past {ADAMW_TOL}: "
+                             f"{bad_adamw}, launches {launched}")
+    del params, card, host, card64, host64, bf16, adamw
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_argv(ckpt_dir: Path, seed: int) -> list:
+    return ["--arch", TRAIN_MODEL, "--batch", str(TRAIN_BATCH),
+            "--seq-len", str(TRAIN_SEQ), "--steps", str(TRAIN_STEPS),
+            "--lr", str(TRAIN_LR), "--ckpt-every", str(TRAIN_CKPT_AT),
+            "--log-every", "10", "--device", "cuda", "--seed", str(seed),
+            "--ckpt-dir", str(ckpt_dir)]
+
+
+def state_bits(torch, summary: dict) -> dict:
+    """Every leaf of a run's final parameters and optimizer state by its
+    checkpoint key, as integers of its width (bit for bit comparisons)."""
+    from repro_torch.checkpoint.ckpt import _flatten
+    ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+    return {k: t.view(ints[t.element_size()]) for k, t in _flatten(
+        {"params": summary["params"], "opt": summary["opt"]}).items()}
+
+
+def split_step_breakdown(torch, step, params: dict, opt,
+                         batch: dict) -> dict:
+    """One more step of ``step`` (the ``TrainStep`` the entry point ran)
+    taken in its three parts, ``forward``, ``backward`` and ``update``:
+    the whole step's device time and each part's by CUDA events, then each
+    part again under ``device_breakdown`` (its top 12 kernels by device
+    time). Writes the state two steps on."""
+    held: dict = {"opt": opt}
+
+    def forward():
+        held["leaves"], held["total"], _ = step.forward(params, batch)
+
+    def backward():
+        held["grads"] = step.backward(held.pop("leaves"), held.pop("total"))
+
+    def update():
+        _, held["opt"], _ = step.update(params, held["opt"],
+                                        held.pop("grads"))
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    forward()
+    ev[1].record()
+    backward()
+    ev[2].record()
+    update()
+    ev[3].record()
+    torch.cuda.synchronize()
+    parts = ("forward", "backward", "adamw")
+    events_ms = {p: ev[i].elapsed_time(ev[i + 1]) for i, p in
+                 enumerate(parts)}
+    out = {"step_device_ms": ev[0].elapsed_time(ev[3]),
+           "by_part_device_ms": events_ms}
+    for p, fn in zip(parts, (forward, backward, update)):
+        out[p] = device_breakdown(torch, fn, top=12)
+    return out
+
+
+def gradient_term(torch, step, params: dict, opt, batch: dict) -> dict:
+    """What the gradient moves at full depth: one more step of ``step``
+    from (``params``, ``opt``), its update taken twice from the same
+    gradients and state, as the entry point takes it and with weight decay
+    0 (the gradient term alone). Returns, over every parameter, how many
+    the gradient term moves (in the parameters' dtype), the first-order
+    loss change it makes (sum of gradient x move; below 0 when it descends)
+    and the norms of its move and of the weight decay's share (the full
+    update's move less the gradient term's)."""
+    from repro_torch.optim.adamw import AdamWState, adamw_update
+    leaves, total, _ = step.forward(params, batch)
+    grads = step.backward(leaves, total)
+    del leaves, total
+    before = {k: v.clone() for k, v in params.items()}
+    twin = {k: v.clone() for k, v in params.items()}
+    twin_opt = AdamWState(opt.step.clone(),
+                          {k: v.clone() for k, v in opt.m.items()},
+                          {k: v.clone() for k, v in opt.v.items()})
+    _, _, um = step.update(params, opt, grads)
+    adamw_update(dataclasses.replace(step.opt, weight_decay=0.0), grads,
+                 twin_opt, twin, um["lr"])
+    del twin_opt
+    moved, descent, g_sq, wd_sq = 0, 0.0, 0.0, 0.0
+    for k in sorted(params):
+        p0 = before.pop(k).float()
+        dg = twin.pop(k).float() - p0
+        dw = params[k].float() - p0 - dg
+        moved += int(torch.count_nonzero(dg))
+        descent += float(torch.sum(grads[k].float() * dg, dtype=torch.float64))
+        g_sq += float(torch.sum(dg.double() ** 2))
+        wd_sq += float(torch.sum(dw.double() ** 2))
+        del p0, dg, dw
+    n = sum(v.numel() for v in params.values())
+    return {"lr": float(um["lr"]), "grad_norm": float(um["grad_norm"]),
+            "clip_scale": float(um["clip_scale"]), "moved": moved,
+            "moved_share": moved / n, "first_order_loss_change": descent,
+            "gradient_move_norm": math.sqrt(g_sq),
+            "weight_decay_move_norm": math.sqrt(wd_sq)}
+
+
+def phase_slice_train(torch, seed: int, keep: dict) -> dict:
+    """qwen2-1.5B at full width and depth (28 layers, bf16, weights drawn
+    from ``seed`` on the card) trained through the entry point,
+    ``repro_torch.launch.train.main``: TRAIN_STEPS AdamW steps on
+    ``SyntheticLM`` at B = TRAIN_BATCH, S = TRAIN_SEQ, peak lr TRAIN_LR,
+    warm-up 20, remat ``"full"``, a checkpoint at step TRAIN_CKPT_AT and
+    the final one. Then a second run in a directory holding only the
+    step-20 checkpoint (a hard link): it restores it into fresh tensors
+    and runs steps 21 to 30 again. Gates: the two runs' final parameters,
+    moments and step equal bit for bit, and their losses at steps 21 to
+    30; every loss finite; the mean of the last 5 losses below the first
+    5's; no hand kernel launched in either run. Prints each run's step
+    walls (host, to a sync), tokens/s at the p50, the peak memory, the
+    saves' seconds (snapshot, pack with the CRCs, write) and bytes, the
+    restore's seconds, losses and gradient norms at steps 1, 10, 20 and
+    30, then two more steps in their parts (``split_step_breakdown``) and
+    one whose update is taken again with weight decay 0 (``gradient_term``:
+    gated, the gradient term moves parameters and descends to first
+    order; at this init the clip scale is about 1e-15, so the loss curve
+    alone could fall by weight decay). Leaves
+    in ``keep`` the first run's final parameters (``params``) and the path
+    of its step-30 checkpoint (``ckpt``) for ``phase_serve_trained``;
+    returns the hand kernels' launches over both runs (none)."""
+    import shutil
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch import train
+    cfg = get_config(TRAIN_MODEL)
+    root = train_ckpt_root()
+    shutil.rmtree(root, ignore_errors=True)
+    first, second = root / "uninterrupted", root / "restarted"
+    t0 = time.perf_counter()
+    zero_launches()
+    torch.cuda.reset_peak_memory_stats()
+    full = train.main(train_argv(first, seed))
+    peak = torch.cuda.max_memory_allocated()
+    t1 = time.perf_counter()
+    ckpt_name = f"ckpt_{TRAIN_CKPT_AT:08d}.rimfs"
+    second.mkdir(parents=True)
+    os.link(first / ckpt_name, second / ckpt_name)
+    again = train.main(train_argv(second, seed))
+    t2 = time.perf_counter()
+    launched = launches_now()
+    want, got = state_bits(torch, full), state_bits(torch, again)
+    differ = [k for k in want if k not in got
+              or not torch.equal(want[k], got[k])]
+    n_leaves = len(want)
+    del want, got
+    losses = [full["losses"][i] for i in range(1, TRAIN_STEPS + 1)]
+    redo = {i: (full["losses"][i], again["losses"].get(i))
+            for i in range(TRAIN_CKPT_AT + 1, TRAIN_STEPS + 1)}
+
+    def walls(summary):
+        w = sorted(summary["step_wall_s"].values())
+        return {"p50": w[len(w) // 2], "max": w[-1], "n": len(w),
+                "first": summary["step_wall_s"][min(summary["step_wall_s"])]}
+    w1 = walls(full)
+    ds = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH)
+    batch = {k: torch.as_tensor(v, device="cuda")
+             for k, v in ds.global_batch_at(TRAIN_STEPS).items()}
+    keep.update(params=full["params"],
+                ckpt=first / f"ckpt_{TRAIN_STEPS:08d}.rimfs")
+    del full["opt"]
+    gc.collect()
+    breakdown = split_step_breakdown(torch, again["step"], again["params"],
+                                     again["opt"], batch)
+    moves = gradient_term(torch, again["step"], again["params"],
+                          again["opt"], batch)
+    emit("slice_train", model=cfg.name, layers=cfg.num_layers,
+         dtype=cfg.dtype, params=full["param_count"], batch=TRAIN_BATCH,
+         seq=TRAIN_SEQ, steps=TRAIN_STEPS, lr=TRAIN_LR, remat="full",
+         ckpt_at=TRAIN_CKPT_AT, first_run_s=t1 - t0, second_run_s=t2 - t1,
+         step_wall_s=w1, restarted_step_wall_s=walls(again),
+         tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / w1["p50"],
+         max_memory_allocated=peak,
+         saves=full["saves"] + again["saves"],
+         ckpt_bytes=full["saves"][0]["bytes"],
+         restore_s=again["restore_s"], restored_from=again["start"],
+         losses={i: full["losses"][i] for i in (1, 10, 20, 30)},
+         grad_norms={i: full["grad_norms"][i] for i in (1, 10, 20, 30)},
+         lrs={i: full["lrs"][i] for i in (1, 10, 20, 30)},
+         first_5_mean=sum(losses[:5]) / 5, last_5_mean=sum(losses[-5:]) / 5,
+         restart_bit_exact=not differ, leaves_compared=n_leaves,
+         leaves_differ=differ[:8], restarted_losses_equal=all(
+             a == b for a, b in redo.values()),
+         gradient_term=moves, kernel_launches=launched, **breakdown)
+    if not (moves["moved"] > 0 and moves["first_order_loss_change"] < 0):
+        raise AssertionError(f"slice_train: the gradient term does not move "
+                             f"the parameters down the gradient: {moves}")
+    if differ or any(a != b for a, b in redo.values()):
+        raise AssertionError(f"slice_train: the restart from step "
+                             f"{TRAIN_CKPT_AT} differs at step "
+                             f"{TRAIN_STEPS}: {differ[:8]} {redo}")
+    if not all(math.isfinite(x) for x in losses + list(
+            again["losses"].values())):
+        raise AssertionError(f"slice_train: a loss is not finite: {losses}")
+    if not sum(losses[-5:]) < sum(losses[:5]):
+        raise AssertionError(f"slice_train: the last 5 losses do not fall "
+                             f"below the first 5: {losses}")
+    if any(launched.values()):
+        raise AssertionError(f"slice_train: training launched hand "
+                             f"kernels: {launched}")
+    del full, again, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"train": launched}
+
+
+def structure_hits(tokens: list, vocab: int, structure: int = 97) -> float:
+    """The share of generated tokens that follow ``SyntheticLM``'s hidden
+    chain from the token before them (state s -> (31 s + 7) mod 97, token
+    s * (vocab // 97) + noise in 0..3): what the trained model learned."""
+    width = vocab // structure
+    pairs = list(zip(tokens, tokens[1:]))
+    hits = sum(1 for a, b in pairs
+               if b // width == (a // width * 31 + 7) % structure)
+    return hits / max(1, len(pairs))
+
+
+def phase_serve_trained(torch, seed: int, keep: dict) -> dict:
+    """The trained weights served: the parameters loaded from the first
+    training run's step-30 checkpoint (``load_checkpoint`` of the
+    parameters alone, CRC-verified) and the run's in-memory ones, each
+    provisioned into a ``ServingEngine``; the same TRAINED_PROMPTS
+    (``SyntheticLM`` rows the training never drew) decoded greedily for
+    TRAINED_MAX_NEW tokens by each. Gates: the two engines' tokens equal
+    bit for bit; each prefill launches 28 ``flash_attention`` and no decode
+    step a kernel. Prints how many generated tokens follow the data's
+    hidden chain (``structure_hits``). Removes the checkpoints."""
+    import shutil
+    import numpy as np
+    from repro_torch.checkpoint.ckpt import load_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.serving.engine import Request, ServingEngine
+    cfg = get_config(TRAIN_MODEL)
+    t0 = time.perf_counter()
+    like = {"params": keep["params"]}
+    loaded, step, _ = load_checkpoint(keep["ckpt"], like)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    rows = SyntheticLM(cfg.vocab_size, max(TRAINED_PROMPTS),
+                       len(TRAINED_PROMPTS)).global_batch_at(10_000)
+    prompts = [rows["inputs"][i, :n].astype(np.int32)
+               for i, n in enumerate(TRAINED_PROMPTS)]
+    zero_launches()
+    streams, logs = {}, {}
+    for name, params in (("checkpoint", loaded["params"]),
+                         ("in_memory", keep["params"])):
+        eng = ServingEngine(cfg, params, max_batch=ENGINE_SLOTS,
+                            max_seq=ENGINE_MAX_SEQ)
+        log = instrument_engine(torch, eng)
+        reqs = [Request(rid=i, prompt=p, max_new=TRAINED_MAX_NEW)
+                for i, p in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        eng.run_until_drained()
+        engine_launch_check(log, cfg, f"serve_trained {name}")
+        streams[name] = [list(map(int, r.out_tokens)) for r in reqs]
+        logs[name] = log
+        del eng
+        gc.collect()
+    launched = launches_now()
+    same = streams["checkpoint"] == streams["in_memory"]
+    emit("serve_trained", model=cfg.name, ckpt_step=step, load_s=load_s,
+         prompts=list(TRAINED_PROMPTS), max_new=TRAINED_MAX_NEW,
+         tokens_equal=same, tokens=streams["checkpoint"],
+         structure_hits=[structure_hits(list(p[-1:]) + s, cfg.vocab_size)
+                         for p, s in zip(prompts, streams["checkpoint"])],
+         prefill_launches=[e["launches"] for e in logs["checkpoint"]
+                           if e["step"] == "prefill"],
+         kernel_launches=launched)
+    if not same:
+        raise AssertionError(f"serve_trained: the checkpoint's weights and "
+                             f"the in-memory ones answer differently: "
+                             f"{streams}")
+    keep.clear()
+    del loaded
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(train_ckpt_root(), ignore_errors=True)
+    return {"serve-trained": launched}
+
+
 GPU_TESTS = {"graphs_gpu_tests": "tests/test_torch_graphs_gpu.py",
              "engine_gpu_tests": "tests/test_torch_engine_gpu.py",
              "paged_gpu_tests": "tests/test_torch_paged_gpu.py",
              "partition_gpu_tests": "tests/test_torch_partition_gpu.py",
              "fleet_gpu_tests": "tests/test_torch_fleet_gpu.py",
-             "autotune_gpu_tests": "tests/test_torch_autotune_gpu.py"}
+             "autotune_gpu_tests": "tests/test_torch_autotune_gpu.py",
+             "train_gpu_tests": "tests/test_torch_train_gpu.py"}
 
 
 def start_gpu_tests(phase: str):
@@ -4553,6 +5028,14 @@ def main() -> int:
     by_path.update(phase_slice_engine(torch, args.seed, "slice_engine_moe"))
     gc.collect()
     torch.cuda.empty_cache()
+
+    # training: one full-width fp32 step against the CPU, then qwen2-1.5B
+    # trained through the entry point, restarted from its step-20
+    # checkpoint, and served from its step-30 checkpoint
+    phase_train_two_layer_fp32(torch, args.seed)
+    trained: dict = {}
+    by_path.update(phase_slice_train(torch, args.seed, trained))
+    by_path.update(phase_serve_trained(torch, args.seed, trained))
 
     # the card-only tests of the fused and batched graphs and of the
     # engine's compiled steps

@@ -89,6 +89,13 @@ def check_image(data) -> bool:
 
 def pack(files: Mapping[str, object], *, version: int = 1) -> bytes:
     """Flatten named tensors (torch or numpy) into one RIMFS image."""
+    return bytes(pack_buffer(files, version=version))
+
+
+def pack_buffer(files: Mapping[str, object], *,
+                version: int = 1) -> bytearray:
+    """``pack``'s image in the buffer it was built in, without the copy
+    into ``bytes`` (a training checkpoint is written straight from it)."""
     metas = []
     for name, arr in files.items():
         bits, tag = _host_file(arr)
@@ -128,7 +135,7 @@ def pack(files: Mapping[str, object], *, version: int = 1) -> bytes:
     crc = zlib.crc32(view[:-4]) & 0xFFFFFFFF
     struct.pack_into("<I", buf, len(buf) - 4, crc)
     view.release()
-    return bytes(buf)
+    return buf
 
 
 class RIMFS:

@@ -1,6 +1,10 @@
-"""Prefill, decode and sampling steps of the LM serving engines.
+"""Train, prefill, decode and sampling steps.
 
-The port's counterpart of ``repro.launch.steps``' serve steps. The JAX
+The port's counterpart of ``repro.launch.steps``' steps. ``make_loss_fn``
+and ``make_train_step`` train on the models' ``impl="autograd"`` route
+(stock ops under autograd; the hand kernels have no backward), with the
+JAX package's AdamW and schedule; the dry run's ``step_for`` and
+``input_specs`` are not ported. The JAX
 package jits them and donates the decode cache (``donate_argnums=(1,)``).
 Here ``make_prefill_step`` and ``make_decode_step`` run eagerly, the decode
 step writing the new K/V and every recurrent state into the cache it is
@@ -21,7 +25,89 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.executor import CapturedGraph
+from repro_torch.dtypes import as_tensor
 from repro_torch.models import transformer as tf
+from repro_torch.models.common import AUTOGRAD, softmax_cross_entropy
+from repro_torch.optim.adamw import AdamWConfig, AdamWState, adamw_update
+from repro_torch.optim.schedules import cosine_warmup
+
+
+def make_loss_fn(cfg: ModelConfig, remat: bool,
+                 remat_policy: str = "full"):
+    """``loss_fn(params, batch) -> (total, (loss, aux))``: the training
+    forward (``impl="autograd"``) on ``batch["inputs"]`` (tokens, or a
+    vlm/audio config's embeddings), the mean token NLL of
+    ``batch["targets"]``, and ``total = loss + AUX_LOSS_WEIGHT * aux``
+    (aux the MoE load-balance loss, 0 without experts)."""
+    def loss_fn(params, batch):
+        logits, _, aux = tf.forward_full(cfg, params, batch["inputs"],
+                                         impl=AUTOGRAD, remat=remat,
+                                         remat_policy=remat_policy)
+        targets = as_tensor(batch["targets"], logits.device)
+        loss = softmax_cross_entropy(logits, targets)
+        return loss + tf.AUX_LOSS_WEIGHT * aux, (loss, aux)
+    return loss_fn
+
+
+class TrainStep:
+    """The train step in its three parts, which ``__call__`` runs in
+    order: ``forward`` (``make_loss_fn``'s loss on the parameters as leaves
+    that require grad), ``backward`` (``torch.autograd.grad`` of the
+    total) and ``update`` (``lr = cosine_warmup(opt_state.step, ...)``
+    taken before the step count moves, then ``adamw_update``, which writes
+    the parameters and moments in place). The parts are public so that a
+    profiler can time each part of the very step a driver runs."""
+
+    def __init__(self, cfg: ModelConfig, opt: AdamWConfig, peak_lr: float,
+                 warmup: int, total_steps: int, remat: bool,
+                 remat_policy: str):
+        self.opt, self.peak_lr = opt, peak_lr
+        self.warmup, self.total_steps = warmup, total_steps
+        self.loss_fn = make_loss_fn(cfg, remat, remat_policy)
+
+    def forward(self, params: dict, batch: dict):
+        """-> (leaves, total, (loss, aux)); ``leaves`` the parameters
+        detached and requiring grad, in sorted key order."""
+        leaves = {k: params[k].detach().requires_grad_(True)
+                  for k in sorted(params)}
+        total, (loss, aux) = self.loss_fn(leaves, batch)
+        return leaves, total, (loss, aux)
+
+    def backward(self, leaves: dict, total: torch.Tensor) -> dict:
+        """The gradient of ``total`` for each leaf, by key."""
+        return dict(zip(leaves, torch.autograd.grad(total,
+                                                    list(leaves.values()))))
+
+    def update(self, params: dict, opt_state: AdamWState, grads: dict):
+        """-> (params, opt_state, {"lr", "grad_norm", "clip_scale"})."""
+        lr = cosine_warmup(opt_state.step, self.peak_lr, self.warmup,
+                           self.total_steps)
+        params, opt_state, gm = adamw_update(self.opt, grads, opt_state,
+                                             params, lr)
+        return params, opt_state, {"lr": lr, **gm}
+
+    def __call__(self, params: dict, opt_state: AdamWState, batch: dict):
+        leaves, total, (loss, aux) = self.forward(params, batch)
+        grads = self.backward(leaves, total)
+        params, opt_state, um = self.update(params, opt_state, grads)
+        return params, opt_state, {
+            "loss": loss.detach(), "aux_loss": aux.detach(),
+            "total_loss": total.detach(), **um}
+
+
+def make_train_step(cfg: ModelConfig, opt: AdamWConfig = AdamWConfig(),
+                    peak_lr: float = 3e-4, warmup: int = 100,
+                    total_steps: int = 10_000, remat: bool = True,
+                    remat_policy: Optional[str] = None) -> TrainStep:
+    """``train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics)`` (a ``TrainStep``): the gradients of ``make_loss_fn``'s
+    total, then the AdamW update at ``cosine_warmup``'s lr. ``metrics``
+    holds 0-d tensors: loss, aux_loss, total_loss, lr, grad_norm,
+    clip_scale. ``remat_policy`` defaults to ``"full"``. The JAX package's
+    ``unroll`` has no counterpart: the port's layers are always a Python
+    loop."""
+    return TrainStep(cfg, opt, peak_lr, warmup, total_steps, remat,
+                     remat_policy or "full")
 
 
 def make_prefill_step(cfg: ModelConfig):

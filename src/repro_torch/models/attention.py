@@ -1,7 +1,8 @@
 """GQA attention for the LM serving engine, full or sliding-window:
 prefill on the hand-written flash-attention kernel where the window masks
 nothing, one-token decode against a dense or ring-buffered KV cache on
-stock torch ops.
+stock torch ops; and for training (``impl="autograd"``) the full sequence
+on stock ops under autograd, as the JAX package trains it.
 
 The port's counterpart of ``repro.models.attention``'s dense-cache paths.
 ``_attend_full`` there is, below S = 16384, one chunk of causal GQA
@@ -37,8 +38,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.oplib import f32_scalar
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import attention_ref_bshd
-from repro_torch.models.common import (ParamSpec, apply_rope, rms_norm,
-                                       rope_table)
+from repro_torch.models.common import (AUTOGRAD, ParamSpec, apply_rope,
+                                       rms_norm, rope_table)
 
 NEG_INF = -1e30
 CHUNKED_FROM = 16384          # _attend_full splits the queries from here on
@@ -172,18 +173,20 @@ def _out_proj(o, wo):
 
 
 def _attend_windowed(cfg: ModelConfig, q, k, v, out_dtype):
-    """Causal attention in a sliding window of W keys at S > W, on stock
-    ops as the JAX package's ``_attend_full`` computes it: fp32 scores at
-    scale 1/sqrt(D), masked to ``qpos - W < kpos <= qpos`` with NEG_INF,
-    softmax in fp32, cast to ``out_dtype`` before the product with V."""
+    """Causal attention on stock ops as the JAX package's ``_attend_full``
+    computes it below S = 16384: fp32 scores at scale 1/sqrt(D), masked
+    to ``kpos <= qpos`` (in a sliding window of W also ``kpos > qpos -
+    W``) with NEG_INF, softmax in fp32, cast to ``out_dtype`` before the
+    product with V. The route of a window at S > W, and of training."""
     B, S, H, D = q.shape
     Hkv = k.shape[2]
-    W = cfg.sliding_window
     s_ = _grouped_scores(q.reshape(B, S, Hkv, H // Hkv, D), k) \
         * (1.0 / D ** 0.5)
     idx = torch.arange(S, device=q.device)
     qpos, kpos = idx[:, None], idx[None, :]
-    mask = (kpos <= qpos) & (kpos > qpos - W)
+    mask = kpos <= qpos
+    if _sliding(cfg):
+        mask = mask & (kpos > qpos - cfg.sliding_window)
     s_ = torch.where(mask, s_, NEG_INF)
     a = torch.softmax(s_, dim=-1).to(out_dtype)
     return torch.einsum("bhgqk,bkhd->bqhgd", a, v.to(out_dtype)).reshape(
@@ -193,15 +196,18 @@ def _attend_windowed(cfg: ModelConfig, q, k, v, out_dtype):
 def _attend_full(cfg: ModelConfig, p: dict, q, k, v, out_dtype, impl=None):
     """Causal GQA attention over the whole sequence, then the output
     projection. A sliding window at S > W takes ``_attend_windowed``, its
-    only route. Otherwise ``impl="ref"`` computes the attention with the
-    kernel's plain version whatever the device (the card-side check of
-    the kernel inside the model); by default it is the kernel on a CUDA
-    tensor."""
+    only route, and so does ``impl="autograd"`` (the training route, on
+    any device: the JAX package's grouped scores and softmax, with the
+    window's mask where it has one; the kernel has no backward).
+    Otherwise ``impl="ref"`` computes the attention with the kernel's
+    plain version whatever the device (the card-side check of the kernel
+    inside the model); by default it is the kernel on a CUDA tensor."""
     S = q.shape[1]
     _check_ported(cfg, S)
-    if impl not in (None, "ref"):
-        raise ValueError(f"unknown attention impl {impl!r} (None or 'ref')")
-    if _sliding(cfg) and S > cfg.sliding_window:
+    if impl not in (None, "ref", AUTOGRAD):
+        raise ValueError(f"unknown attention impl {impl!r} (None, 'ref' or "
+                         f"{AUTOGRAD!r})")
+    if impl == AUTOGRAD or (_sliding(cfg) and S > cfg.sliding_window):
         o = _attend_windowed(cfg, q, k, v, out_dtype)
     elif impl == "ref":
         o = attention_ref_bshd(q, k, v, causal=True)

@@ -3,11 +3,11 @@ op library (the port's counterpart of ``repro.models.common``: ``ParamSpec``
 without the sharding axes, since the port runs on one device,
 ``draw_param``, ``rms_norm``, ``group_norm``, ``rope_freqs`` and
 ``apply_rope``, plus ``rope_table``, RoPE's cos and sin built once a
-forward pass)."""
+forward pass, and the training loss ``softmax_cross_entropy``)."""
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -20,6 +20,13 @@ class ParamSpec(NamedTuple):
     init: str = "normal"      # normal | zeros | ones | embed | decay | uniform
     scale: float = 1.0
 
+
+# The training route's ``impl``: attention as grouped scores and a softmax,
+# the scans as ``ssm_chunked`` and ``wkv_chunked``, all stock ops under
+# autograd (the JAX package's default route, which trains). The hand
+# kernels have no backward, and the kernels' plain versions (``"ref"``)
+# are step-by-step loops.
+AUTOGRAD = "autograd"
 
 SLICE_DRAW_BYTES = 4 << 30   # a larger fp32 draw goes slice by slice
 
@@ -119,3 +126,22 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     x1, x2 = torch.chunk(x, 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(dt)
+
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          mask: Optional[torch.Tensor] = None):
+    """Mean token NLL of ``labels`` (B,S) under ``logits`` (B,S,V), in
+    fp32 with a max-shifted log-sum-exp; with ``mask`` (B,S), the sum of
+    the masked NLL over max(sum(mask), 1). The label's logit is a
+    ``gather`` of one entry a row: its backward writes each row once, so
+    it adds nothing in an order the device picks."""
+    logits = logits.float()
+    m = torch.amax(logits, dim=-1, keepdim=True)
+    lse = m[..., 0] + torch.log(torch.sum(torch.exp(logits - m), dim=-1))
+    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = lse - ll
+    if mask is not None:
+        mask = mask.float()
+        nll = nll * mask
+        return torch.sum(nll) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)

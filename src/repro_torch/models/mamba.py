@@ -7,8 +7,8 @@ the kernel registry (the full-sequence scan), and the engine's decode
 state (``mamba_state_specs``) and single-token step (``mamba_step``, stock
 ops). The RCTC per-layer lowering runs the first two as its
 ``ssm_pre``/``ssm_post`` glue around ``Op.SSM_SCAN``. The full-sequence
-scan always takes the registry route; the JAX package's differentiable
-associative-scan route (``ssm_chunked``) belongs with training.
+scan takes the registry route, or with ``impl="autograd"`` (training) the
+JAX package's differentiable chunked scan, ``ssm_chunked``.
 """
 from __future__ import annotations
 
@@ -16,7 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.common import ParamSpec
+from repro_torch.models.common import AUTOGRAD, ParamSpec
 
 DT_RANK = 32
 
@@ -76,15 +76,65 @@ def ssm_output(cfg: ModelConfig, p: dict, y: torch.Tensor, u: torch.Tensor,
     return torch.matmul(y, p["m_out"])
 
 
+def _scan_chunk(a, b):
+    """Inclusive scan of ``h_t = a_t * h_{t-1} + b_t`` along axis 1 of
+    (B, C, di, N), from h = 0 (b_0 carries any entering state), in
+    log2(C) doubling steps: element t takes in the element ``off`` before
+    it as ``(a_t a_{t-off}, a_t b_{t-off} + b_t)``. Every factor is a
+    decay in (0, 1], so nothing overflows, and each step is out of place,
+    so autograd differentiates it. Returns every h_t."""
+    off = 1
+    while off < a.shape[1]:
+        b = torch.cat([b[:, :off], a[:, off:] * b[:, :-off] + b[:, off:]], 1)
+        a = torch.cat([a[:, :off], a[:, off:] * a[:, :-off]], 1)
+        off *= 2
+    return b
+
+
+def ssm_chunked(u, dt, B_, C_, A, D, h0, chunk: int = 64):
+    """Chunked selective scan (``repro.models.mamba.ssm_chunked``), the
+    training route: differentiable stock ops.
+
+    u (B,T,di) fp32, dt (B,T,di), B_/C_ (B,T,N), A (di,N) negative, D
+    (di,), h0 (B,di,N). T is padded to a whole number of chunks of
+    min(chunk, T) with identity steps (da = 0 keeps h, b = 0 adds
+    nothing); in each chunk the recurrence seeded by the carried state
+    runs as a doubling scan (``_scan_chunk``; the JAX package's is
+    ``lax.associative_scan``, which pairs the steps in another order).
+    Returns (y (B,T,di) with the ``u * D`` skip term, h_final)."""
+    Bb, T, di = u.shape
+    C = min(chunk, T)
+    Tp = (T + C - 1) // C * C
+    da_log = dt[..., None] * A[None, None]            # (B,T,di,N)  <= 0
+    binp = (dt * u)[..., None] * B_[:, :, None, :]    # (B,T,di,N)
+    if Tp != T:
+        da_log = F.pad(da_log, (0, 0, 0, 0, 0, Tp - T))
+        binp = F.pad(binp, (0, 0, 0, 0, 0, Tp - T))
+        C_ = F.pad(C_, (0, 0, 0, Tp - T))
+    h, ys = h0, []
+    for c0 in range(0, Tp, C):
+        a_ = torch.exp(da_log[:, c0:c0 + C])
+        b_ = binp[:, c0:c0 + C]
+        b_ = torch.cat([(b_[:, 0] + a_[:, 0] * h)[:, None], b_[:, 1:]], 1)
+        hs = _scan_chunk(a_, b_)
+        ys.append(torch.einsum("btdn,btn->btd", hs, C_[:, c0:c0 + C]))
+        h = hs[:, -1]
+    y = torch.cat(ys, 1)[:, :T]
+    return y + u * D[None, None], h
+
+
 def ssm_core(u, dt, B_, C_, A, D, h0, impl=None):
     """Full-sequence selective scan through the registry ``ssm_scan``.
     Returns (y, h_final), y already carrying the ``u * D`` skip term.
-    ``impl="ref"`` runs the kernel's plain version whatever the device.
+    ``impl="ref"`` runs the kernel's plain version whatever the device;
+    ``impl="autograd"`` takes ``ssm_chunked`` instead of the registry.
 
     The kernel computes the zero-state scan: h0 is folded in by seeding step
     0's input with ``exp(da_0) * h0``, and the final state comes in closed
     form from the inclusive cumsum P of da, as ``sum_t exp(P_T - P_t) bx_t``
     (every exponent <= 0, so nothing overflows)."""
+    if impl == AUTOGRAD:
+        return ssm_chunked(u, dt, B_, C_, A, D, h0)
     from repro_torch.kernels import registry
     da_log = dt[..., None] * A[None, None]
     bx = (dt * u)[..., None] * B_[:, :, None, :]

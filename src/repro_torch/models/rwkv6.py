@@ -9,8 +9,9 @@ the engine's decode state (``state_specs``) and single-token time mix
 The RCTC per-layer lowering runs ``time_mix_pre``, ``time_mix_post`` and
 ``channel_mix`` as its ``tm_pre``/``tm_post``/``cm`` glue around
 ``Op.WKV6``. The full-sequence
-recurrence always takes the registry route; the JAX package's
-differentiable chunked-scan route (``wkv_chunked``) belongs with training.
+recurrence takes the registry route, or with ``impl="autograd"``
+(training) the JAX package's differentiable chunked scan,
+``wkv_chunked``.
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.common import ParamSpec, group_norm
+from repro_torch.models.common import AUTOGRAD, ParamSpec, group_norm
 
 LORA_DIM = 64
 
@@ -105,15 +106,60 @@ def time_mix_post(cfg: ModelConfig, p: dict, y: torch.Tensor,
     return torch.matmul(y, p["tm_wo"])
 
 
+def wkv_chunked(r, k, v, lw, u, s0, chunk: int = 16):
+    """Chunked WKV6 (``repro.models.rwkv6.wkv_chunked``), the training
+    route: differentiable stock ops. r/k/v/lw (B,T,H,K) fp32, u (H,K), s0
+    (B,H,K,K).
+
+    T is padded to a whole number of chunks of min(chunk, T) (k = v = 0
+    adds nothing to the state, lw = 0 leaves it undecayed). In a chunk,
+    with p the inclusive and p_prev the exclusive cumsum of lw, token t
+    reads the earlier tokens j < t through ``exp(p_prev_t - p_j)``, its
+    own through the bonus ``u``, and the entering state through
+    ``exp(p_prev_t)``; the state leaves decayed by ``exp(p_last)`` with
+    each token's ``k exp(p_last - p_j) v^T`` added. Every exponent is <=
+    0: the pairs j >= t are masked to -inf before the exp, so neither
+    their value nor their gradient can overflow. Returns (y (B,T,H,K),
+    s_final)."""
+    B, T, H, K = r.shape
+    C = min(chunk, T)
+    Tp = (T + C - 1) // C * C
+    if Tp != T:
+        r, k, v, lw = (F.pad(a, (0, 0, 0, 0, 0, Tp - T))
+                       for a in (r, k, v, lw))
+    earlier = torch.ones((C, C), dtype=torch.bool,
+                         device=r.device).tril(-1)[None, :, :, None, None]
+    S, ys = s0, []
+    for c0 in range(0, Tp, C):
+        r_, k_, v_, lw_ = (a[:, c0:c0 + C] for a in (r, k, v, lw))
+        p = torch.cumsum(lw_, dim=1)                        # inclusive
+        pprev = p - lw_                                     # exclusive
+        diff = pprev[:, :, None] - p[:, None, :]            # (B,Ct,Cj,H,K)
+        e = torch.exp(diff.masked_fill(~earlier, float("-inf")))
+        att = torch.sum(r_[:, :, None] * k_[:, None] * e, dim=-1)
+        y = torch.einsum("btjh,bjho->btho", att, v_)
+        coef = torch.sum(r_ * u * k_, dim=-1)               # the bonus
+        y = y + coef[..., None] * v_
+        y = y + torch.einsum("bthi,bhio->btho", r_ * torch.exp(pprev), S)
+        kd = k_ * torch.exp(p[:, -1:] - p)                  # to chunk end
+        S = torch.exp(p[:, -1])[..., None] * S + torch.einsum(
+            "bthi,btho->bhio", kd, v_)
+        ys.append(y)
+    return torch.cat(ys, 1)[:, :T], S
+
+
 def wkv_core(r, k, v, lw, u, s0, impl=None):
     """Full-sequence WKV recurrence through the registry ``wkv6``. Returns
     (y, s_final). ``impl="ref"`` runs the kernel's plain version whatever
-    the device.
+    the device; ``impl="autograd"`` takes ``wkv_chunked`` instead of the
+    registry.
 
     The kernel computes the zero-state recurrence: an entering state s0 is
     folded in exactly with ``y += (r * exp(p_prev)) @ s0`` (p_prev the
     exclusive cumsum of lw), and the final state comes in closed form; every
     exponent is <= 0, so nothing overflows."""
+    if impl == AUTOGRAD:
+        return wkv_chunked(r, k, v, lw, u, s0)
     from repro_torch.kernels import registry
     y = registry.call("wkv6", r, k, v, lw, u, impl=impl)
     p = torch.cumsum(lw, dim=1)                             # inclusive

@@ -21,22 +21,36 @@ prefill cache into the pool). The reference scans its layers with
 ``lax.scan``; here they run in a Python loop, which computes the same
 thing; what the layers share (RoPE's table, decode's per-step invariants)
 is built once a pass, before it.
+
+Training runs ``forward_full(impl="autograd")``: every kernel's
+differentiable stock-op form (attention as grouped scores and a softmax,
+``ssm_chunked``, ``wkv_chunked``), tokens or a vlm/audio config's (B, S, d)
+embeddings as input, the stacked parameters split into layers by one
+``unbind`` a pass (whose backward is one ``stack``, where a ``v[i]`` a
+layer would zero-fill a whole stacked gradient each), and each block
+optionally rematerialized (``remat``, ``remat_policy``).
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
+import torch.utils.checkpoint as ckpt_mod
 
 from repro_torch import device as device_mod
 from repro_torch.configs.base import ModelConfig
 from repro_torch.dtypes import as_tensor, torch_dtype
 from repro_torch.models import attention as attn
-from repro_torch.models.common import ParamSpec, draw_param, rms_norm
+from repro_torch.models.common import (AUTOGRAD, ParamSpec, draw_param,
+                                       rms_norm)
 from repro_torch.models import mamba
 from repro_torch.models import rwkv6 as rwkv
 from repro_torch.models.mlp import mlp_specs, moe_ffn, moe_specs, swiglu
 
 PORTED_FAMILIES = ("dense", "hybrid", "ssm", "moe", "vlm", "audio")
+AUX_LOSS_WEIGHT = 0.01
+REMAT_POLICIES = ("full", "dots")
 
 
 def check_ported(cfg: ModelConfig, engine: bool = False) -> None:
@@ -121,9 +135,13 @@ def init_params(cfg: ModelConfig, seed: int, device="cuda") -> dict:
 
 def params_from_jax(np_params: dict, device="cuda") -> dict:
     """The JAX package's stacked parameter dict (as numpy arrays, bf16 as
-    ml_dtypes arrays) as the port's tensors on ``device``, bit for bit."""
+    ml_dtypes arrays) as the port's tensors on ``device``, bit for bit.
+    Each is a copy: a CPU tensor would otherwise share the array's
+    memory (``np.asarray`` of a JAX array may be a view of its buffer),
+    and a training step writes its parameters in place."""
     dev = device_mod.resolve(device)
-    return {k: as_tensor(np.asarray(v), dev) for k, v in np_params.items()}
+    out = {k: as_tensor(np.asarray(v), dev) for k, v in np_params.items()}
+    return {k: t.clone() if dev.type == "cpu" else t for k, t in out.items()}
 
 
 _BLOCK_KEYS_GLOBAL = ("embed", "lm_head", "final_norm")
@@ -136,7 +154,12 @@ def split_params(params: dict):
 
 
 def embed_inputs(cfg: ModelConfig, glob: dict, tokens) -> torch.Tensor:
-    """tokens (B,S) -> hidden (B,S,d) on the embedding's device."""
+    """tokens (B,S) -> hidden (B,S,d) on the embedding's device; a vlm or
+    audio config's (B,S,d) embeddings (the frontend stub's output) are
+    cast to the config's dtype on the final norm's device."""
+    if cfg.input_kind != "tokens":
+        dev = glob["final_norm"].device
+        return as_tensor(tokens, dev).to(torch_dtype(cfg.dtype))
     emb = glob["embed"]
     return emb[as_tensor(tokens, emb.device).long()]
 
@@ -232,16 +255,59 @@ def _slice_layer(tree: dict, i: int) -> dict:
     return {k: v[i] for k, v in tree.items()}
 
 
+# "dots": the matmul outputs are kept and the rest recomputed, as
+# ``jax.checkpoint_policies.dots_saveable`` keeps every dot_general's
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default)
+
+
+def _dots_saveable(ctx, op, *args, **kwargs):
+    return (ckpt_mod.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else ckpt_mod.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn, policy: str):
+    """``fn`` rematerialized in the backward (``torch.utils.checkpoint``,
+    non-reentrant): ``"full"`` keeps only its inputs, ``"dots"`` also
+    its matmul outputs."""
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat policy {policy!r} "
+                         f"({', '.join(REMAT_POLICIES)})")
+    context_fn = ckpt_mod.noop_context_fn if policy == "full" else \
+        functools.partial(ckpt_mod.create_selective_checkpoint_contexts,
+                          _dots_saveable)
+
+    def run(*args):
+        return ckpt_mod.checkpoint(fn, *args, use_reentrant=False,
+                                   context_fn=context_fn)
+    return run
+
+
+def _layers(blocks: dict, num_layers: int) -> list:
+    """Each layer's parameters, from one ``unbind`` a stacked parameter:
+    the same views ``v[i]`` gives, but under autograd its backward is one
+    ``stack`` instead of a zero-filled stacked gradient a layer."""
+    parts = {k: torch.unbind(v) for k, v in blocks.items()}
+    return [{k: v[i] for k, v in parts.items()} for i in range(num_layers)]
+
+
 def run_blocks_full(cfg: ModelConfig, blocks: dict, x, positions,
-                    want_cache: bool, impl=None):
+                    want_cache: bool, impl=None, remat: bool = False,
+                    remat_policy: str = "full"):
     """Every layer in turn; returns (x, cache, aux), aux summed over the
-    layers from an fp32 zero, as the reference's scan carries it."""
+    layers from an fp32 zero, as the reference's scan carries it. The
+    layers come from one ``unbind`` (``_layers``); with ``remat`` each
+    block is rematerialized under ``remat_policy``."""
     rope = attn.rope_for(cfg, positions)
     caches = []
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(cfg.num_layers):
-        x, c, a = block_full(cfg, _slice_layer(blocks, i), x, positions,
-                             want_cache, impl, rope)
+
+    def fn(pl, xc):
+        return block_full(cfg, pl, xc, positions, want_cache, impl, rope)
+    if remat:
+        fn = _remat(fn, remat_policy)
+    for pl in _layers(blocks, cfg.num_layers):
+        x, c, a = fn(pl, x)
         caches.append(c)
         if a is not None:
             aux = aux + a
@@ -275,10 +341,14 @@ def logits_head(cfg: ModelConfig, glob: dict, x):
 
 
 def forward_full(cfg: ModelConfig, params: dict, inputs,
-                 want_cache: bool = False, impl=None):
-    """Prefill forward from zero recurrent states. inputs: (B,S) int
-    tokens (the engine's input: a vlm or audio config's embeddings run
-    through ``rctc.compile_transformer_block``'s program). Returns
+                 want_cache: bool = False, impl=None, remat: bool = False,
+                 remat_policy: str = "full"):
+    """Prefill or training forward from zero recurrent states. inputs:
+    (B,S) int tokens (the engine's input: a vlm or audio config's
+    embeddings run through ``rctc.compile_transformer_block``'s program);
+    on the training route (``impl="autograd"``) also a vlm or audio
+    config's (B,S,d) embeddings, with ``remat`` and ``remat_policy``
+    (``"full"`` or ``"dots"``) as ``run_blocks_full`` takes them. Returns
     (logits (B,S,V), cache, aux), the cache stacked by layer
     (``cache_specs``' keys; K/V (L,B,S',Hkv,D) with S' = min(S, W) in a
     sliding window) when ``want_cache``, aux the MoE load-balance loss
@@ -286,14 +356,14 @@ def forward_full(cfg: ModelConfig, params: dict, inputs,
     ``impl="ref"`` runs every kernel (attention, ``ssm_scan``, ``wkv6``) on
     its plain version: a check of the kernels inside the model, which the
     engine never asks for."""
-    check_ported(cfg, engine=True)
+    check_ported(cfg, engine=impl != AUTOGRAD)
     glob, blocks = split_params(params)
     x = embed_inputs(cfg, glob, inputs)
     B, S = x.shape[:2]
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device)[None].expand(B, S)
     x, cache, aux = run_blocks_full(cfg, blocks, x, positions, want_cache,
-                                    impl)
+                                    impl, remat, remat_policy)
     return logits_head(cfg, glob, x), cache, aux
 
 

@@ -37,7 +37,9 @@ def test_port_imports_no_jax_no_ml_dtypes_no_reference_package():
                  "models.frontends", "configs.moonshot_v1_16b_a3b",
                  "configs.arctic_480b", "configs.qwen3_14b",
                  "configs.phi3_medium_14b", "configs.mistral_nemo_12b",
-                 "configs.pixtral_12b", "configs.musicgen_medium"):
+                 "configs.pixtral_12b", "configs.musicgen_medium",
+                 "optim", "optim.adamw", "optim.schedules", "data",
+                 "data.pipeline", "launch.train"):
         assert "repro_torch." + name in modules
     code = (
         "import importlib, sys\n"
@@ -78,6 +80,7 @@ def _entry_points():
     from repro_torch.serving.engine import ServingEngine
     from repro_torch.serving.paged_cache import PagedKVCache
     from repro_torch.serving.paged_engine import PagedServingEngine
+    from repro_torch.launch import train
     from repro_torch.serving import chaos
     from repro_torch.serving.server import InferenceServer
     cfg = get_config("qwen2-1.5b-smoke")
@@ -100,6 +103,7 @@ def _entry_points():
         "chaos.gemm_workload": chaos.gemm_workload,
         "chaos.run_chaos": chaos.run_chaos,
         "chaos.run_rollout_chaos": chaos.run_rollout_chaos,
+        "train.main": lambda: train.main(["--smoke", "--steps", "1"]),
     }
 
 
@@ -112,7 +116,8 @@ def _entry_points():
                                   "PagedServingEngine.from_rimfs",
                                   "PagedKVCache", "chaos.gemm_workload",
                                   "chaos.run_chaos",
-                                  "chaos.run_rollout_chaos"])
+                                  "chaos.run_rollout_chaos",
+                                  "train.main"])
 def test_default_device_is_cuda_and_raises_without_it(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default does not raise")
