@@ -113,6 +113,23 @@ Phases, each printing one JSON line with its times:
      probe and CRC-checked revive at rung 4); memory back after every
      release; and qwen2-1.5B's 3.09 GB image swapped once over
      ``TileMesh(2)`` and finalized, memory and each step's seconds printed;
+  6d. the executor's per-op traces (``op_traces``): the paper's Table 4
+     program (``compile_matmul(64, with_dma=True)``, 300 traced runs, the
+     DMA_H2D, GEMM and DMA_D2H means after the first 10%) and ResNet-18
+     INT8 at 224 px (20 traced runs, the time by opcode, 20
+     ``int8_matmul`` launches a run), every traced output bit for bit
+     against the untraced run;
+  6e. the serving entry point (``repro_torch.launch.serve``) at full
+     width: ``serve_resnet18`` (fp32 ResNet-18 at 224 px, batch 4, 4
+     clients pipelining 4 requests each, 64 requests; with coalescing off
+     every reply equal to a local ``Executor.run`` bit for bit, with the
+     reference's window of 8 within 1e-5; images/s, the clients' and the
+     server's p50, p99 and CV), ``serve_lm`` (qwen2-1.5B at 28 bf16
+     layers, 8 prompts of 16 tokens, 8 new: 28 ``flash_attention`` a
+     prefill, the tokens equal an eager-step engine's) and
+     ``serve_fleet`` (the GEMM chain scaled 2 -> 8 -> 2 groups, swapped,
+     a group killed and healed: 0 mismatches, the scale back on the
+     cached mesh);
   7. the LM serving engine: first at qwen2-1.5B's full width cut to 2
      layers in bf16 and 1 layer in fp32 (two ``engine_reduced_depth``
      lines: each prefill's last-position logits on the kernels
@@ -166,7 +183,10 @@ Phases, each printing one JSON line with its times:
      ``slice_engine_moe``: all 48 layers with the weights drawn on the
      card (56.1 GB, no image), the six prompts served as ``slice_engine``
      serves them, 48 ``flash_attention`` launches a prefill, the decode
-     step's p50 beside its bytes bound. Then the card-only tests of the fused and batched graphs
+     step's p50 beside its bytes bound; then ``slice_engine_paged_moe``:
+     the paged-KV engine over the same 48 layers' tensors, the six prompts
+     served (48 ``flash_attention`` a prefill, none in a window), its
+     streams equal to the dense engine's bit for bit. Then the card-only tests of the fused and batched graphs
      (``tests/test_torch_graphs_gpu.py``), of the engine's compiled steps
      (``tests/test_torch_engine_gpu.py``, with the per-op diagnosis of a
      grouped prefill) and of the paged windows
@@ -175,7 +195,10 @@ Phases, each printing one JSON line with its times:
      streams (``tests/test_torch_partition_gpu.py``), of the fleet's
      flips and releases (``tests/test_torch_fleet_gpu.py``) and of the
      autotune cache's sweep and reload (``tests/test_torch_autotune_gpu.py``),
-     each in a process of its own;
+     each in a process of its own, and beside them the serving entry
+     point's CLI (``serve_cli``: ``python -m repro_torch.launch.serve
+     --requests 16 --batch 1 --clients 4 --pipeline 2`` on the card, exit
+     code 0);
   7b. training (before the card-only tests): ``train_two_layer_fp32``
      (qwen2-1.5B at full width, 2 fp32 layers: one training step's loss
      and every gradient leaf against the port's CPU path), ``slice_train``
@@ -4018,7 +4041,10 @@ def phase_slice_engine(torch, seed: int, phase: str,
          prefill_by_shape=prefill_time, **moe)
     if keep is not None:
         keep.update(fs=fs, driver=driver,
-                    tokens=[t.tolist() for t in held_pass["tokens"]])
+                    tokens=[t.tolist() for t in held_pass["tokens"]],
+                    params=None if from_image else params,
+                    tokens_per_s=generated / held_pass["burst_s"],
+                    decode_step=telemetry.get("engine"))
     del eng, local, compiled, served_step, replay, image, fs, driver
     if not from_image:
         del params
@@ -4853,6 +4879,387 @@ def phase_serve_trained(torch, seed: int, keep: dict) -> dict:
     return {"serve-trained": launched}
 
 
+# ---------------------------------------------------------------------------
+# The serving entry point (launch/serve.py), the executor's per-op traces
+# and the paged engine on the moe family
+# ---------------------------------------------------------------------------
+
+SERVE_REQUESTS, SERVE_BATCH = 64, 4     # 256 images at 224 px
+SERVE_CLIENTS, SERVE_PIPELINE = 4, 4
+SERVE_LM_PROMPTS = 8
+SERVE_FLEET_REQUESTS = 48               # 4 bursts of 12
+TRACE_RUNS = 300                        # benchmarks/run.py:163, Table 4
+TRACE_RESNET_RUNS = 20
+SERVE_CLI = ("--requests", "16", "--batch", "1", "--clients", "4",
+             "--pipeline", "2")          # the reference's verify recipe
+
+
+def percentiles(xs: list) -> dict:
+    s = sorted(xs)
+    q = lambda p: s[min(len(s) - 1, int(p * len(s)))]
+    mean = sum(s) / len(s)
+    sd = (sum((x - mean) ** 2 for x in s) / (len(s) - 1)) ** 0.5
+    return {"n": len(s), "mean": mean, "p50": q(0.50), "p99": q(0.99),
+            "max": s[-1], "cv_percent": 100.0 * sd / mean}
+
+
+def phase_serve_resnet18(torch, seed: int) -> dict:
+    """``launch.serve.serve_resnet`` at full width: fp32 ResNet-18 at 224
+    px compiled as the JAX driver compiles it (batch 4), 4 client
+    connections each pipelining 4 requests, SERVE_REQUESTS requests in
+    all. The main run disables coalescing (``--batch-window 1``): every
+    reply equals a local ``Executor.run`` of the same bytes on the same
+    images bit for bit. Then the JAX driver's default window of 8, whose
+    coalesced dispatches run the batched graph (the lanes' convolutions
+    fold into one, so cuDNN may round otherwise): every reply within the
+    ResNet-18 tolerance of the local run. Prints images/s, the clients'
+    latency (send to reply) and the server's (its execution) p50, p99 and
+    CV, and the dispatcher's counters."""
+    import numpy as np
+    from repro_torch.configs.resnet18 import CONFIG
+    from repro_torch.launch import serve as serve_mod
+    program = serve_mod.resnet_program(CONFIG, SERVE_BATCH, seed)
+    runs, paths = {}, {}
+    for window in (1, 8):
+        zero_launches()                     # the main path starts here
+        got = serve_mod.serve_resnet(
+            SERVE_REQUESTS, SERVE_BATCH, SERVE_CLIENTS, SERVE_PIPELINE,
+            batch_window=window, cfg=CONFIG, program=program,
+            keep_replies=True)
+        paths[f"serve-resnet18-window-{window}"] = launches_now()
+        runs[window] = got
+    plat, ex, bound, _, _ = local_platform(torch, program[1], program[0])
+    checked = {}
+    for window, got in runs.items():
+        worst, n = 0.0, 0
+        for replies in got["replies"]:
+            for inputs, out in replies:
+                want = ex.run(bound, inputs=inputs)["output"].cpu().numpy()
+                reply = out["output"]
+                if reply.shape != (SERVE_BATCH, CONFIG.num_classes) or \
+                        not np.isfinite(reply).all():
+                    raise AssertionError(f"serve_resnet18: a reply of "
+                                         f"{reply.shape}, finite "
+                                         f"{np.isfinite(reply).all()}")
+                if window == 1 and not same_bits(reply, want):
+                    raise AssertionError("serve_resnet18: a reply differs "
+                                         "from the local run's bits")
+                if not np.allclose(reply, want, atol=RESNET_ATOL,
+                                   rtol=RESNET_RTOL):
+                    raise AssertionError(f"serve_resnet18 (window {window}):"
+                                         f" a reply off the local run by "
+                                         f"{np.abs(reply - want).max()}")
+                worst = max(worst, float(np.abs(reply - want).max()))
+                n += 1
+        if n != SERVE_REQUESTS:
+            raise AssertionError(f"serve_resnet18: {n} replies")
+        checked[window] = worst
+    fields = {}
+    for window, got in runs.items():
+        tel = got["telemetry"]
+        srv = tel["serving"]
+        if srv["rejected"] or srv["shed"]:
+            raise AssertionError(f"serve_resnet18: rejected "
+                                 f"{srv['rejected']}, shed {srv['shed']}")
+        fields[f"window_{window}"] = {
+            "images_per_s": got["images_per_s"], "seconds": got["seconds"],
+            "client_latency_s": percentiles(got["latencies_s"]),
+            "server_exec_s": {k: tel.get(k) for k in
+                              ("n", "mean", "p50", "p99", "cv_percent")},
+            "batched": srv["batched"], "queue_wait_s": srv["queue_wait"],
+            "processed": srv["processed"],
+            "max_abs_err_vs_local_run": checked[window],
+            "bit_identical_to_local_run": window == 1}
+    emit("serve_resnet18", model=CONFIG.name, image_size=CONFIG.image_size,
+         batch=SERVE_BATCH, clients=SERVE_CLIENTS, pipeline=SERVE_PIPELINE,
+         requests=SERVE_REQUESTS, program_bytes=len(program[0]),
+         image_bytes=len(program[1]), launches=paths, **fields)
+    del runs, plat, ex, bound
+    gc.collect()
+    torch.cuda.empty_cache()
+    return paths
+
+
+def phase_serve_lm(torch, seed: int) -> dict:
+    """``launch.serve.serve_lm`` at full qwen2-1.5B width and depth (bf16,
+    random weights from ``seed``): SERVE_LM_PROMPTS prompts of 16 tokens
+    through ``ServingEngine`` (4 slots of 128 rows, the decode step one
+    CUDA graph) under a ``DeadlineScheduler``, 8 new tokens each. Gates:
+    28 ``flash_attention`` launches a prefill and none a decode step, no
+    shed, and the tokens equal a local engine's over the same weights on
+    the eager decode step, bit for bit."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.launch.steps import make_decode_step
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving.engine import Request, ServingEngine
+    cfg = get_config("qwen2-1.5b")
+    params = tf.init_params(cfg, seed)
+    torch.cuda.synchronize()
+    zero_launches()                         # the main path starts here
+    got = serve_mod.serve_lm(SERVE_LM_PROMPTS, cfg=cfg, params=params)
+    launches = launches_now()
+    want = {name: 0 for name in launches} | {
+        "flash_attention": cfg.num_layers * SERVE_LM_PROMPTS}
+    if launches != want or got["shed"]:
+        raise AssertionError(f"serve_lm: launched {launches}, not {want}; "
+                             f"shed {got['shed']}")
+    local = ServingEngine(cfg, params, max_batch=4,
+                          max_seq=serve_mod.LM_MAX_SEQ)
+    local._decode = make_decode_step(cfg)
+    reqs = [Request(rid=i, prompt=p, max_new=serve_mod.LM_MAX_NEW)
+            for i, p in enumerate(serve_mod.lm_prompts(cfg,
+                                                       SERVE_LM_PROMPTS))]
+    for r in reqs:
+        local.submit(r)
+    local.run_until_drained()
+    same = [r.out_tokens == t for r, t in zip(reqs, got["tokens"])]
+    ok_tokens = all(len(t) == serve_mod.LM_MAX_NEW + 1
+                    and all(0 <= x < cfg.vocab_size for x in t)
+                    for t in got["tokens"])
+    if not (all(same) and ok_tokens):
+        raise AssertionError(f"serve_lm: tokens equal the eager-step "
+                             f"engine's {same}, in range {ok_tokens}")
+    emit("serve_lm", model=cfg.name, layers=cfg.num_layers, dtype=cfg.dtype,
+         prompts=SERVE_LM_PROMPTS, prompt_tokens=serve_mod.LM_PROMPT,
+         max_new=serve_mod.LM_MAX_NEW, max_seq=serve_mod.LM_MAX_SEQ,
+         seconds=got["seconds"], tokens_per_s=got["tokens_per_s"],
+         decode_step=got["decode_step"], launches=launches,
+         flash_attention_per_prefill=cfg.num_layers,
+         tokens_equal_eager_step_engine=True)
+    del got, local, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"serve-lm": launches}
+
+
+def phase_serve_fleet(torch) -> dict:
+    """``launch.serve.serve_fleet`` as the JAX driver runs it: the GEMM
+    chain of depth 8 and n 24 over ``TileMesh(2)``, scaled to 8 groups,
+    hot-swapped, a group killed and healed, scaled back to the cached
+    2-group mesh, SERVE_FLEET_REQUESTS requests. Gates: 0 mismatches, the
+    scale back reports ``cached_mesh``, the swap commits, the tick
+    replaces the dead group, and the reference reply equals a local
+    ``Executor.run`` of the same bytes bit for bit."""
+    from repro_torch.launch import serve as serve_mod
+    zero_launches()                         # the main path starts here
+    got = serve_mod.serve_fleet(SERVE_FLEET_REQUESTS, groups=2, peak=8)
+    launches = launches_now()
+    plat, ex, bound, _, _ = local_platform(torch, got["program"][1],
+                                           got["program"][0])
+    local = ex.run(bound, inputs={"input": got["input"]})
+    same = all(same_bits(got["reference"][k], v.cpu())
+               for k, v in local.items())
+    scales = [(s["from"], s["to"], s.get("cached_mesh"))
+              for s in got["scales"]]
+    if not (got["mismatched"] == 0 and got["ok"] == SERVE_FLEET_REQUESTS
+            and scales == [(2, 8, False), (8, 2, True)]
+            and got["swap"] == "committed" and got["heal"][0] == "replace"
+            and same):
+        raise AssertionError(f"serve_fleet: ok {got['ok']} mismatched "
+                             f"{got['mismatched']}, scales {scales}, swap "
+                             f"{got['swap']}, heal {got['heal']}, reference "
+                             f"equal to the local run {same}")
+    emit("serve_fleet", depth=serve_mod.CHAIN_DEPTH, n=serve_mod.CHAIN_N,
+         groups=2, peak=8, ok=got["ok"], mismatched=got["mismatched"],
+         bursts=got["bursts"],
+         scales=[{k: s.get(k) for k in ("from", "to", "cached_mesh",
+                                        "seconds")} for s in got["scales"]],
+         swap=got["swap"], heal=list(got["heal"]), events=got["events"],
+         reference_equals_local_run=True, launches=launches)
+    return {"serve-fleet": launches}
+
+
+def by_op_ms(traces, skip: int = 0) -> dict:
+    """Per opcode: the traced instances after the first ``skip`` of each,
+    their mean and total ms."""
+    by: dict = {}
+    for t in traces:
+        by.setdefault(t.op.name, []).append(t.seconds * 1e3)
+    return {op: {"n": len(xs[skip:]),
+                 "mean_ms": sum(xs[skip:]) / max(1, len(xs[skip:])),
+                 "total_ms": sum(xs[skip:])} for op, xs in by.items()}
+
+
+def phase_op_traces(torch, seed: int, resnet_keep: dict) -> dict:
+    """``Executor.run(..., trace_ops=True)``: each op's host wall around
+    its dispatch, the eager driver's per-op sync included, so device time
+    too. The paper's Table 4 program (``compile_matmul(64,
+    with_dma=True)``, benchmarks/run.py:151-170): TRACE_RUNS traced runs,
+    the DMA_H2D, GEMM and DMA_D2H means after the first 10%. Then
+    ResNet-18 INT8 at 224 px (``slice_resnet18_int8``'s program, image and
+    requests): TRACE_RESNET_RUNS traced runs, the time by opcode, 20
+    ``int8_matmul`` launches a run from its 20 CONV2D_I8. Gates: every
+    traced output equals the untraced linked run's bit for bit, and one
+    trace entry an op in program order."""
+    import numpy as np
+    from repro_torch.core import rbl, rctc, rimfs
+    from repro_torch.core.executor import Executor
+    rng = np.random.RandomState(seed)
+    a = rng.randn(64, 64).astype(np.float32)
+    b = rng.randn(64, 64).astype(np.float32)
+    prog = rctc.compile_matmul(64, with_dma=True)
+    fs = rimfs.mount(rimfs.pack({"b": b}))
+    ex = Executor()
+    bound = rbl.bind(prog, rimfs=fs, inputs={"a": a}, driver=ex.driver)
+    want = ex.run(bound)["output"].cpu()
+    ops = [op.op.name for op in prog.ops()]
+    paths = {}
+    zero_launches()                        # the traced path starts here
+    ex.op_traces.clear()
+    for _ in range(TRACE_RUNS):
+        got = ex.run(bound, trace_ops=True)["output"]
+        if not same_bits(got, want):
+            raise AssertionError("op_traces: a traced Table 4 run differs "
+                                 "from the untraced run")
+    paths["op-traces-matmul"] = launches_now()
+    if [t.op.name for t in ex.op_traces] != ops * TRACE_RUNS:
+        raise AssertionError("op_traces: the Table 4 trace is not one entry "
+                             "an op in program order")
+    skip = TRACE_RUNS // 10
+    table4 = {op: {"mean_us": v["mean_ms"] * 1e3, "n": v["n"]}
+              for op, v in by_op_ms(ex.op_traces, skip).items()}
+
+    prog_r, image = resnet_keep["prog"], resnet_keep["image"]
+    requests = resnet_keep["requests"]
+    plat, ex_r, bound_r, _, _ = local_platform(torch, image, prog_r.encode())
+    want_r = [ex_r.run(bound_r, inputs=r)["output"] for r in requests]
+    ops_r = [op.op.name for op in prog_r.ops()]
+    t0 = time.perf_counter()
+    ex_r.run(bound_r, inputs=requests[0])
+    torch.cuda.synchronize()
+    linked_s = time.perf_counter() - t0
+    zero_launches()
+    ex_r.op_traces.clear()
+    walls = []
+    for i in range(TRACE_RESNET_RUNS):
+        req = i % len(requests)
+        t1 = time.perf_counter()
+        got = ex_r.run(bound_r, inputs=requests[req], trace_ops=True)
+        walls.append(time.perf_counter() - t1)
+        if not same_bits(got["output"], want_r[req]):
+            raise AssertionError("op_traces: a traced ResNet-18 INT8 run "
+                                 "differs from the untraced run")
+    launches = launches_now()
+    paths["op-traces-resnet18-int8"] = launches
+    n_conv = ops_r.count("CONV2D_I8")
+    if launches["int8_matmul"] != n_conv * TRACE_RESNET_RUNS or n_conv != 20 \
+            or [t.op.name for t in ex_r.op_traces] != ops_r * \
+            TRACE_RESNET_RUNS:
+        raise AssertionError(f"op_traces: {launches} over "
+                             f"{TRACE_RESNET_RUNS} runs of {n_conv} "
+                             f"CONV2D_I8, or the trace is out of order")
+    per_run = len(ops_r)
+    by_op = by_op_ms(ex_r.op_traces[per_run:])      # the first run warms
+    traced_ms = sum(v["total_ms"] for v in by_op.values()) / \
+        (TRACE_RESNET_RUNS - 1)
+    emit("op_traces", table4_program="compile_matmul(64, with_dma=True)",
+         runs=TRACE_RUNS, skipped=skip, table4=table4,
+         resnet18_int8={
+             "image_size": 224, "runs": TRACE_RESNET_RUNS, "ops": per_run,
+             "by_op_per_run": {op: {"n": v["n"] // (TRACE_RESNET_RUNS - 1),
+                                    "mean_ms": v["mean_ms"],
+                                    "ms_per_run": v["total_ms"]
+                                    / (TRACE_RESNET_RUNS - 1)}
+                               for op, v in sorted(
+                                   by_op.items(),
+                                   key=lambda kv: -kv[1]["total_ms"])},
+             "traced_ops_ms_per_run": traced_ms,
+             "traced_run_wall_s_p50": sorted(walls)[len(walls) // 2],
+             "linked_run_wall_s": linked_s},
+         bit_identical=True, launches=paths)
+    del plat, ex_r, bound_r, ex, bound, fs
+    return paths
+
+
+def phase_slice_engine_paged_moe(torch, seed: int, keep: dict) -> dict:
+    """The paged-KV engine on the moe family: moonshot-v1-16b-a3b at 48
+    layers over the weights ``slice_engine_moe`` drew on the card
+    (``keep``: the tensors and its dense streams), ``PagedServingEngine``
+    (4 slots, max_seq 640, blocks of 16, 160 + 1 blocks, its 12 rungs
+    captured when it is built) served by the InferenceServer: the six
+    prompts, held until all are queued, each prefilled alone, decoded in
+    windows of up to 8 tokens (``block_decode_paged`` routes every lane,
+    padded ones too, through ``moe_ffn``). Gates: 48 ``flash_attention``
+    launches a prefill and none in a window, and the six streams equal the
+    dense engine's bit for bit. Prints tokens/s, the reply times, the
+    per-token p50 (a window's wall over w), the windows by (bucket, w),
+    the build seconds and ``kv_stats``."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.serving.paged_engine import PagedServingEngine
+    from repro_torch.serving.server import Client, InferenceServer
+    phase = "slice_engine_paged_moe"
+    cfg = get_config(MOE_MODEL)
+    prompts = engine_prompts(seed, cfg.vocab_size)
+    n_req = len(prompts)
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()                         # the main path starts here
+    t0 = time.perf_counter()
+    eng = PagedServingEngine(cfg, keep["params"], max_batch=ENGINE_SLOTS,
+                             max_seq=ENGINE_MAX_SEQ, block_size=PAGED_BLOCK)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    rungs = list(eng.program.artifacts["paged_decode"].captured)
+    log = instrument_engine(torch, eng)
+    server = InferenceServer(engine=eng)
+    server.start()
+    client = Client(server.address)
+    try:
+        served = engine_burst(server, client, eng, prompts, log, phase)
+        launches = launches_now()
+        serve_peak = torch.cuda.max_memory_allocated()
+        telemetry = client.telemetry()
+        client.shutdown()
+    finally:
+        client.close()
+        server.stop()
+    engine_launch_check(log, cfg, f"{phase} served")
+    groups = prefill_groups(log)
+    want = {name: 0 for name in launches} | {
+        "flash_attention": cfg.num_layers * n_req}
+    if len(groups) != n_req or launches != want:
+        raise AssertionError(f"{phase}: the held burst launched {launches}, "
+                             f"not {want} ({len(groups)} prefills)")
+    tokens = served["tokens"]
+    for i, tok in enumerate(tokens):
+        if tok.shape != (ENGINE_MAX_NEW + 1,) or tok.dtype != np.int32 \
+                or tok.min() < 0 or tok.max() >= cfg.vocab_size:
+            raise AssertionError(f"{phase}: request {i} replied {tok}")
+    dense_same = [t.tolist() == d for t, d in zip(tokens, keep["tokens"])]
+    windows = [e for e in log if e["step"] == "decode"]
+    walls = sorted(served["walls"])
+    generated = n_req * (ENGINE_MAX_NEW + 1)
+    emit(phase, model=cfg.name, layers=cfg.num_layers, dtype=cfg.dtype,
+         slots=ENGINE_SLOTS, max_seq=ENGINE_MAX_SEQ, block_size=PAGED_BLOCK,
+         prompts=list(ENGINE_PROMPTS), max_new=ENGINE_MAX_NEW,
+         build_s=build_s, rungs_captured=len(rungs),
+         rungs_capture_s=sum(c["capture_s"] for c in rungs),
+         kv_stats=telemetry["engine"].get("kv"),
+         pool_bytes=eng.cache.pool_bytes(),
+         serve_peak_memory_allocated=serve_peak, prefill_groups=groups,
+         launches=launches, launches_per_window=0,
+         windows=[e["shape"] for e in windows],
+         window_wall_s=[e["wall_s"] for e in windows],
+         served_prefills=[{k: e[k] for k in ("shape", "wall_s")}
+                          for e in log if e["step"] == "prefill"],
+         request_wall_s=served["walls"], first_four_replies_s=walls[3],
+         last_two_replies_s=walls[-1], burst_s=served["burst_s"],
+         tokens_per_s=generated / served["burst_s"],
+         engine_decode_token=telemetry.get("engine"),
+         dense_tokens_per_s=keep["tokens_per_s"],
+         dense_engine_decode_step=keep["decode_step"],
+         tokens_equal_dense_engine=dense_same)
+    eng.close()
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not all(dense_same):
+        raise AssertionError(f"{phase}: the paged streams differ from the "
+                             f"dense engine's: {dense_same}")
+    return {phase: launches}
+
+
 GPU_TESTS = {"graphs_gpu_tests": "tests/test_torch_graphs_gpu.py",
              "engine_gpu_tests": "tests/test_torch_engine_gpu.py",
              "paged_gpu_tests": "tests/test_torch_paged_gpu.py",
@@ -4875,14 +5282,39 @@ def start_gpu_tests(phase: str):
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
 
 
+def start_serve_cli():
+    """``python -m repro_torch.launch.serve`` with the reference's verify
+    recipe's flags (SERVE_CLI) and no ``--device``: on the card."""
+    root = Path(__file__).resolve().parent
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.serve", *SERVE_CLI],
+        cwd=root, env={**os.environ, "PYTHONPATH": str(root / "src")},
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
 def phase_gpu_tests() -> None:
     """The card-only test files, each in a process of its own, all at
-    once (each is small beside the card); one phase line a file, with the
-    ``GROUPED_PREFILL`` and ``PAGED_VS_DENSE`` lines kept. A failure, or
-    600 s passed, raises, and no process outlives the phase."""
+    once (each is small beside the card), and beside them the serving
+    entry point's CLI as a user runs it (``serve_cli``: exit code 0, its
+    throughput line with nothing rejected or shed); one phase line a
+    process, with the ``GROUPED_PREFILL`` and ``PAGED_VS_DENSE`` lines
+    kept. A failure, or 600 s passed, raises, and no process outlives the
+    phase."""
     t0 = time.perf_counter()
     procs = {phase: start_gpu_tests(phase) for phase in GPU_TESTS}
+    cli = start_serve_cli()
     try:
+        try:
+            out, err = cli.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            raise AssertionError("the serve CLI ran past 600 s")
+        lines = [ln for ln in out.splitlines() if ln.startswith("[serve]")]
+        emit("serve_cli", argv=list(SERVE_CLI), rc=cli.returncode,
+             seconds=time.perf_counter() - t0, lines=lines)
+        if cli.returncode != 0 or not any(
+                "rejected=0 shed=0" in ln for ln in lines):
+            raise AssertionError("the serve CLI failed:\n" + out[-3000:]
+                                 + err[-3000:])
         for phase, proc in procs.items():
             left = max(1.0, t0 + 600 - time.perf_counter())
             try:
@@ -4906,7 +5338,7 @@ def phase_gpu_tests() -> None:
                 raise AssertionError(f"{GPU_TESTS[phase]} failed:\n"
                                      + out[-6000:] + err[-3000:])
     finally:
-        for proc in procs.values():
+        for proc in [*procs.values(), cli]:
             if proc.poll() is None:
                 proc.kill()
                 proc.communicate()
@@ -4979,10 +5411,17 @@ def main() -> int:
     # 6c. the fleet and overload control plane over the mesh
     by_path.update(phase_slice_fleet(torch, args.seed, resnet_keep,
                                      qwen2_keep))
+    # the executor's per-op traces: Table 4's program, ResNet-18 INT8
+    by_path.update(phase_op_traces(torch, args.seed, resnet_keep))
     qwen2_keep.clear()
     resnet_keep.clear()
     gc.collect()
     torch.cuda.empty_cache()
+    # the serving entry point: ResNet-18 over the wire, the LM engine at
+    # full qwen2-1.5B, the fleet demo at 8 groups
+    by_path.update(phase_serve_resnet18(torch, args.seed))
+    by_path.update(phase_serve_lm(torch, args.seed))
+    by_path.update(phase_serve_fleet(torch))
 
     # 7. the LM serving engine: at reduced depth, then served at full depth
     # (qwen2-1.5B, dense then paged; hymba-1.5B and rwkv6-1.6B, the
@@ -5025,7 +5464,12 @@ def main() -> int:
         torch, args.seed, MOE_MODEL,
         engine_prompts(args.seed, moe_cfg.vocab_size), 1, "float32",
         gate_recompute=True, capacity=float(moe_cfg.num_experts))
-    by_path.update(phase_slice_engine(torch, args.seed, "slice_engine_moe"))
+    moe_keep: dict = {}
+    by_path.update(phase_slice_engine(torch, args.seed, "slice_engine_moe",
+                                      moe_keep))
+    # the paged engine over the same 48 layers, against the dense streams
+    by_path.update(phase_slice_engine_paged_moe(torch, args.seed, moe_keep))
+    moe_keep.clear()
     gc.collect()
     torch.cuda.empty_cache()
 

@@ -22,13 +22,17 @@ runs linked on its group's driver and stream, so it is bit-identical too.
 Host inputs (numpy arrays or CPU tensors) are moved onto the driver's
 device explicitly; outputs stay on the device.
 Either mode can ``probe`` the abs-max of every buffer it holds (INT8
-calibration, core/quant.py).
+calibration, core/quant.py). ``run(..., trace_ops=True)`` and
+``run_interpreted(..., trace_ops=True)`` record one ``OpTrace`` per op in
+``Executor.op_traces`` (the per-op measurement mode).
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 from torch.func import vmap
 
@@ -43,10 +47,25 @@ from repro_torch.kernels import registry
 _CPU = torch.device("cpu")
 
 
+@dataclasses.dataclass
+class OpTrace:
+    """One interpreted op's host wall clock around its dispatch. The eager
+    driver syncs the host after every compute op and DMA it dispatches
+    (``rhal.make_eager_driver``), so on the card ``seconds`` holds the
+    op's device time too, launch and sync included; a ``GRAPH_EXEC``
+    artifact is not synced, so its entry holds its enqueue only."""
+    block_id: int
+    op: Op
+    seconds: float
+
+
 def _probe_update(probe_dev: dict, sym: str, buf) -> None:
     """Device-side abs-max accumulation: no host round-trip per op. A slot
     that holds no tensor (empty, or a DMA ticket not yet redeemed) and an
-    empty tensor record nothing."""
+    empty tensor record nothing; an input kept on the host for its DMA is
+    read there."""
+    if isinstance(buf, np.ndarray):
+        buf = as_tensor(buf, _CPU)
     if not isinstance(buf, torch.Tensor) or buf.numel() == 0:
         return
     m = torch.amax(torch.abs(buf))
@@ -59,6 +78,16 @@ def _probe_flush(probe: dict, probe_dev: dict) -> None:
     exit."""
     for sym, m in probe_dev.items():
         probe[sym] = max(probe.get(sym, 0.0), float(m))
+
+
+def _dma_only_inputs(prog) -> frozenset:
+    """The program's inputs that no op but ``DMA_H2D`` reads."""
+    dma, other = set(), set()
+    for op in prog.ops():
+        (dma if op.op == Op.DMA_H2D else other).update(op.srcs)
+    return frozenset(n for n in dma - other
+                     if prog.tensors.get(n) is not None
+                     and prog.tensors[n].kind == "input")
 
 
 def _weight_key(weights: dict) -> tuple:
@@ -209,6 +238,7 @@ class Executor:
                  rtpm=None, device="cuda"):
         self.driver = driver or rhal_mod.make_eager_driver(device)
         self.rtpm = rtpm
+        self.op_traces: list[OpTrace] = []      # cleared by the caller
 
     # ------------------------------------------------------------- linking
     def link(self, bound: BoundProgram) -> linker_mod.LinkedProgram:
@@ -221,14 +251,17 @@ class Executor:
         return linked
 
     def _inputs_on_device(self, bound: BoundProgram,
-                          inputs: Optional[dict]) -> dict:
+                          inputs: Optional[dict],
+                          keep_host: frozenset = frozenset()) -> dict:
         """Every input-kind buffer (bound or passed) on the driver's
-        device; the caller's host arrays move here, explicitly."""
+        device; the caller's host arrays move here, explicitly. Those
+        named in ``keep_host`` stay as they were given."""
         dev = self.driver.device
         out = {n: b for n, b in bound.buffers.items()
                if bound.program.tensors[n].kind == "input"}
         out.update(inputs or {})
-        return {n: as_tensor(b, dev) for n, b in out.items()}
+        return {n: b if n in keep_host else as_tensor(b, dev)
+                for n, b in out.items()}
 
     # ------------------------------------------------------------ dispatch
     def _dispatch(self, driver, op, buffers, free_after: Optional[dict],
@@ -302,7 +335,8 @@ class Executor:
 
     # -------------------------------------------------------------- linked
     def run(self, bound: BoundProgram, inputs: Optional[dict] = None,
-            rimfs=None, probe: Optional[dict] = None) -> dict:
+            rimfs=None, trace_ops: bool = False,
+            probe: Optional[dict] = None) -> dict:
         """Execute the program through the linked (compiled-dispatch) path.
 
         ``probe``: optional dict filled with the per-symbol abs-max of every
@@ -310,8 +344,14 @@ class Executor:
         INT8 calibration. The abs-max accumulates on the device; the host
         reads each symbol's once, at exit.
 
+        ``trace_ops=True`` takes the interpreted path instead: per-op wall
+        timing needs the per-op host sync that defines that mode.
+
         Everything runs on the driver's stream (``HalDriver.scope``): a
         tile group's own, else the current one."""
+        if trace_ops:
+            return self.run_interpreted(bound, inputs=inputs, rimfs=rimfs,
+                                        trace_ops=True, probe=probe)
         with self.driver.scope():
             return self._run(bound, inputs, rimfs, probe)
 
@@ -618,18 +658,26 @@ class Executor:
     # --------------------------------------------------- interpreted baseline
     def run_interpreted(self, bound: BoundProgram,
                         inputs: Optional[dict] = None, rimfs=None,
+                        trace_ops: bool = False,
                         probe: Optional[dict] = None) -> dict:
-        """Interpret the program op-by-op (the per-op baseline); ``probe``
-        as in ``run``, on the driver's stream as ``run``."""
+        """Interpret the program op-by-op (the per-op baseline and the
+        per-op measurement mode): with ``trace_ops`` each op appends an
+        ``OpTrace`` to ``op_traces`` in program order. ``probe`` as in
+        ``run``, on the driver's stream as ``run``."""
         with self.driver.scope():
-            return self._run_interpreted(bound, inputs, rimfs, probe)
+            return self._run_interpreted(bound, inputs, rimfs, trace_ops,
+                                         probe)
 
     def _run_interpreted(self, bound: BoundProgram, inputs: Optional[dict],
-                         rimfs, probe: Optional[dict]) -> dict:
+                         rimfs, trace_ops: bool,
+                         probe: Optional[dict]) -> dict:
         self._prog = bound.program
         self._explicit_free = rbl_explicitly_freed(bound.program)
         buffers = dict(bound.buffers)
-        buffers.update(self._inputs_on_device(bound, inputs))
+        # an input the program moves itself (read by DMA_H2D ops only)
+        # stays on the host until its op, which then times the transfer
+        buffers.update(self._inputs_on_device(
+            bound, inputs, _dma_only_inputs(bound.program)))
         for sym in bound.missing_inputs:
             if sym not in buffers:
                 raise ValueError(f"missing input {sym!r}")
@@ -642,8 +690,13 @@ class Executor:
         for block in bound.program.blocks:
             t_blk = time.perf_counter()
             for op in block.ops:
+                t0 = time.perf_counter()
                 self._dispatch(self.driver, op, buffers, bound.last_use,
                                idx, rimfs)
+                if trace_ops:
+                    self.op_traces.append(
+                        OpTrace(block.block_id, op.op,
+                                time.perf_counter() - t0))
                 if probe_dev is not None:
                     for dd in op.dsts:
                         _probe_update(probe_dev, dd, buffers.get(dd))

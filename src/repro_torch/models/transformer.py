@@ -409,19 +409,29 @@ def forward_decode_paged(cfg: ModelConfig, params: dict, inputs, pos,
 
     inputs (B,1) tokens; pos (B,) int32; pool_k/v (L, num_blocks+1,
     block_size, Hkv, D), each layer's slice written in place; tables
-    (lanes, W) int32, lanes >= B, the rows past B null lanes that only the
-    attention scores see (``attn.decode_attention_paged``). What every
-    layer shares (the write index, mask, gather indices and RoPE) is built
-    once, before the layers. Returns (logits (B,1,V), pool_k, pool_v)."""
+    (lanes, W) int32, lanes >= B, the rows past B null lanes. Those lanes
+    join the step as pad lanes (a zero hidden state at position 0, their
+    K/V written to the null block), so that every op of every layer runs
+    at ``lanes`` rows: the engine passes tables of its dense counterpart's
+    shape (max_batch lanes), and on an H100 several of a layer's ops
+    round by their row count (the attention scores' batched GEMM, the
+    RMSNorm's mean, the MoE router's fp32 GEMM), so only that shape gives
+    each live lane the dense step's bits. What every layer shares
+    (the write index, mask, gather indices and RoPE) is built once, before
+    the layers. Returns (logits (B,1,V), pool_k, pool_v)."""
     _check_paged_family(cfg)
     check_ported(cfg, engine=True)
     glob, blocks = split_params(params)
     x = embed_inputs(cfg, glob, inputs)
+    B, lanes = x.shape[0], tables.shape[0]
+    if lanes > B:
+        x = torch.cat([x, x.new_zeros((lanes - B,) + tuple(x.shape[1:]))])
+        pos = torch.cat([pos, pos.new_zeros(lanes - B)])
     consts = attn.paged_decode_consts(cfg, pos, tables, pool_k.shape[2])
     for i in range(cfg.num_layers):
         x, _, _ = block_decode_paged(cfg, _slice_layer(blocks, i), x, pos,
                                      pool_k[i], pool_v[i], tables, consts)
-    return logits_head(cfg, glob, x), pool_k, pool_v
+    return logits_head(cfg, glob, x)[:B], pool_k, pool_v
 
 
 def scatter_prefill_cache(pool_k, pool_v, cache_k, cache_v, tables):

@@ -25,12 +25,16 @@ cache with block tables over one shared pool (serving/paged_cache.py):
   all of them captured when the engine is built: 3 buckets x 4 windows at
   4 slots. The JAX package also buckets the span of gathered blocks to a
   power of two; here every window gathers the whole table, max_seq rows a
-  lane, and the tables carry max_batch lanes: the attention scores are
-  then computed at the dense engine's shape (on the card their batched
-  GEMM over another shape rounds otherwise, and greedy streams are to
-  equal the dense engine's bit for bit where block_size divides max_seq),
-  and a span bucket would save only the value gather and P.V (PERF.md
-  holds an H100's times of a window at several spans).
+  lane, and the tables carry max_batch lanes, which the step runs as pad
+  lanes: every op then runs at the dense engine's shape (on the card the
+  attention scores' batched GEMM, the RMSNorm's mean and the MoE router's
+  GEMM round by their row count, and greedy streams are to equal the
+  dense engine's bit for bit where block_size divides max_seq;
+  ``tf.forward_decode_paged``), so
+  every bucket does max_batch lanes' device work (a decode step reads the
+  weights once, whatever its lanes), and a span bucket would save only
+  the value gather and P.V (PERF.md holds an H100's times of a window at
+  several spans).
 * **Occupancy-aware admission** — a feasibility veto reserves worst-case
   blocks (prompt + max(max_new, 1)) at admission; an infeasible reservation
   is a shed verdict (``out_of_blocks``), so ``OutOfBlocksError`` cannot

@@ -39,7 +39,7 @@ def test_port_imports_no_jax_no_ml_dtypes_no_reference_package():
                  "configs.phi3_medium_14b", "configs.mistral_nemo_12b",
                  "configs.pixtral_12b", "configs.musicgen_medium",
                  "optim", "optim.adamw", "optim.schedules", "data",
-                 "data.pipeline", "launch.train"):
+                 "data.pipeline", "launch.train", "launch.serve"):
         assert "repro_torch." + name in modules
     code = (
         "import importlib, sys\n"
@@ -68,6 +68,16 @@ def test_chip_smoke_imports_nothing_of_jax():
         assert bad not in src, bad
 
 
+@pytest.mark.parametrize("script", [
+    "torch_quickstart.py", "torch_serve_resnet18.py", "torch_train_100m.py",
+    "torch_elastic_restart.py"])
+def test_torch_examples_import_nothing_of_jax(script):
+    src = (SRC.parent / "examples" / script).read_text()
+    for bad in ("import jax", "from jax", "ml_dtypes", "from repro.",
+                "import repro.", "from repro import", "repro.launch"):
+        assert bad not in src, bad
+
+
 def _entry_points():
     from repro_torch.configs import get_config
     from repro_torch.core.executor import Executor
@@ -80,7 +90,7 @@ def _entry_points():
     from repro_torch.serving.engine import ServingEngine
     from repro_torch.serving.paged_cache import PagedKVCache
     from repro_torch.serving.paged_engine import PagedServingEngine
-    from repro_torch.launch import train
+    from repro_torch.launch import serve, train
     from repro_torch.serving import chaos
     from repro_torch.serving.server import InferenceServer
     cfg = get_config("qwen2-1.5b-smoke")
@@ -104,6 +114,11 @@ def _entry_points():
         "chaos.run_chaos": chaos.run_chaos,
         "chaos.run_rollout_chaos": chaos.run_rollout_chaos,
         "train.main": lambda: train.main(["--smoke", "--steps", "1"]),
+        "serve.main": lambda: serve.main(["--requests", "1"]),
+        "serve.serve_resnet": lambda: serve.serve_resnet(1, 1, 1, 1),
+        "serve.serve_lm": lambda: serve.serve_lm(1),
+        "serve.serve_fleet": lambda: serve.serve_fleet(4),
+        "serve.resnet_program": serve.resnet_program,
     }
 
 
@@ -117,7 +132,10 @@ def _entry_points():
                                   "PagedKVCache", "chaos.gemm_workload",
                                   "chaos.run_chaos",
                                   "chaos.run_rollout_chaos",
-                                  "train.main"])
+                                  "train.main", "serve.main",
+                                  "serve.serve_resnet", "serve.serve_lm",
+                                  "serve.serve_fleet",
+                                  "serve.resnet_program"])
 def test_default_device_is_cuda_and_raises_without_it(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default does not raise")

@@ -370,3 +370,25 @@ def test_paged_streams_equal_dense_at_three_slots(cuda):
     got = _serve(paged, prompts, max_new)
     assert {b["tokens"].shape[0] for b, _ in calls} == {1, 2, 3}
     assert got == want
+
+
+@pytest.mark.gpu
+def test_paged_moe_streams_equal_dense(cuda):
+    """The moe family (moonshot-v1-16b-a3b's full width, 2 bf16 layers, 64
+    experts top-6): the six prompts of the engine's main path through the
+    dense engine and the paged engine give the same streams, the paged
+    windows at buckets 4 and 2 running every op at the tables' 4 lanes
+    (``forward_decode_paged``'s pad lanes; at a bucket's own lanes the
+    RMSNorm's mean and the router's GEMM may round otherwise)."""
+    cfg = dataclasses.replace(get_config("moonshot-v1-16b-a3b"),
+                              num_layers=2)
+    params = tf.init_params(cfg, 11)
+    prompts = _prompts(12, (512, 512, 256, 256, 100, 37, 9), cfg.vocab_size)
+    max_new = (16, 16, 16, 16, 16, 9, 4)
+    dense = ServingEngine(cfg, params, max_batch=SLOTS, max_seq=MAX_SEQ)
+    want = _serve(dense, prompts, max_new)
+    paged = _engine(cfg, params)
+    calls = _recorded(paged)
+    got = _serve(paged, prompts, max_new)
+    assert {b["tokens"].shape[0] for b, _ in calls} >= {2, 4}
+    assert got == want
