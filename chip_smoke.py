@@ -211,6 +211,28 @@ Phases, each printing one JSON line with its times:
      checkpoint's and the in-memory weights answer the same greedy tokens
      through two ``ServingEngine``s, 28 ``flash_attention`` a prefill),
      and the card-only training test (``tests/test_torch_train_gpu.py``);
+  7c. distribution and the dry run (before the card-only tests): the dry
+     run's cells start first, each ``python -m repro_torch.launch.dryrun``
+     in a process of its own with no card visible (qwen2-1.5b x
+     train_4k, prefill_32k and decode_32k over the fake 256-rank mesh,
+     moonshot-v1-16b-a3b x train_4k over the 512-rank one, hymba-1.5b x
+     long_500k, and qwen2-1.5b x train_4k again in ``--mode full``); on a
+     NCCL group of one rank, ``distributed`` (``compressed_psum``'s three
+     methods bit for bit against their plain formulas, ``pipeline_forward``
+     at one stage against the stacked forward), ``dp_train_step``
+     (``make_dp_train_step`` at qwen2-1.5B's full size on ``SyntheticLM``,
+     B 16 x S 128, plain SGD: two ``none`` steps bit for bit against the
+     same steps without a group, one ``int8_ef`` step's loss and largest
+     update difference) and ``sharded_lm_service`` (qwen2-1.5B's LM
+     service program on DTensors over a 1 x 1 mesh under the "decode"
+     rules: logits and greedy tokens bit for bit against plain tensors,
+     28 ``flash_attention`` launches a prefill through its sharding rule);
+     then ``roofline_check`` (qwen2-1.5B's prefill at (1, 512): the FLOPs
+     counted on the card equal those counted on ``meta``, the device time
+     beside the roofline's compute and memory terms) and, last, one
+     ``dryrun`` line a cell with its ``roofline.analyze`` row and
+     ``dryrun_modes_agree`` (the full trace's totals equal the
+     extrapolation's exactly);
   8. one ``kernels`` line: per kernel its launches on every served path
      (and on each one's fused and batched paths), its error against its
      plain version, its time, its bound and the library's.
@@ -233,8 +255,12 @@ import threading
 import time
 from pathlib import Path
 
-HBM_BYTES_PER_S = 3.35e12            # H100 SXM device memory
-PEAK_OPS_PER_S = {"bfloat16": 989e12, "float16": 989e12,   # tensor cores
+sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+from repro_torch.launch.roofline import H100_HBM_BW, H100_PEAK_FLOPS  # noqa
+
+HBM_BYTES_PER_S = H100_HBM_BW        # H100 SXM device memory
+PEAK_OPS_PER_S = {"bfloat16": H100_PEAK_FLOPS,       # tensor cores
+                  "float16": H100_PEAK_FLOPS,
                   "float32": 67e12,                  # no TF32: CUDA cores
                   "int8": 1979e12}                   # tensor cores
 TOLERANCE = {"float32": 2e-6, "bfloat16": 2e-2,            # test_kernels.py:35
@@ -5269,6 +5295,413 @@ GPU_TESTS = {"graphs_gpu_tests": "tests/test_torch_graphs_gpu.py",
              "train_gpu_tests": "tests/test_torch_train_gpu.py"}
 
 
+# ---------------------------------------------------------------------------
+# Distribution and the dry run: compressed all-reduce and the pipeline on a
+# NCCL group of one rank, the data-parallel step at qwen2-1.5B's full size,
+# the LM service on DTensors over a 1 x 1 mesh, the dry run's cells over a
+# fake 256/512-rank group (in subprocesses beside the card's phases) and
+# the FLOP count of a prefill on the card against its count on ``meta``
+# ---------------------------------------------------------------------------
+
+DIST_GRAD_SHAPE = (1536, 8960)            # qwen2-1.5B's MLP up-projection
+DIST_PIPE = (4, 8, 1536)                  # microbatches (M, mb, d)
+DP_STEPS, DP_LR = 2, 0.1
+SHARDED_B, SHARDED_S, SHARDED_NEW = 2, SEQ, 8
+ROOFLINE_SHAPE = (1, SEQ)                 # qwen2-1.5B's prefill (B, S)
+DRYRUN_CELLS = (("qwen2-1.5b", "train_4k", False, "extrapolate"),
+                ("qwen2-1.5b", "prefill_32k", False, "extrapolate"),
+                ("qwen2-1.5b", "decode_32k", False, "extrapolate"),
+                ("moonshot-v1-16b-a3b", "train_4k", True, "extrapolate"),
+                ("hymba-1.5b", "long_500k", False, "extrapolate"),
+                ("qwen2-1.5b", "train_4k", False, "full"))
+DRYRUN_TIMEOUT = 600
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def start_dryrun() -> dict:
+    """Every ``DRYRUN_CELLS`` cell through ``python -m
+    repro_torch.launch.dryrun`` in a process of its own, all at once, with
+    no card visible (the dry run runs on ``meta`` tensors only)."""
+    root = Path(__file__).resolve().parent
+    env = {**os.environ, "PYTHONPATH": str(root / "src"),
+           "CUDA_VISIBLE_DEVICES": ""}
+    procs = {}
+    for arch, shape, multipod, mode in DRYRUN_CELLS:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               arch, "--shape", shape, "--mode", mode, "--force"]
+        if multipod:
+            cmd.append("--multipod")
+        procs[(arch, shape, multipod, mode)] = subprocess.Popen(
+            cmd, cwd=root, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+    return procs
+
+
+def phase_dryrun(procs: dict, t_start: float) -> None:
+    """Collect the dry-run processes: each cell's record and its
+    ``roofline.analyze`` row; the full-mode cell's totals must equal its
+    extrapolated twin's exactly. A failure, or DRYRUN_TIMEOUT passed,
+    raises, and no process outlives the phase."""
+    from repro_torch.launch.roofline import DRYRUN_RESULTS as RESULTS
+    from repro_torch.launch.roofline import analyze
+    try:
+        recs = {}
+        for (arch, shape, multipod, mode), proc in procs.items():
+            left = max(1.0, t_start + DRYRUN_TIMEOUT - time.perf_counter())
+            try:
+                out, err = proc.communicate(timeout=left)
+            except subprocess.TimeoutExpired:
+                raise AssertionError(f"dryrun {arch} x {shape} ran past "
+                                     f"{DRYRUN_TIMEOUT} s")
+            if proc.returncode != 0:
+                raise AssertionError(f"dryrun {arch} x {shape} ({mode}) "
+                                     f"failed:\n{out[-3000:]}{err[-3000:]}")
+            tag = "pod512" if multipod else "pod256"
+            suffix = "__full" if mode == "full" else ""
+            rec = json.loads((RESULTS / tag / f"{arch}__{shape}{suffix}.json")
+                             .read_text())
+            recs[(arch, shape, tag, mode)] = rec
+            emit("dryrun", cell=f"{arch} x {shape} x {tag}", mode=mode,
+                 record=rec, roofline=analyze(rec),
+                 seconds=time.perf_counter() - t_start)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    for (arch, shape, tag, mode), full in recs.items():
+        if mode != "full":
+            continue
+        ext = recs[(arch, shape, tag, "extrapolate")]
+        keys = ("flops_per_device", "bytes_per_device",
+                "collective_bytes_per_device")
+        same = {k: ext[k] == full[k] for k in keys}
+        emit("dryrun_modes_agree", cell=f"{arch} x {shape} x {tag}",
+             **{k: [ext[k], full[k]] for k in keys}, same=same)
+        if not all(same.values()):
+            raise AssertionError(f"dryrun {arch} x {shape}: the full trace's "
+                                 f"totals differ from the extrapolation's "
+                                 f"{same}")
+
+
+def phase_distributed(torch, seed: int) -> None:
+    """``compressed_psum`` and ``pipeline_forward`` on CUDA tensors over
+    the running NCCL group of one rank: ``none`` gives g bit for bit,
+    ``bf16`` g's bf16 round trip, ``int8_ef`` the plain formulas' value and
+    error; the pipeline at one stage equals the stacked forward bit for
+    bit."""
+    from repro_torch.distributed.collectives import compressed_psum
+    from repro_torch.distributed.pipeline import pipeline_forward
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    g = torch.randn(DIST_GRAD_SHAPE, generator=gen, device="cuda")
+    t0 = time.perf_counter()
+    r_none, _ = compressed_psum(g, None, "none")
+    r_bf16, _ = compressed_psum(g, None, "bf16")
+    r_int8, e_int8 = compressed_psum(g, None, "int8_ef")
+    one, q127 = g.new_tensor(1.0), g.new_tensor(127.0)
+    scale = torch.max(torch.abs(g)) + 1e-12
+    q = torch.clamp(torch.round(g / scale * 127.0), -127, 127)
+    want_int8 = q.to(torch.int32).float() * (scale / q127) / one
+    want_err = g - q * (scale / q127)
+    checks = {"none": torch.equal(r_none, g),
+              "bf16": torch.equal(r_bf16, g.bfloat16().float()),
+              "int8_ef": torch.equal(r_int8, want_int8),
+              "int8_ef_error": torch.equal(e_int8, want_err)}
+    ms = {m: cuda_ms(torch, lambda m=m: compressed_psum(g, None, m), 20, 3)
+          for m in ("none", "bf16", "int8_ef")}
+    ws = torch.randn((1, DIST_PIPE[2], DIST_PIPE[2]), generator=gen,
+                     device="cuda") * DIST_PIPE[2] ** -0.5
+    mbs = torch.randn(DIST_PIPE, generator=gen, device="cuda")
+
+    def stage_fn(w, x):
+        return torch.tanh(x @ w)
+    got = pipeline_forward(stage_fn)(ws, mbs)
+    want = torch.stack([stage_fn(ws[0], mb) for mb in mbs])
+    checks["pipeline_one_stage"] = torch.equal(got, want)
+    emit("distributed", backend="nccl", world=1, grad_shape=DIST_GRAD_SHAPE,
+         pipeline_microbatches=DIST_PIPE, bit_for_bit=checks,
+         compressed_psum_ms=ms, int8_ef_error_max=float(e_int8.abs().max()),
+         seconds=time.perf_counter() - t0)
+    if not all(checks.values()):
+        raise AssertionError(f"distributed: {checks}")
+
+
+def phase_dp_train_step(torch, seed: int) -> dict:
+    """``make_dp_train_step`` at qwen2-1.5B's full width and 28 bf16 layers
+    on ``SyntheticLM`` (B = TRAIN_BATCH, S = TRAIN_SEQ), a plain SGD update
+    at DP_LR with the gradient clipped to a global norm of 1 (the
+    reference's init gives this model gradients of norm ~1e16 at step 1,
+    PERF.md's training findings: unclipped, step 2 is NaN), over the
+    running NCCL group of one rank. With ``none``,
+    DP_STEPS steps equal, bit for bit, the same loss and update applied
+    without a group; with ``int8_ef``, step 1's loss equals the plain
+    one's and the update's largest difference is printed."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.distributed.collectives import make_dp_train_step
+    from repro_torch.launch.steps import make_loss_fn
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim.adamw import global_norm
+    cfg = get_config(TRAIN_MODEL)
+    params = tf.init_params(cfg, seed)
+    ds = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH)
+    batches = [{k: torch.as_tensor(v, device="cuda")
+                for k, v in ds.global_batch_at(i).items()}
+               for i in range(DP_STEPS)]
+    total_fn = make_loss_fn(cfg, remat=True)
+    losses: list = []
+
+    def loss_fn(p, batch):
+        total, (loss, _) = total_fn(p, batch)
+        losses.append(float(loss.detach()))
+        return total
+    lr = torch.tensor(DP_LR, dtype=torch.float32, device="cuda")
+
+    def sgd(p, grads):
+        scale = torch.clamp(1.0 / (global_norm(grads) + 1e-9), max=1.0)
+        return {k: (p[k].float() - lr * (grads[k] * scale)).to(p[k].dtype)
+                for k in p}
+
+    def plain_step(p, batch):
+        leaves = {k: p[k].detach().requires_grad_(True) for k in sorted(p)}
+        g = torch.autograd.grad(loss_fn(leaves, batch),
+                                list(leaves.values()))
+        with torch.no_grad():
+            return sgd(p, {k: v.float() for k, v in zip(leaves, g)})
+    zero_launches()
+    t0 = time.perf_counter()
+    p_plain = params
+    for b in batches:
+        p_plain = plain_step(p_plain, b)
+    plain_losses = list(losses)
+    t1 = time.perf_counter()
+    losses.clear()
+    step = make_dp_train_step(loss_fn, sgd, None, "none")
+    p_dp, errors = params, None
+    for b in batches:
+        p_dp, errors = step(p_dp, b, errors)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    dp_losses = list(losses)
+    differ = [k for k in p_plain if not torch.equal(p_plain[k], p_dp[k])]
+    del p_dp, errors
+    losses.clear()
+    p_int8, err8 = make_dp_train_step(loss_fn, sgd, None, "int8_ef")(
+        params, batches[0], None)
+    int8_loss = losses[0]
+    losses.clear()
+    p1 = plain_step(params, batches[0])
+    diff = max(float((p_int8[k].float() - p1[k].float()).abs().max())
+               for k in p1)
+    moved = max(float((p1[k].float() - params[k].float()).abs().max())
+                for k in p1)
+    launched = launches_now()
+    emit("dp_train_step", model=cfg.name, layers=cfg.num_layers,
+         dtype=cfg.dtype, batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=DP_STEPS,
+         lr=DP_LR, world=1, plain_losses=plain_losses, dp_losses=dp_losses,
+         none_params_differ=differ, n_leaves=len(p_plain),
+         int8_ef_step1_loss=int8_loss, plain_step1_loss=plain_losses[0],
+         int8_ef_update_max_diff=diff, update_max_move=moved,
+         int8_ef_error_max=max(float(e.abs().max()) for e in err8.values()),
+         plain_s=t1 - t0, dp_s=t2 - t1, launches=launched)
+    if differ or dp_losses != plain_losses or int8_loss != plain_losses[0] \
+            or not moved > 0 or not all(map(math.isfinite, dp_losses)):
+        raise AssertionError(f"dp_train_step: {len(differ)} leaves differ "
+                             f"{differ[:4]}; losses {dp_losses} against "
+                             f"{plain_losses}; int8_ef loss {int8_loss}")
+    del params, p_plain, p_int8, err8, p1
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"dp-train-step": launched}
+
+
+def phase_sharded_lm_service(torch, seed: int) -> dict:
+    """qwen2-1.5B at full width and depth (bf16, random weights from
+    ``seed``) on a 1 x 1 CUDA ``DeviceMesh`` under ``axis_rules(mesh,
+    "decode")``: params placed by ``param_shardings``,
+    ``compile_lm_service``, ``resolve_shardings`` giving ``tokens`` a
+    placement, and the program's prefill and decode artifacts on DTensors
+    (a prefill of B = SHARDED_B prompts of SHARDED_S tokens, then
+    SHARDED_NEW greedy decode steps). Gates: logits and tokens equal, bit
+    for bit, the same steps on plain tensors; 28 ``flash_attention``
+    launches a prefill, through the kernel's sharding rule."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.configs import get_config
+    from repro_torch.core import rctc
+    from repro_torch.core.rbl import bind, resolve_shardings
+    from repro_torch.distributed.sharding import (axis_rules, place,
+                                                  sharding_for)
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.common import param_shardings, place_params
+    cfg = get_config("qwen2-1.5b")
+    B, S = SHARDED_B, SHARDED_S
+    params = tf.init_params(cfg, seed)
+    gen = torch.Generator().manual_seed(seed)
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                         dtype=torch.int32).cuda()
+    cspecs = tf.cache_specs(cfg, B, S + SHARDED_NEW)
+
+    def local(x):
+        return x.to_local() if isinstance(x, DTensor) else x
+
+    def serve(p, sharded: bool):
+        prog = rctc.compile_lm_service(cfg, B, S, make_prefill_step(cfg),
+                                       make_decode_step(cfg))
+        sh = resolve_shardings(prog)
+        bind(prog, inputs={})
+        t = place(toks, sharding_for(toks.shape, ("batch", None)))
+        torch.cuda.synchronize()
+        zero_launches()
+        t0 = time.perf_counter()
+        logits, pc = prog.artifacts["prefill"](p, {"inputs": t})
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        launches = launches_now()
+        cache = {k: torch.zeros(s.shape, dtype=local(pc[k]).dtype,
+                                device="cuda") for k, s in cspecs.items()}
+        for k in cache:
+            cache[k][:, :, :S] = local(pc[k])
+        if sharded:
+            cache = place_params(cache, param_shardings(cspecs))
+        steps = [local(logits)]
+        tokens = [torch.argmax(local(logits), -1).to(torch.int32)]
+        t0 = time.perf_counter()
+        for i in range(SHARDED_NEW):
+            nxt = tokens[-1][:, None]
+            pos = torch.full((B,), S + i, dtype=torch.int32, device="cuda")
+            batch = {"inputs": place(nxt, sharding_for(nxt.shape,
+                                                       ("batch", None))),
+                     "pos": place(pos, sharding_for(pos.shape, ("batch",)))}
+            lg, cache = prog.artifacts["decode"](p, cache, batch)
+            steps.append(local(lg))
+            tokens.append(torch.argmax(local(lg), -1).to(torch.int32))
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        return {"shardings": sh, "logits": steps, "tokens": tokens,
+                "launches": launches, "prefill_s": prefill_s,
+                "decode_s": decode_s,
+                "dtensor_cache": all(isinstance(v, DTensor)
+                                     for v in cache.values())}
+    plain = serve(params, False)
+    mesh = make_test_mesh((1, 1))
+    with axis_rules(mesh, "decode"):
+        ps = place_params(params, param_shardings(tf.model_specs(cfg)))
+        got = serve(ps, True)
+    tokens_sharding = got["shardings"]["tokens"]
+    same_logits = [torch.equal(a, b) for a, b in zip(got["logits"],
+                                                     plain["logits"])]
+    same_tokens = all(torch.equal(a, b) for a, b in zip(got["tokens"],
+                                                        plain["tokens"]))
+    want = {name: 0 for name in got["launches"]} | {
+        "flash_attention": cfg.num_layers}
+    emit("sharded_lm_service", model=cfg.name, layers=cfg.num_layers,
+         dtype=cfg.dtype, mesh=[1, 1], rules="decode", batch=B, seq=S,
+         new_tokens=SHARDED_NEW,
+         params_are_dtensors=all(isinstance(v, DTensor)
+                                 for v in ps.values()),
+         cache_is_dtensor=got["dtensor_cache"],
+         tokens_placement=None if tokens_sharding is None
+         else [str(pl) for pl in tokens_sharding[1]],
+         logits_bit_for_bit=same_logits, tokens_bit_for_bit=same_tokens,
+         prefill_launches=got["launches"],
+         prefill_s={"dtensor": got["prefill_s"], "plain": plain["prefill_s"]},
+         decode_s={"dtensor": got["decode_s"], "plain": plain["decode_s"]})
+    if tokens_sharding is None or not all(same_logits) or not same_tokens \
+            or got["launches"] != want or plain["launches"] != want:
+        raise AssertionError(
+            f"sharded_lm_service: tokens placement {tokens_sharding}, "
+            f"logits equal {same_logits}, tokens equal {same_tokens}, "
+            f"launches {got['launches']} / {plain['launches']} not {want}")
+    del params, ps, plain, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"sharded-lm-service": want}
+
+
+def phase_roofline_check(torch, seed: int) -> dict:
+    """qwen2-1.5B's prefill at ROOFLINE_SHAPE on the card under
+    ``CostMode``: its FLOP count must equal the same step's on ``meta``;
+    the device time by CUDA events beside the roofline's compute and
+    memory terms (H100 datasheet rates)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.cost import CostMode
+    from repro_torch.launch.roofline import H100_HBM_BW, H100_PEAK_FLOPS
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.common import shape_structs
+    cfg = get_config("qwen2-1.5b")
+    B, S = ROOFLINE_SHAPE
+    params = tf.init_params(cfg, seed)
+    gen = torch.Generator().manual_seed(seed)
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                         dtype=torch.int32).cuda()
+    step = make_prefill_step(cfg)
+    zero_launches()
+    with CostMode("cuda") as on_card:
+        step(params, {"inputs": toks})
+    launched = launches_now()
+    with CostMode("meta") as on_meta:
+        step(shape_structs(tf.model_specs(cfg)),
+             {"inputs": torch.empty((B, S), dtype=torch.int32,
+                                    device="meta")})
+    card, meta = on_card.record(), on_meta.record()
+    ms = cuda_ms(torch, lambda: step(params, {"inputs": toks}), 10, 2)
+    compute_ms = card["flops"] / H100_PEAK_FLOPS * 1e3
+    memory_ms = card["bytes"] / H100_HBM_BW * 1e3
+    emit("roofline_check", model=cfg.name, layers=cfg.num_layers,
+         dtype=cfg.dtype, shape=list(ROOFLINE_SHAPE),
+         flops_card=card["flops"], flops_meta=meta["flops"],
+         bytes_card=card["bytes"], bytes_meta=meta["bytes"],
+         temp_bytes_card=card["temp_bytes"], device_ms=ms,
+         compute_ms=compute_ms, memory_ms=memory_ms,
+         roofline_fraction=max(compute_ms, memory_ms) / ms,
+         peak_flops=H100_PEAK_FLOPS, hbm_bytes_per_s=H100_HBM_BW,
+         launches=launched)
+    if card["flops"] != meta["flops"] or card["flops"] <= 0:
+        raise AssertionError(f"roofline_check: {card['flops']} FLOPs on the "
+                             f"card, {meta['flops']} on meta")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"roofline-check": launched}
+
+
+def phases_distribution(torch, seed: int) -> dict:
+    """The distribution and dry-run phases: the dry run's cells start in
+    their own processes first and are read last; the card's phases run
+    between, on a NCCL group of one rank that ends with them."""
+    import torch.distributed as dist
+    t_start = time.perf_counter()
+    procs = start_dryrun()
+    by_path: dict = {}
+    try:
+        dist.init_process_group(
+            "nccl", init_method=f"tcp://localhost:{free_port()}", rank=0,
+            world_size=1, device_id=torch.device("cuda", 0))
+        try:
+            phase_distributed(torch, seed)
+            by_path.update(phase_dp_train_step(torch, seed))
+            by_path.update(phase_sharded_lm_service(torch, seed))
+        finally:
+            dist.destroy_process_group()
+        by_path.update(phase_roofline_check(torch, seed))
+    except BaseException:
+        for proc in procs.values():
+            proc.kill()
+            proc.communicate()
+        raise
+    phase_dryrun(procs, t_start)
+    return by_path
+
+
 def start_gpu_tests(phase: str):
     """Start one card-only test file (the compiled dispatch path's, the
     engine's compiled steps' or the paged windows') in a process of its
@@ -5354,7 +5787,6 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs an NVIDIA GPU", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
 
@@ -5480,6 +5912,11 @@ def main() -> int:
     trained: dict = {}
     by_path.update(phase_slice_train(torch, args.seed, trained))
     by_path.update(phase_serve_trained(torch, args.seed, trained))
+
+    # distribution and the dry run: compressed all-reduce, the pipeline,
+    # the data-parallel step, the LM service on DTensors, the dry run's
+    # cells and the roofline's FLOP count on the card
+    by_path.update(phases_distribution(torch, args.seed))
 
     # the card-only tests of the fused and batched graphs and of the
     # engine's compiled steps

@@ -5,8 +5,10 @@ The port's counterpart of ``repro.core.rbl``:
   * **Data binding** — weight symbols resolve to zero-copy RIMFS views,
     pinned once on the driver's device when a driver is given; caller
     inputs bind to their symbols.
-  * **Address resolution** — on one card every symbol maps to ``None``
-    (no sharding); the mesh rule engine is not ported.
+  * **Address resolution** — inside an ``axis_rules`` binding each
+    TensorDesc's logical axes resolve to ``(mesh, placements)`` through
+    the shape-aware rule engine (``distributed/sharding.py``); outside one,
+    and for a tensor without axes, to ``None``.
   * **Dependency & buffer management** — liveness intervals over the
     linear op stream; scratch is released after its last read.
 """
@@ -17,6 +19,7 @@ from typing import Optional
 
 from repro_torch.core.rcb import Op, RCBProgram
 from repro_torch.core.rimfs import RIMFS
+from repro_torch.distributed.sharding import sharding_for
 
 
 @dataclasses.dataclass
@@ -24,7 +27,7 @@ class BoundProgram:
     program: RCBProgram
     buffers: dict                    # symbol -> host/device buffer
     last_use: dict                   # symbol -> linear op index of last read
-    shardings: dict                  # symbol -> None on one card
+    shardings: dict                  # symbol -> (mesh, placements) or None
     missing_inputs: tuple            # input symbols the caller must feed
 
 
@@ -60,8 +63,13 @@ def scratch_free_lists(program: RCBProgram,
 
 
 def resolve_shardings(program: RCBProgram) -> dict:
-    """One card: no symbol is sharded."""
-    return {name: None for name in program.tensors}
+    out = {}
+    for name, t in program.tensors.items():
+        if t.axes:
+            out[name] = sharding_for(t.shape, t.axes)
+        else:
+            out[name] = None
+    return out
 
 
 def bind(program: RCBProgram,

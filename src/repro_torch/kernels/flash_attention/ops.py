@@ -8,10 +8,17 @@ tensor it computes the plain version (``ref.py``). Nothing falls back from
 one to the other. The op's vmap rule folds the lane axis into B, so a
 program mapped over a batch (``Executor.run_batched``) launches the kernel
 once. ``flash_attention.launches`` counts kernel launches.
+
+For the dry run and the sharded paths the op also has a fake (``meta``)
+implementation, a FLOP formula (``flops``: the multiply-adds of the
+unmasked (q, k) pairs, as the kernel skips masked blocks) and a DTensor
+sharding rule (``dtensor_rule``: batch or heads; the sequence stays whole),
+with which the kernel runs on each rank's local shard.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build
 from repro_torch.kernels.common import (DTYPE_CODE, check_float_dtype,
@@ -60,7 +67,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if len(devices) != 1:
         raise ValueError(f"flash_attention: operands on several devices "
                          f"{sorted(map(str, devices))}")
-    if q.device.type not in ("cpu", "cuda"):
+    if q.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     return _flash_attention_op(q, k, v, bool(causal))
 
@@ -112,6 +119,40 @@ def _vmap(info, in_dims, q, k, v, causal):
 
 
 flash_attention.launches = 0
+
+
+@_flash_attention_op.register_fake
+def _fake(q, k, v, causal):
+    return torch.empty_like(q)
+
+
+def causal_pairs(s: int, sk: int, causal: bool) -> int:
+    """The (q, k) pairs a call attends: top-left aligned, query i sees
+    keys 0..i when causal."""
+    if not causal:
+        return s * sk
+    m = min(s, sk)
+    return m * (m + 1) // 2 + (s - m) * sk
+
+
+@register_flop_formula(torch.ops.aeg.flash_attention)
+def flops(q_shape, k_shape, v_shape, causal, *, out_shape=None, **kw):
+    """q.k and p.v over the unmasked pairs: 4 D operations a pair a head."""
+    b, s, h, d = q_shape
+    return 4 * d * causal_pairs(s, k_shape[1], causal) * h * b
+
+
+def dtensor_rule(q, k, v, causal):
+    """Each mesh dim may split batch (dim 0 of q, k, v and o) or heads
+    (dim 2) where it divides the kv heads, so each rank keeps whole GQA
+    groups; otherwise every operand is replicated."""
+    from torch.distributed.tensor import Replicate, Shard
+    out = [([Replicate()], [Replicate()] * 3 + [None]),
+           ([Shard(0)], [Shard(0)] * 3 + [None])]
+    hkv = k.shape[2]
+    if all(hkv % n == 0 for n in q.mesh.shape):
+        out.append(([Shard(2)], [Shard(2)] * 3 + [None]))
+    return out
 
 
 def check_grid(b: int, h: int) -> None:

@@ -12,6 +12,10 @@ whose vmap rule folds the lane axis into B (one launch for every lane).
 "ring", "w": W} or {"instance": "rowwise"}, an autotuned winner from
 ``kernels/registry.py``) takes the place of ``plan_for``'s where the ring
 can run at all; both instances give the same bits.
+
+For the dry run and the sharded paths the op also has a fake (``meta``)
+implementation, a FLOP formula (``flops``) and a DTensor sharding rule
+(``dtensor_rule``: batch or channels; the time axis stays whole).
 """
 from __future__ import annotations
 
@@ -19,6 +23,7 @@ import functools
 from typing import NamedTuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build
 from repro_torch.kernels.common import (DTYPE_CODE, check_float_dtype,
@@ -190,7 +195,7 @@ def ssm_scan(da: torch.Tensor, bx: torch.Tensor, c: torch.Tensor,
     if len(devices) != 1:
         raise ValueError(f"ssm_scan: operands on several devices "
                          f"{sorted(map(str, devices))}")
-    if da.device.type not in ("cpu", "cuda"):
+    if da.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"ssm_scan: unsupported device {da.device}")
     return _ssm_scan_op(da, bx, c, _ring_w(plan))
 
@@ -226,3 +231,27 @@ def _vmap(info, in_dims, da, bx, c, ring_w):
 
 
 ssm_scan.launches = 0
+
+
+@_ssm_scan_op.register_fake
+def _fake(da, bx, c, ring_w):
+    b, t, di, _ = da.shape
+    return da.new_empty((b, t, di))
+
+
+@register_flop_formula(torch.ops.aeg.ssm_scan)
+def flops(da_shape, bx_shape, c_shape, ring_w, *, out_shape=None, **kw):
+    """About 5 operations a (t, d, n): the exp, the recurrence's
+    multiply-add, the product with c and its share of the sum over n."""
+    b, t, di, n = da_shape
+    return 5 * b * t * di * n
+
+
+def dtensor_rule(da, bx, c, ring_w):
+    """Each mesh dim may split batch (dim 0 of every operand and y) or the
+    channels D (dim 2 of da, bx and y; c whole); otherwise every operand
+    is replicated."""
+    from torch.distributed.tensor import Replicate, Shard
+    return [([Replicate()], [Replicate()] * 3 + [None]),
+            ([Shard(0)], [Shard(0)] * 3 + [None]),
+            ([Shard(2)], [Shard(2), Shard(2), Replicate(), None])]

@@ -10,10 +10,15 @@ chunks of 64 steps, where a carry kernel builds the entering states. A
 ``plan`` ({"states": "inblock"} or {"states": "carry"}, an autotuned
 winner from ``kernels/registry.py``) picks the build whatever the number of
 chunks; the two agree within the kernel's tolerance.
+
+For the dry run and the sharded paths the op also has a fake (``meta``)
+implementation, a FLOP formula (``flops``) and a DTensor sharding rule
+(``dtensor_rule``: batch or heads; the time axis stays whole).
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build
 from repro_torch.kernels.common import (DTYPE_CODE, check_float_dtype,
@@ -80,7 +85,7 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if len(devices) != 1:
         raise ValueError(f"wkv6: operands on several devices "
                          f"{sorted(map(str, devices))}")
-    if r.device.type not in ("cpu", "cuda"):
+    if r.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"wkv6: unsupported device {r.device}")
     return _wkv6_op(r, k, v, lw, u, _max_inblock(plan))
 
@@ -138,3 +143,27 @@ def _vmap(info, in_dims, r, k, v, lw, u, max_inblock):
 
 
 wkv6.launches = 0
+
+
+@_wkv6_op.register_fake
+def _fake(r, k, v, lw, u, max_inblock):
+    return torch.empty_like(r)
+
+
+@register_flop_formula(torch.ops.aeg.wkv6)
+def flops(r_shape, k_shape, v_shape, lw_shape, u_shape, max_inblock, *,
+          out_shape=None, **kw):
+    """k v^T and two multiply-adds a (b, t, h, i, o); the exp and the
+    bonus term, about 4, a (b, t, h, i)."""
+    b, t, h, kk = r_shape
+    return 5 * b * t * h * kk * kk + 4 * b * t * h * kk
+
+
+def dtensor_rule(r, k, v, lw, u, max_inblock):
+    """Each mesh dim may split batch (dim 0 of r, k, v, lw and y; u whole)
+    or heads (dim 2 of those, dim 0 of u); otherwise every operand is
+    replicated."""
+    from torch.distributed.tensor import Replicate, Shard
+    return [([Replicate()], [Replicate()] * 5 + [None]),
+            ([Shard(0)], [Shard(0)] * 4 + [Replicate(), None]),
+            ([Shard(2)], [Shard(2)] * 4 + [Shard(0), None])]

@@ -1,10 +1,13 @@
-"""Train, prefill, decode and sampling steps.
+"""Train, prefill, decode and sampling steps, and the dry run's stand-ins.
 
-The port's counterpart of ``repro.launch.steps``' steps. ``make_loss_fn``
+The port's counterpart of ``repro.launch.steps``. ``make_loss_fn``
 and ``make_train_step`` train on the models' ``impl="autograd"`` route
 (stock ops under autograd; the hand kernels have no backward), with the
-JAX package's AdamW and schedule; the dry run's ``step_for`` and
-``input_specs`` are not ported. The JAX
+JAX package's AdamW and schedule. ``input_specs``, ``param_structs``,
+``opt_structs`` and ``cache_structs`` are ``meta`` tensors of every input
+of one (arch x shape) cell (DTensors placed by the logical-axis rules
+inside an ``axis_rules`` binding), and ``step_for`` the cell's step and
+arguments, for the dry run (``launch/dryrun.py``). The JAX
 package jits them and donates the decode cache (``donate_argnums=(1,)``).
 Here ``make_prefill_step`` and ``make_decode_step`` run eagerly, the decode
 step writing the new K/V and every recurrent state into the cache it is
@@ -27,9 +30,60 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.executor import CapturedGraph
 from repro_torch.dtypes import as_tensor
 from repro_torch.models import transformer as tf
-from repro_torch.models.common import AUTOGRAD, softmax_cross_entropy
-from repro_torch.optim.adamw import AdamWConfig, AdamWState, adamw_update
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.models.common import (AUTOGRAD, ParamSpec, shape_structs,
+                                       softmax_cross_entropy)
+from repro_torch.optim.adamw import (AdamWConfig, AdamWState,
+                                     adamw_init_specs, adamw_update)
 from repro_torch.optim.schedules import cosine_warmup
+
+
+# ---------------------------------------------------------------------------
+# Input specs
+# ---------------------------------------------------------------------------
+
+def _sds(shape, dtype, axes):
+    return shape_structs(ParamSpec(tuple(shape), dtype, "zeros", axes=axes))
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    """``meta`` stand-ins for the data inputs of one cell (the reference's
+    shapes and dtypes)."""
+    B, S = shape.global_batch, shape.seq_len
+    if shape.kind == "train":
+        if cfg.input_kind == "tokens":
+            toks = _sds((B, S), "int32", ("batch", None))
+        else:   # vlm/audio: precomputed patch/frame embeddings (stub frontend)
+            toks = _sds((B, S, cfg.d_model), cfg.dtype,
+                        ("batch", None, "embed"))
+        return {"inputs": toks,
+                "targets": _sds((B, S), "int32", ("batch", None))}
+    if shape.kind == "prefill":
+        if cfg.input_kind == "tokens":
+            toks = _sds((B, S), "int32", ("batch", None))
+        else:
+            toks = _sds((B, S, cfg.d_model), cfg.dtype,
+                        ("batch", None, "embed"))
+        return {"inputs": toks}
+    # decode: one new token against a seq_len-deep cache
+    if cfg.input_kind == "tokens":
+        toks = _sds((B, 1), "int32", ("batch", None))
+    else:
+        toks = _sds((B, 1, cfg.d_model), cfg.dtype, ("batch", None, "embed"))
+    return {"inputs": toks, "pos": _sds((B,), "int32", ("batch",))}
+
+
+def param_structs(cfg: ModelConfig):
+    return shape_structs(tf.model_specs(cfg))
+
+
+def opt_structs(cfg: ModelConfig):
+    return shape_structs(adamw_init_specs(tf.model_specs(cfg)))
+
+
+def cache_structs(cfg: ModelConfig, shape: ShapeConfig):
+    return shape_structs(tf.cache_specs(cfg, shape.global_batch,
+                                        shape.seq_len))
 
 
 def make_loss_fn(cfg: ModelConfig, remat: bool,
@@ -340,3 +394,25 @@ def sample_tokens(logits: torch.Tensor, greedy: bool, temperature: float,
     probs = torch.softmax(logits.float() / t, dim=-1)
     q = torch.empty_like(probs).exponential_(1, generator=generator)
     return torch.argmax(probs / q, dim=-1).to(torch.int32)
+
+
+def step_for(cfg: ModelConfig, shape: ShapeConfig):
+    """``(fn, args, donate)`` of one dry-run cell: train steps on the
+    training route (``impl="autograd"``), prefill and decode on the served
+    route (the hand kernels), so the dry run counts the kernels the port
+    runs. ``donate`` names the arguments the step writes in place (the
+    train step's params and moments, the decode step's cache)."""
+    if shape.kind == "train":
+        fn = make_train_step(cfg)
+        args = (param_structs(cfg), opt_structs(cfg), input_specs(cfg, shape))
+        donate = (0, 1)
+    elif shape.kind == "prefill":
+        fn = make_prefill_step(cfg)
+        args = (param_structs(cfg), input_specs(cfg, shape))
+        donate = ()
+    else:
+        fn = make_decode_step(cfg)
+        args = (param_structs(cfg), cache_structs(cfg, shape),
+                input_specs(cfg, shape))
+        donate = (1,)
+    return fn, args, donate

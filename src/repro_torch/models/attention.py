@@ -5,9 +5,11 @@ stock torch ops; and for training (``impl="autograd"``) the full sequence
 on stock ops under autograd, as the JAX package trains it.
 
 The port's counterpart of ``repro.models.attention``'s dense-cache paths.
-``_attend_full`` there is, below S = 16384, one chunk of causal GQA
-attention at scale 1/sqrt(D). For full attention, and for a sliding window
-W at S <= W (the window then masks nothing), that is the function the
+``_attend_full`` there is causal GQA attention at scale 1/sqrt(D), its
+queries split into chunks of 8192 from S = 16384 on (which bounds the
+scores' memory and leaves the function as it is). For full attention,
+and for a sliding window W at S <= W (the window then masks nothing),
+that is the function the
 ``flash_attention`` kernel computes, so prefill runs the kernel (the plain
 version on a CPU tensor). A sliding window at S > W is plain ``jnp`` in
 the JAX package (its Pallas kernel takes no window) and stock torch ops
@@ -25,8 +27,10 @@ gathered rows. What every layer of a pass shares (RoPE's cos and sin; in
 decode also the rows or blocks written, the slots in them, the valid-row
 mask and the scale; in paged decode the gather index) is built once a
 pass by ``rope_for``, ``decode_consts`` and ``paged_decode_consts`` and
-handed to each layer. Query chunking (S >= 16384) raises
-``NotImplementedError``.
+handed to each layer. Inside an ``axis_rules`` binding the activations
+are placed by logical axes (``shard``), the kernel runs on each rank's
+shard through its DTensor rule, and decode writes a sharded cache with a
+masked insert.
 """
 from __future__ import annotations
 
@@ -36,13 +40,17 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.oplib import f32_scalar
+from repro_torch.distributed.sharding import (is_dtensor, matmul,
+                                              replicate_dims, reshape, shard,
+                                              shard_reshape, sharded_dims)
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import attention_ref_bshd
 from repro_torch.models.common import (AUTOGRAD, ParamSpec, apply_rope,
                                        rms_norm, rope_table)
 
 NEG_INF = -1e30
-CHUNKED_FROM = 16384          # _attend_full splits the queries from here on
+CHUNKED_FROM = 16384          # _attend_windowed splits the queries from here
+QUERY_CHUNK = 8192            # on, into S // QUERY_CHUNK chunks
 
 
 def cache_specs(cfg: ModelConfig, batch: int, seq_len: int) -> dict:
@@ -51,27 +59,31 @@ def cache_specs(cfg: ModelConfig, batch: int, seq_len: int) -> dict:
     _check_ported(cfg)
     s = min(seq_len, cfg.sliding_window) if _sliding(cfg) else seq_len
     shp = (cfg.num_layers, batch, s, cfg.num_kv_heads, cfg.head_dim)
-    return {"k": ParamSpec(shp, cfg.dtype, "zeros"),
-            "v": ParamSpec(shp, cfg.dtype, "zeros")}
+    axes = ("layers", "batch", "seq", "kv_heads", "head_dim")
+    return {"k": ParamSpec(shp, cfg.dtype, "zeros", axes=axes),
+            "v": ParamSpec(shp, cfg.dtype, "zeros", axes=axes)}
 
 
 def _sliding(cfg: ModelConfig) -> bool:
     return cfg.attention == "sliding"
 
 
-def _check_ported(cfg: ModelConfig, seq_len: int = 0) -> None:
-    if cfg.attention not in ("full", "sliding") or seq_len >= CHUNKED_FROM:
+def _check_ported(cfg: ModelConfig) -> None:
+    if cfg.attention not in ("full", "sliding"):
         raise NotImplementedError(
-            f"attention {cfg.attention!r} at S={seq_len} is not ported: "
-            f"full or sliding-window causal attention below "
-            f"S={CHUNKED_FROM} only")
+            f"attention {cfg.attention!r} is not ported: full or "
+            f"sliding-window causal attention only")
 
 
-def _project(x, w, b):
-    """x (B,S,d) @ w (d,H,D) [+ b (H,D)] -> (B,S,H,D)."""
+def _project(x, w, b, heads: str = "heads"):
+    """x (B,S,d) @ w (d,H,D) [+ b (H,D)] -> (B,S,H,D). Inside a binding
+    the product's H*D columns are first placed as the ``heads`` axis
+    places H (dim 2 of both shapes): DTensor may split the columns
+    anywhere, and the view needs whole heads on each rank."""
     B, S, d = x.shape
     _, H, D = w.shape
-    y = (x @ w.reshape(d, H * D)).view(B, S, H, D)
+    y = shard_reshape(x @ reshape(w, (d, H * D)), (B, S, H, D),
+                      "batch", None, heads, None)
     if b is not None:
         y = y + b.to(y.dtype)
     return y
@@ -148,8 +160,8 @@ def _qkv(cfg: ModelConfig, p: dict, x, positions, rope=None):
     """Shared projection + qk-norm + RoPE for both full and decode paths;
     ``rope`` is ``rope_for(cfg, positions)`` when the caller has it."""
     q = _project(x, p["wq"], p.get("bq"))
-    k = _project(x, p["wk"], p.get("bk"))
-    v = _project(x, p["wv"], p.get("bv"))
+    k = _project(x, p["wk"], p.get("bk"), "kv_heads")
+    v = _project(x, p["wv"], p.get("bv"), "kv_heads")
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
@@ -163,34 +175,73 @@ def _qkv(cfg: ModelConfig, p: dict, x, positions, rope=None):
 
 def _grouped_scores(q, k):
     """q: (B,Sq,Hkv,G,D)  k: (B,Skv,Hkv,D) -> (B,Hkv,G,Sq,Skv) fp32."""
+    if _split_past_batch(q, k):
+        qp = replicate_dims(q, (2, 3)).float().permute(0, 2, 3, 1, 4)
+        kp = replicate_dims(k, (2,)).float().permute(0, 2, 3, 1)
+        return torch.matmul(qp, kp[:, :, None])
     return torch.einsum("bqhgd,bkhd->bhgqk", q.float(), k.float())
+
+
+def _grouped_values(a, v):
+    """a: (B,Hkv,G,Sq,Skv)  v: (B,Skv,Hkv,D) -> (B,Sq,Hkv,G,D)."""
+    if _split_past_batch(a, v):
+        ap = replicate_dims(a, (1, 2))
+        vp = replicate_dims(v, (2,)).permute(0, 2, 1, 3)
+        return torch.matmul(ap, vp[:, :, None]).permute(0, 3, 1, 2, 4)
+    return torch.einsum("bhgqk,bkhd->bqhgd", a, v)
+
+
+def _split_past_batch(a, b) -> bool:
+    """Either DTensor operand of a grouped product is split along a dim
+    other than batch. DTensor runs an einsum as views and one batched
+    product, and torch 2.11's (the card's) cannot fold (b, h) or (g, q)
+    with a split dim past the first; such operands go through
+    ``torch.matmul`` instead, which folds only (b, h, g) and keeps the
+    queries (and in decode the cache rows) split, after the heads are
+    made whole. Plain tensors, and DTensors split along batch only, take
+    the einsum."""
+    return bool((sharded_dims(a) | sharded_dims(b)) - {0})
 
 
 def _out_proj(o, wo):
     """o (B,S,H,D) @ wo (H,D,d) -> (B,S,d)."""
     B, S, H, D = o.shape
-    return o.reshape(B, S, H * D) @ wo.reshape(H * D, wo.shape[-1])
+    return matmul(reshape(o, (B, S, H * D)), reshape(wo, (H * D,
+                                                        wo.shape[-1])))
 
 
 def _attend_windowed(cfg: ModelConfig, q, k, v, out_dtype):
     """Causal attention on stock ops as the JAX package's ``_attend_full``
-    computes it below S = 16384: fp32 scores at scale 1/sqrt(D), masked
-    to ``kpos <= qpos`` (in a sliding window of W also ``kpos > qpos -
-    W``) with NEG_INF, softmax in fp32, cast to ``out_dtype`` before the
-    product with V. The route of a window at S > W, and of training."""
+    computes it: fp32 scores at scale 1/sqrt(D), masked to ``kpos <=
+    qpos`` (in a sliding window of W also ``kpos > qpos - W``) with
+    NEG_INF, softmax in fp32, cast to ``out_dtype`` before the product
+    with V. From S = ``CHUNKED_FROM`` on the queries go in S //
+    ``QUERY_CHUNK`` chunks, each against the keys it can see (in a window,
+    those from W before the chunk). The route of a window at S > W, and
+    of training."""
     B, S, H, D = q.shape
     Hkv = k.shape[2]
-    s_ = _grouped_scores(q.reshape(B, S, Hkv, H // Hkv, D), k) \
-        * (1.0 / D ** 0.5)
-    idx = torch.arange(S, device=q.device)
-    qpos, kpos = idx[:, None], idx[None, :]
-    mask = kpos <= qpos
-    if _sliding(cfg):
-        mask = mask & (kpos > qpos - cfg.sliding_window)
-    s_ = torch.where(mask, s_, NEG_INF)
-    a = torch.softmax(s_, dim=-1).to(out_dtype)
-    return torch.einsum("bhgqk,bkhd->bqhgd", a, v.to(out_dtype)).reshape(
-        B, S, H, D)
+    qg = shard_reshape(q, (B, S, Hkv, H // Hkv, D),
+                       "batch", "seq", "kv_heads", None, None)
+    k = shard(k, "batch", None, "kv_heads", None)
+    v = shard(v, "batch", None, "kv_heads", None)
+    n_chunks = max(1, S // QUERY_CHUNK) if S >= CHUNKED_FROM else 1
+    cs = S // n_chunks
+    outs = []
+    for ci in range(n_chunks):
+        q0, k1 = ci * cs, (ci + 1) * cs
+        k0 = max(0, q0 - cfg.sliding_window) if _sliding(cfg) else 0
+        s_ = _grouped_scores(qg[:, q0:k1], k[:, k0:k1]) * (1.0 / D ** 0.5)
+        qpos = torch.arange(q0, k1, device=q.device)[:, None]
+        kpos = torch.arange(k0, k1, device=q.device)[None, :]
+        mask = kpos <= qpos
+        if _sliding(cfg):
+            mask = mask & (kpos > qpos - cfg.sliding_window)
+        s_ = torch.where(mask, s_, NEG_INF)
+        a = torch.softmax(s_, dim=-1).to(out_dtype)
+        outs.append(_grouped_values(a, v[:, k0:k1].to(out_dtype)))
+    o = outs[0] if n_chunks == 1 else torch.cat(outs, dim=1)
+    return reshape(o, (B, S, H, D))
 
 
 def _attend_full(cfg: ModelConfig, p: dict, q, k, v, out_dtype, impl=None):
@@ -203,7 +254,7 @@ def _attend_full(cfg: ModelConfig, p: dict, q, k, v, out_dtype, impl=None):
     plain version whatever the device (the card-side check of the kernel
     inside the model); by default it is the kernel on a CUDA tensor."""
     S = q.shape[1]
-    _check_ported(cfg, S)
+    _check_ported(cfg)
     if impl not in (None, "ref", AUTOGRAD):
         raise ValueError(f"unknown attention impl {impl!r} (None, 'ref' or "
                          f"{AUTOGRAD!r})")
@@ -213,6 +264,7 @@ def _attend_full(cfg: ModelConfig, p: dict, q, k, v, out_dtype, impl=None):
         o = attention_ref_bshd(q, k, v, causal=True)
     else:
         o = flash_attention(q, k, v, causal=True)
+    o = shard(o, "batch", "seq", "heads", None)
     return _out_proj(o.to(out_dtype), p["wo"])
 
 
@@ -231,8 +283,14 @@ def prefill_attention(cfg: ModelConfig, p: dict, x, positions, impl=None,
     y = _attend_full(cfg, p, q, k, v, x.dtype, impl)
     S, W = x.shape[1], cfg.sliding_window
     if _sliding(cfg) and S >= W:
-        k, v = (torch.roll(t[:, -W:], S % W, dims=1) for t in (k, v))
+        k, v = (_roll_rows(t[:, -W:], S % W) for t in (k, v))
     return y, (k, v)
+
+
+def _roll_rows(t, s: int):
+    """``torch.roll(t, s, dims=1)`` as the two slices it swaps: the same
+    copy, and torch 2.11's DTensor has a rule for cat but none for roll."""
+    return torch.cat([t[:, t.shape[1] - s:], t[:, :t.shape[1] - s]], dim=1)
 
 
 def decode_attention(cfg: ModelConfig, p: dict, x, pos, k_cache, v_cache,
@@ -250,8 +308,10 @@ def decode_attention(cfg: ModelConfig, p: dict, x, pos, k_cache, v_cache,
     c = consts if consts is not None else decode_consts(cfg, pos,
                                                         k_cache.shape[1])
     q = _write_new_kv(cfg, p, x, pos, k_cache, v_cache, c)
-    scores = _grouped_scores(_group(q, k_cache.shape[2]), k_cache)
-    return (_attend_decode(cfg, p, scores, v_cache, c, x.dtype),
+    kc = shard(k_cache, "batch", "seq", "kv_heads", None)
+    vc = shard(v_cache, "batch", "seq", "kv_heads", None)
+    scores = _grouped_scores(_group(q, kc.shape[2]), kc)
+    return (_attend_decode(cfg, p, scores, vc, c, x.dtype),
             k_cache, v_cache)
 
 
@@ -298,15 +358,28 @@ def _write_new_kv(cfg: ModelConfig, p: dict, x, pos, k_store, v_store,
     """Project the new token and write its K/V at ``store[c.rows,
     c.slot]`` in place; returns q (B,1,H,D)."""
     q, k, v = _qkv(cfg, p, x, pos[:, None], c.rope)
+    if is_dtensor(k_store):
+        # A sharded cache: DTensor has no rule for ``index_put_`` into a
+        # sharded dim, so the new row goes in as the reference writes it,
+        # a masked elementwise insert that each rank runs on its own rows
+        # (the same values, written in place).
+        S = k_store.shape[1]
+        hit = (torch.arange(S, device=pos.device)[None, :]
+               == c.slot[:, None])[:, :, None, None]
+        k_store.copy_(torch.where(hit, k.to(k_store.dtype), k_store))
+        v_store.copy_(torch.where(hit, v.to(v_store.dtype), v_store))
+        return q
     k_store[c.rows, c.slot] = k[:, 0].to(k_store.dtype)
     v_store[c.rows, c.slot] = v[:, 0].to(v_store.dtype)
     return q
 
 
+
 def _group(q, Hkv: int):
     """q (B,1,H,D) -> (B,1,Hkv,G,D)."""
     B, _, H, D = q.shape
-    return q.reshape(B, 1, Hkv, H // Hkv, D)
+    return shard_reshape(q, (B, 1, Hkv, H // Hkv, D),
+                         "batch", None, "kv_heads", None, None)
 
 
 def _attend_decode(cfg: ModelConfig, p: dict, scores, values,
@@ -318,6 +391,6 @@ def _attend_decode(cfg: ModelConfig, p: dict, scores, values,
     B, _, _, D = values.shape
     s_ = torch.where(c.valid, scores / c.scale, NEG_INF)
     a = torch.softmax(s_, dim=-1).to(out_dtype)
-    o = torch.einsum("bhgqk,bkhd->bqhgd", a, values).reshape(
+    o = _grouped_values(a, values).reshape(
         B, 1, cfg.num_heads, D)
     return _out_proj(o, p["wo"])

@@ -1,9 +1,17 @@
 """Parameter specs, norms and RoPE shared by the model modules and the RCB
-op library (the port's counterpart of ``repro.models.common``: ``ParamSpec``
-without the sharding axes, since the port runs on one device,
-``draw_param``, ``rms_norm``, ``group_norm``, ``rope_freqs`` and
-``apply_rope``, plus ``rope_table``, RoPE's cos and sin built once a
-forward pass, and the training loss ``softmax_cross_entropy``)."""
+op library (the port's counterpart of ``repro.models.common``):
+``ParamSpec`` with its logical sharding axes, the spec-tree helpers
+(``is_spec``, ``spec_tree_map``, ``shape_structs``, ``param_shardings``,
+``param_bytes``, ``param_count``), ``draw_param``, ``rms_norm``,
+``group_norm``, ``rope_freqs`` and ``apply_rope``, plus ``rope_table``,
+RoPE's cos and sin built once a forward pass, and the training loss
+``softmax_cross_entropy``.
+
+A spec tree is a dict of specs (or of such trees), or a named tuple of
+them (``AdamWState``); ``shape_structs`` makes ``meta`` tensors of it,
+which allocate nothing (the counterpart of ``jax.ShapeDtypeStruct``), and
+inside an ``axis_rules`` binding DTensors of them, placed by the
+resolver."""
 from __future__ import annotations
 
 import math
@@ -11,6 +19,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch.distributed.sharding import is_dtensor, place, sharding_for
 from repro_torch.dtypes import torch_dtype
 
 
@@ -19,6 +28,68 @@ class ParamSpec(NamedTuple):
     dtype: str
     init: str = "normal"      # normal | zeros | ones | embed | decay | uniform
     scale: float = 1.0
+    axes: tuple = ()          # logical axis names (len == ndim); None ok
+
+
+def is_spec(x) -> bool:
+    return isinstance(x, ParamSpec)
+
+
+def spec_tree_map(fn, specs):
+    """``fn`` applied to every spec of a tree of dicts, lists and (named)
+    tuples; the tree's structure is kept."""
+    if is_spec(specs):
+        return fn(specs)
+    if isinstance(specs, dict):
+        return {k: spec_tree_map(fn, v) for k, v in specs.items()}
+    if isinstance(specs, tuple) and hasattr(specs, "_fields"):
+        return type(specs)(*(spec_tree_map(fn, v) for v in specs))
+    if isinstance(specs, (list, tuple)):
+        return type(specs)(spec_tree_map(fn, v) for v in specs)
+    raise TypeError(f"not a spec tree: {type(specs).__name__}")
+
+
+def spec_leaves(specs) -> list:
+    """The specs of a tree, dict keys in sorted order (``jax.tree.leaves``'
+    order)."""
+    if is_spec(specs):
+        return [specs]
+    if isinstance(specs, dict):
+        return [s for k in sorted(specs) for s in spec_leaves(specs[k])]
+    return [s for v in specs for s in spec_leaves(v)]
+
+
+def shape_structs(specs, sharded: bool = True):
+    """A tree of ``meta`` tensors of the specs' shapes and dtypes (nothing
+    is allocated); with ``sharded`` and inside an ``axis_rules`` binding,
+    DTensors placed by ``sharding_for``, each rank's local shard a
+    ``meta`` tensor too."""
+    def mk(s: ParamSpec):
+        t = torch.empty(s.shape, dtype=torch_dtype(s.dtype), device="meta")
+        sh = sharding_for(s.shape, s.axes) if sharded else None
+        return t if sh is None else place(t, sh)
+    return spec_tree_map(mk, specs)
+
+
+def param_shardings(specs):
+    """Each spec's ``(mesh, placements)`` under the active binding (None
+    outside one)."""
+    return spec_tree_map(lambda s: sharding_for(s.shape, s.axes), specs)
+
+
+def place_params(params: dict, shardings: dict) -> dict:
+    """``place`` of each tensor of ``params`` by ``param_shardings``'
+    entry of the same name."""
+    return {k: place(v, shardings[k]) for k, v in params.items()}
+
+
+def param_bytes(specs) -> int:
+    return sum(math.prod(s.shape) * torch_dtype(s.dtype).itemsize
+               for s in spec_leaves(specs))
+
+
+def param_count(specs) -> int:
+    return sum(math.prod(s.shape) for s in spec_leaves(specs))
 
 
 # The training route's ``impl``: attention as grouped scores and a softmax,
@@ -138,7 +209,16 @@ def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     logits = logits.float()
     m = torch.amax(logits, dim=-1, keepdim=True)
     lse = m[..., 0] + torch.log(torch.sum(torch.exp(logits - m), dim=-1))
-    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    if is_dtensor(logits):
+        # Vocab-sharded logits: DTensor's gather along the sharded dim
+        # fails to reduce its masked partial, so the label's logit is a
+        # masked sum, each rank over its own columns (one nonzero term:
+        # the same value).
+        hit = torch.arange(logits.shape[-1], device=logits.device) \
+            == labels.long()[..., None]
+        ll = torch.sum(torch.where(hit, logits, 0.0), dim=-1)
+    else:
+        ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     nll = lse - ll
     if mask is not None:
         mask = mask.float()

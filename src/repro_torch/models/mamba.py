@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import matmul, shard
 from repro_torch.models.common import AUTOGRAD, ParamSpec
 
 DT_RANK = 32
@@ -26,20 +27,24 @@ def mamba_specs(cfg: ModelConfig) -> dict:
     di, N = cfg.d_model, cfg.ssm_state          # d_inner == d_model (Hymba)
     dt = cfg.dtype
     return {
-        "m_in": ParamSpec((L, d, 2 * di), dt),
-        "m_x": ParamSpec((L, di, DT_RANK + 2 * N), dt),
-        "m_dt": ParamSpec((L, DT_RANK, di), dt),
-        "m_dt_b": ParamSpec((L, di), "float32", "zeros"),
-        "m_alog": ParamSpec((L, di, N), "float32", "uniform", 1.0),
-        "m_d": ParamSpec((L, di), "float32", "ones"),
-        "m_out": ParamSpec((L, di, d), dt),
+        "m_in": ParamSpec((L, d, 2 * di), dt, axes=("layers", "fsdp", "mlp")),
+        "m_x": ParamSpec((L, di, DT_RANK + 2 * N), dt,
+                         axes=("layers", "fsdp", None)),
+        "m_dt": ParamSpec((L, DT_RANK, di), dt, axes=("layers", None, "fsdp")),
+        "m_dt_b": ParamSpec((L, di), "float32", "zeros",
+                            axes=("layers", None)),
+        "m_alog": ParamSpec((L, di, N), "float32", "uniform", 1.0,
+                            ("layers", "fsdp", "state")),
+        "m_d": ParamSpec((L, di), "float32", "ones", axes=("layers", None)),
+        "m_out": ParamSpec((L, di, d), dt, axes=("layers", "mlp", "fsdp")),
     }
 
 
 def mamba_state_specs(cfg: ModelConfig, batch: int) -> dict:
     """The engine's per-layer SSM state, (L, B, di, N) fp32."""
     L, di, N = cfg.num_layers, cfg.d_model, cfg.ssm_state
-    return {"ssm": ParamSpec((L, batch, di, N), "float32", "zeros")}
+    return {"ssm": ParamSpec((L, batch, di, N), "float32", "zeros",
+                             axes=("layers", "batch", "mlp", "state"))}
 
 
 def _ssm_inputs(cfg: ModelConfig, p: dict, x: torch.Tensor):
@@ -73,7 +78,8 @@ def ssm_output(cfg: ModelConfig, p: dict, y: torch.Tensor, u: torch.Tensor,
     """Skip connection + silu gate + output projection (shared tail)."""
     y = y + u * p["m_d"][None, None]
     y = y.to(x_dtype) * F.silu(z.float()).to(x_dtype)
-    return torch.matmul(y, p["m_out"])
+    y = shard(y, "batch", "seq", "mlp")
+    return matmul(y, p["m_out"])
 
 
 def _scan_chunk(a, b):
@@ -152,7 +158,8 @@ def mamba_mix(cfg: ModelConfig, p: dict, x: torch.Tensor, h0: torch.Tensor,
     A = -torch.exp(p["m_alog"])
     y, h1 = ssm_core(u.float(), dt, B_, C_, A, p["m_d"], h0, impl)
     y = y.to(x.dtype) * F.silu(z.float()).to(x.dtype)
-    return torch.matmul(y, p["m_out"]), h1
+    y = shard(y, "batch", "seq", "mlp")
+    return matmul(y, p["m_out"]), h1
 
 
 def mamba_step(cfg: ModelConfig, p: dict, x: torch.Tensor,

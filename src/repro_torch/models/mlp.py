@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import matmul, shard
 from repro_torch.models.common import ParamSpec
 
 
@@ -31,9 +32,12 @@ def mlp_specs(cfg: ModelConfig, d_ff: int | None = None,
     f = d_ff or cfg.d_ff
     dt = cfg.dtype
     return {
-        prefix + "wi_gate": ParamSpec((L, d, f), dt),
-        prefix + "wi_up": ParamSpec((L, d, f), dt),
-        prefix + "wo": ParamSpec((L, f, d), dt),
+        prefix + "wi_gate": ParamSpec((L, d, f), dt,
+                                     axes=("layers", "fsdp", "mlp")),
+        prefix + "wi_up": ParamSpec((L, d, f), dt,
+                                   axes=("layers", "fsdp", "mlp")),
+        prefix + "wo": ParamSpec((L, f, d), dt,
+                                axes=("layers", "mlp", "fsdp")),
     }
 
 
@@ -42,8 +46,8 @@ def swiglu(p: dict, x: torch.Tensor, prefix: str = "mlp_") -> torch.Tensor:
     fp32, cast back to x's dtype before the product."""
     h = x @ p[prefix + "wi_gate"]
     u = x @ p[prefix + "wi_up"]
-    h = F.silu(h.float()).to(x.dtype) * u
-    return h @ p[prefix + "wo"]
+    h = shard(F.silu(h.float()).to(x.dtype) * u, "batch", "seq", "mlp")
+    return matmul(h, p[prefix + "wo"])
 
 
 # ---------------------------------------------------------------------------
@@ -54,10 +58,14 @@ def moe_specs(cfg: ModelConfig) -> dict:
     L, d, f, E = cfg.num_layers, cfg.d_model, cfg.d_ff, cfg.num_experts
     dt = cfg.dtype
     p = {
-        "router": ParamSpec((L, d, E), "float32"),
-        "we_gate": ParamSpec((L, E, d, f), dt),
-        "we_up": ParamSpec((L, E, d, f), dt),
-        "we_out": ParamSpec((L, E, f, d), dt),
+        "router": ParamSpec((L, d, E), "float32",
+                            axes=("layers", None, "experts")),
+        "we_gate": ParamSpec((L, E, d, f), dt,
+                             axes=("layers", "experts", "fsdp", "mlp")),
+        "we_up": ParamSpec((L, E, d, f), dt,
+                           axes=("layers", "experts", "fsdp", "mlp")),
+        "we_out": ParamSpec((L, E, f, d), dt,
+                            axes=("layers", "experts", "mlp", "fsdp")),
     }
     if cfg.moe_dense_residual:
         p.update(mlp_specs(cfg, cfg.d_ff_dense, prefix="dense_"))
@@ -126,7 +134,7 @@ def moe_ffn(cfg: ModelConfig, p: dict, x: torch.Tensor,
     load-balance aux loss, an fp32 scalar)."""
     B, S, d = x.shape
     E = cfg.num_experts
-    xg = _group(x, group_size)                                 # (G,T,d)
+    xg = shard(_group(x, group_size), "batch", None, None)     # (G,T,d)
     G, T, _ = xg.shape
     r = route(cfg, p["router"], xg)
     cap, onehot_e, gate = r["cap"], r["onehot_e"], r["gate"]
@@ -141,16 +149,20 @@ def moe_ffn(cfg: ModelConfig, p: dict, x: torch.Tensor,
     # pair has one choice at most, so either sum over k has one term.
     dispatch = torch.einsum("gtke,gtkc->gtec", onehot_e, onehot_c)
     combine = torch.einsum("gtke,gtkc,gtk->gtec", onehot_e, onehot_c, gate)
-    dispatch = dispatch.to(x.dtype).reshape(G, T, E * cap)
-    combine = combine.to(x.dtype).reshape(G, T, E * cap)
+    dispatch = shard(dispatch.to(x.dtype), "batch", None, "experts",
+                     None).reshape(G, T, E * cap)
+    combine = shard(combine.to(x.dtype), "batch", None, "experts",
+                    None).reshape(G, T, E * cap)
 
     xe = dispatch.transpose(1, 2) @ xg                         # (G,E*C,d)
-    xe = xe.reshape(G, E, cap, d).transpose(0, 1).reshape(E, G * cap, d)
+    xe = shard(xe.reshape(G, E, cap, d), "batch", "experts", None, None)
+    xe = xe.transpose(0, 1).reshape(E, G * cap, d)
     h = xe @ p["we_gate"]                                      # (E,G*C,f)
     u = xe @ p["we_up"]
     h = F.silu(h.float()).to(x.dtype) * u
     ye = h @ p["we_out"]                                       # (E,G*C,d)
-    ye = ye.reshape(E, G, cap, d).transpose(0, 1).reshape(G, E * cap, d)
+    ye = shard(ye.reshape(E, G, cap, d).transpose(0, 1), "batch", "experts",
+               None, None).reshape(G, E * cap, d)
     y = (combine @ ye).reshape(B, S, d)
     if cfg.moe_dense_residual:
         y = y + swiglu(p, x, prefix="dense_")

@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import matmul, replicate_dims, shard
 from repro_torch.models.common import AUTOGRAD, ParamSpec, group_norm
 
 LORA_DIM = 64
@@ -31,23 +32,28 @@ def rwkv_specs(cfg: ModelConfig) -> dict:
     dt = cfg.dtype
     return {
         # time-mix
-        "tm_mix": ParamSpec((L, 5, d), dt, "uniform", 0.5),
-        "tm_w0": ParamSpec((L, d), "float32", "decay"),
-        "tm_wa": ParamSpec((L, d, LORA_DIM), dt),
-        "tm_wb": ParamSpec((L, LORA_DIM, d), dt),
-        "tm_u": ParamSpec((L, H, K), "float32", "uniform", 0.5),
-        "tm_wr": ParamSpec((L, d, d), dt),
-        "tm_wk": ParamSpec((L, d, d), dt),
-        "tm_wv": ParamSpec((L, d, d), dt),
-        "tm_wg": ParamSpec((L, d, d), dt),
-        "tm_wo": ParamSpec((L, d, d), dt),
-        "tm_ln_w": ParamSpec((L, d), dt, "ones"),
-        "tm_ln_b": ParamSpec((L, d), dt, "zeros"),
+        "tm_mix": ParamSpec((L, 5, d), dt, "uniform", 0.5,
+                            ("layers", None, None)),
+        "tm_w0": ParamSpec((L, d), "float32", "decay", axes=("layers", None)),
+        "tm_wa": ParamSpec((L, d, LORA_DIM), dt,
+                           axes=("layers", "fsdp", None)),
+        "tm_wb": ParamSpec((L, LORA_DIM, d), dt,
+                           axes=("layers", None, "fsdp")),
+        "tm_u": ParamSpec((L, H, K), "float32", "uniform", 0.5,
+                          ("layers", "heads", None)),
+        "tm_wr": ParamSpec((L, d, d), dt, axes=("layers", "fsdp", "heads")),
+        "tm_wk": ParamSpec((L, d, d), dt, axes=("layers", "fsdp", "heads")),
+        "tm_wv": ParamSpec((L, d, d), dt, axes=("layers", "fsdp", "heads")),
+        "tm_wg": ParamSpec((L, d, d), dt, axes=("layers", "fsdp", "heads")),
+        "tm_wo": ParamSpec((L, d, d), dt, axes=("layers", "heads", "fsdp")),
+        "tm_ln_w": ParamSpec((L, d), dt, "ones", axes=("layers", None)),
+        "tm_ln_b": ParamSpec((L, d), dt, "zeros", axes=("layers", None)),
         # channel-mix
-        "cm_mix": ParamSpec((L, 2, d), dt, "uniform", 0.5),
-        "cm_wk": ParamSpec((L, d, f), dt),
-        "cm_wv": ParamSpec((L, f, d), dt),
-        "cm_wr": ParamSpec((L, d, d), dt),
+        "cm_mix": ParamSpec((L, 2, d), dt, "uniform", 0.5,
+                            ("layers", None, None)),
+        "cm_wk": ParamSpec((L, d, f), dt, axes=("layers", "fsdp", "mlp")),
+        "cm_wv": ParamSpec((L, f, d), dt, axes=("layers", "mlp", "fsdp")),
+        "cm_wr": ParamSpec((L, d, d), dt, axes=("layers", "fsdp", None)),
     }
 
 
@@ -57,9 +63,12 @@ def state_specs(cfg: ModelConfig, batch: int) -> dict:
     L, d = cfg.num_layers, cfg.d_model
     K = cfg.rwkv_head_dim
     H = d // K
-    return {"wkv": ParamSpec((L, batch, H, K, K), "float32", "zeros"),
-            "ts_tm": ParamSpec((L, batch, d), cfg.dtype, "zeros"),
-            "ts_cm": ParamSpec((L, batch, d), cfg.dtype, "zeros")}
+    return {"wkv": ParamSpec((L, batch, H, K, K), "float32", "zeros",
+                             axes=("layers", "batch", "heads", None, None)),
+            "ts_tm": ParamSpec((L, batch, d), cfg.dtype, "zeros",
+                               axes=("layers", "batch", None)),
+            "ts_cm": ParamSpec((L, batch, d), cfg.dtype, "zeros",
+                               axes=("layers", "batch", None))}
 
 
 def _shift(x: torch.Tensor, prev: torch.Tensor) -> torch.Tensor:
@@ -103,7 +112,8 @@ def time_mix_post(cfg: ModelConfig, p: dict, y: torch.Tensor,
     y = y.reshape(B, T, H * K).to(x_dtype)
     y = group_norm(y, p["tm_ln_w"], p["tm_ln_b"], H, cfg.norm_eps)
     y = y * F.silu(g.float()).to(x_dtype)
-    return torch.matmul(y, p["tm_wo"])
+    y = shard(y, "batch", "seq", "heads")
+    return matmul(y, p["tm_wo"])
 
 
 def wkv_chunked(r, k, v, lw, u, s0, chunk: int = 16):
@@ -121,6 +131,7 @@ def wkv_chunked(r, k, v, lw, u, s0, chunk: int = 16):
     0: the pairs j >= t are masked to -inf before the exp, so neither
     their value nor their gradient can overflow. Returns (y (B,T,H,K),
     s_final)."""
+    r, k, v, lw, u, s0 = _whole_heads(r, k, v, lw, u, s0)
     B, T, H, K = r.shape
     C = min(chunk, T)
     Tp = (T + C - 1) // C * C
@@ -148,6 +159,15 @@ def wkv_chunked(r, k, v, lw, u, s0, chunk: int = 16):
     return torch.cat(ys, 1)[:, :T], S
 
 
+def _whole_heads(r, k, v, lw, u, s0):
+    """The WKV operands made whole along heads where DTensors split them
+    (r/k/v/lw dim 2, u dim 0, s0 dim 1); plain tensors as they are. The
+    einsums fold (b, h), which torch 2.11's DTensor cannot do with both
+    split."""
+    return (*(replicate_dims(a, (2,)) for a in (r, k, v, lw)),
+            replicate_dims(u, (0,)), replicate_dims(s0, (1,)))
+
+
 def wkv_core(r, k, v, lw, u, s0, impl=None):
     """Full-sequence WKV recurrence through the registry ``wkv6``. Returns
     (y, s_final). ``impl="ref"`` runs the kernel's plain version whatever
@@ -162,6 +182,7 @@ def wkv_core(r, k, v, lw, u, s0, impl=None):
         return wkv_chunked(r, k, v, lw, u, s0)
     from repro_torch.kernels import registry
     y = registry.call("wkv6", r, k, v, lw, u, impl=impl)
+    r, k, v, lw, u, s0 = _whole_heads(r, k, v, lw, u, s0)
     p = torch.cumsum(lw, dim=1)                             # inclusive
     pprev = p - lw                                          # exclusive
     y = y + torch.einsum("bthi,bhio->btho", r * torch.exp(pprev), s0)
@@ -199,7 +220,9 @@ def time_mix_step(cfg: ModelConfig, p: dict, x: torch.Tensor,
     w = torch.exp(_decay(p, xw)[:, 0]).reshape(B, H, K)     # per channel
     u = p["tm_u"].float()
     kv = k[..., :, None] * v[..., None, :]                  # (B,H,K,K)
-    y = torch.einsum("bhi,bhio->bho", r, s0 + u[None, :, :, None] * kv)
+    r, s_ = replicate_dims(r, (1,)), replicate_dims(
+        s0 + u[None, :, :, None] * kv, (1,))
+    y = torch.einsum("bhi,bhio->bho", r, s_)
     s1 = w[..., None] * s0 + kv
     y = y.reshape(B, d).to(x.dtype)
     y = group_norm(y, p["tm_ln_w"], p["tm_ln_b"], H, cfg.norm_eps)
@@ -215,8 +238,9 @@ def channel_mix(cfg: ModelConfig, p: dict, x: torch.Tensor,
     mix = p["cm_mix"].to(x.dtype)
     xk = x + (xprev - x) * mix[0]
     xr = x + (xprev - x) * mix[1]
-    k = torch.square(F.relu(torch.matmul(xk, p["cm_wk"])))
-    kv = torch.matmul(k, p["cm_wv"])
+    k = shard(torch.square(F.relu(torch.matmul(xk, p["cm_wk"]))),
+              "batch", "seq", "mlp")
+    kv = matmul(k, p["cm_wv"])
     r = torch.sigmoid(torch.matmul(xr, p["cm_wr"]).float())
     return r.to(x.dtype) * kv, x[:, -1]
 

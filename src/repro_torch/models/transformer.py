@@ -20,7 +20,10 @@ block tables, written in place) and ``scatter_prefill_cache`` (a dense
 prefill cache into the pool). The reference scans its layers with
 ``lax.scan``; here they run in a Python loop, which computes the same
 thing; what the layers share (RoPE's table, decode's per-step invariants)
-is built once a pass, before it.
+is built once a pass, before it. Every spec carries the reference's
+logical sharding axes; inside an ``axis_rules`` binding the parameters
+are DTensors, the activations are placed at the reference's ``shard``
+sites and the residual stream after each sublayer (``_residual``).
 
 Training runs ``forward_full(impl="autograd")``: every kernel's
 differentiable stock-op form (attention as grouped scores and a softmax,
@@ -36,10 +39,14 @@ import functools
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 import torch.utils.checkpoint as ckpt_mod
 
 from repro_torch import device as device_mod
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import (carry_binding, is_dtensor,
+                                              replicate_dims, shard,
+                                              split_once)
 from repro_torch.dtypes import as_tensor, torch_dtype
 from repro_torch.models import attention as attn
 from repro_torch.models.common import (AUTOGRAD, ParamSpec, draw_param,
@@ -77,31 +84,41 @@ def model_specs(cfg: ModelConfig) -> dict:
     L, d, V = cfg.num_layers, cfg.d_model, cfg.vocab_size
     dt = cfg.dtype
     specs = {
-        "ln1": ParamSpec((L, d), dt, "ones"),
-        "ln2": ParamSpec((L, d), dt, "ones"),
-        "final_norm": ParamSpec((d,), dt, "ones"),
+        "ln1": ParamSpec((L, d), dt, "ones", axes=("layers", None)),
+        "ln2": ParamSpec((L, d), dt, "ones", axes=("layers", None)),
+        "final_norm": ParamSpec((d,), dt, "ones", axes=(None,)),
     }
     if cfg.input_kind == "tokens":
-        specs["embed"] = ParamSpec((V, d), dt, "embed")
+        specs["embed"] = ParamSpec((V, d), dt, "embed",
+                                   axes=("vocab", "embed"))
     if not cfg.tie_embeddings:
-        specs["lm_head"] = ParamSpec((d, V), dt)
+        specs["lm_head"] = ParamSpec((d, V), dt, axes=("embed", "vocab"))
     if cfg.family == "ssm":
         specs.update(rwkv.rwkv_specs(cfg))
         return specs
     H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     specs.update({
-        "wq": ParamSpec((L, d, H, D), dt),
-        "wk": ParamSpec((L, d, Hkv, D), dt),
-        "wv": ParamSpec((L, d, Hkv, D), dt),
-        "wo": ParamSpec((L, H, D, d), dt),
+        "wq": ParamSpec((L, d, H, D), dt,
+                        axes=("layers", "fsdp", "heads", "head_dim")),
+        "wk": ParamSpec((L, d, Hkv, D), dt,
+                        axes=("layers", "fsdp", "kv_heads", "head_dim")),
+        "wv": ParamSpec((L, d, Hkv, D), dt,
+                        axes=("layers", "fsdp", "kv_heads", "head_dim")),
+        "wo": ParamSpec((L, H, D, d), dt,
+                        axes=("layers", "heads", "head_dim", "fsdp")),
     })
     if cfg.qkv_bias:
-        specs["bq"] = ParamSpec((L, H, D), dt, "zeros")
-        specs["bk"] = ParamSpec((L, Hkv, D), dt, "zeros")
-        specs["bv"] = ParamSpec((L, Hkv, D), dt, "zeros")
+        specs["bq"] = ParamSpec((L, H, D), dt, "zeros",
+                                axes=("layers", "heads", "head_dim"))
+        specs["bk"] = ParamSpec((L, Hkv, D), dt, "zeros",
+                                axes=("layers", "kv_heads", "head_dim"))
+        specs["bv"] = ParamSpec((L, Hkv, D), dt, "zeros",
+                                axes=("layers", "kv_heads", "head_dim"))
     if cfg.qk_norm:
-        specs["q_norm"] = ParamSpec((L, D), dt, "ones")
-        specs["k_norm"] = ParamSpec((L, D), dt, "ones")
+        specs["q_norm"] = ParamSpec((L, D), dt, "ones",
+                                    axes=("layers", "head_dim"))
+        specs["k_norm"] = ParamSpec((L, D), dt, "ones",
+                                    axes=("layers", "head_dim"))
     if cfg.family == "hybrid":
         specs.update(mamba.mamba_specs(cfg))
     specs.update(moe_specs(cfg) if has_experts(cfg) else mlp_specs(cfg))
@@ -159,9 +176,20 @@ def embed_inputs(cfg: ModelConfig, glob: dict, tokens) -> torch.Tensor:
     cast to the config's dtype on the final norm's device."""
     if cfg.input_kind != "tokens":
         dev = glob["final_norm"].device
-        return as_tensor(tokens, dev).to(torch_dtype(cfg.dtype))
-    emb = glob["embed"]
-    return emb[as_tensor(tokens, emb.device).long()]
+        x = as_tensor(tokens, dev).to(torch_dtype(cfg.dtype))
+    else:
+        emb = glob["embed"]
+        idx = as_tensor(tokens, emb.device).long()
+        if is_dtensor(emb):
+            # the embedding op, whose backward DTensor places (torch
+            # 2.11's fails on index_put, the backward of emb[idx]), on a
+            # table whole along vocab (DTensor's masked lookup of a split
+            # vocab loses its mask when the output is placed by batch)
+            # and an index split over one mesh dim at most
+            x = F.embedding(split_once(idx), replicate_dims(emb, (0,)))
+        else:
+            x = emb[idx]
+    return shard(x, "batch", None, "embed")
 
 
 def cache_specs(cfg: ModelConfig, batch: int, seq_len: int) -> dict:
@@ -181,6 +209,15 @@ def cache_specs(cfg: ModelConfig, batch: int, seq_len: int) -> dict:
 # Blocks (per-layer params, the leading L dim already sliced away)
 # ---------------------------------------------------------------------------
 
+def _residual(x):
+    """The residual stream after each sublayer, placed as the embedding
+    places it (the reference's scan carry keeps one sharding). Inside a
+    binding this reduces a row-parallel product's partial sums: DTensor
+    would otherwise carry them on and run the next layer's products whole
+    on every rank; it also makes every layer cost the same."""
+    return shard(x, "batch", None, "embed")
+
+
 def block_full(cfg: ModelConfig, p: dict, x, positions, want_cache: bool,
                impl=None, rope=None):
     """Full-sequence block from zero recurrent states. Returns (x,
@@ -195,13 +232,13 @@ def block_full(cfg: ModelConfig, p: dict, x, positions, want_cache: bool,
                          device=x.device)
         ts0 = torch.zeros((B, cfg.d_model), dtype=x.dtype, device=x.device)
         y, ts_tm, s1 = rwkv.time_mix(cfg, p, h, ts0, s0, impl)
-        x = x + y
+        x = _residual(x + y)
         h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
         y2, ts_cm = rwkv.channel_mix(cfg, p, h2, ts0)
         if want_cache:
             dt = torch_dtype(cfg.dtype)
             cache = {"wkv": s1, "ts_tm": ts_tm.to(dt), "ts_cm": ts_cm.to(dt)}
-        return x + y2, cache, None
+        return _residual(x + y2), cache, None
     if want_cache:
         ya, (kc, vc) = attn.prefill_attention(cfg, p, h, positions, impl,
                                               rope)
@@ -212,14 +249,14 @@ def block_full(cfg: ModelConfig, p: dict, x, positions, want_cache: bool,
         h0 = torch.zeros((B, cfg.d_model, cfg.ssm_state),
                          dtype=torch.float32, device=x.device)
         ym, h1 = mamba.mamba_mix(cfg, p, h, h0, impl)
-        x = x + 0.5 * (ya + ym)
+        x = _residual(x + 0.5 * (ya + ym))
         if want_cache:
             cache["ssm"] = h1
     else:
-        x = x + ya
+        x = _residual(x + ya)
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
     y2, aux = _ffn(cfg, p, h2)
-    return x + y2, cache, aux
+    return _residual(x + y2), cache, aux
 
 
 def block_decode(cfg: ModelConfig, p: dict, x, pos, cache: dict,
@@ -232,23 +269,23 @@ def block_decode(cfg: ModelConfig, p: dict, x, pos, cache: dict,
     if cfg.family == "ssm":
         y, ts_tm, s1 = rwkv.time_mix_step(cfg, p, h, cache["ts_tm"],
                                           cache["wkv"])
-        x = x + y
+        x = _residual(x + y)
         h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
         y2, ts_cm = rwkv.channel_mix(cfg, p, h2, cache["ts_cm"])
         cache["wkv"].copy_(s1)
         cache["ts_tm"].copy_(ts_tm)
         cache["ts_cm"].copy_(ts_cm)
-        return x + y2, cache
+        return _residual(x + y2), cache
     ya, _, _ = attn.decode_attention(cfg, p, h, pos, cache["k"], cache["v"],
                                      consts)
     if cfg.family == "hybrid":
         ym, h1 = mamba.mamba_step(cfg, p, h, cache["ssm"])
         cache["ssm"].copy_(h1)
-        x = x + 0.5 * (ya + ym)
+        x = _residual(x + 0.5 * (ya + ym))
     else:
-        x = x + ya
+        x = _residual(x + ya)
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + _ffn(cfg, p, h2)[0], cache
+    return _residual(x + _ffn(cfg, p, h2)[0]), cache
 
 
 def _slice_layer(tree: dict, i: int) -> dict:
@@ -269,7 +306,8 @@ def _dots_saveable(ctx, op, *args, **kwargs):
 def _remat(fn, policy: str):
     """``fn`` rematerialized in the backward (``torch.utils.checkpoint``,
     non-reentrant): ``"full"`` keeps only its inputs, ``"dots"`` also
-    its matmul outputs."""
+    its matmul outputs. The recompute runs under the forward's sharding
+    binding (``carry_binding``)."""
     if policy not in REMAT_POLICIES:
         raise ValueError(f"unknown remat policy {policy!r} "
                          f"({', '.join(REMAT_POLICIES)})")
@@ -278,8 +316,8 @@ def _remat(fn, policy: str):
                           _dots_saveable)
 
     def run(*args):
-        return ckpt_mod.checkpoint(fn, *args, use_reentrant=False,
-                                   context_fn=context_fn)
+        return ckpt_mod.checkpoint(carry_binding(fn), *args,
+                                   use_reentrant=False, context_fn=context_fn)
     return run
 
 
@@ -336,8 +374,10 @@ def run_blocks_decode(cfg: ModelConfig, blocks: dict, x, pos, cache: dict):
 def logits_head(cfg: ModelConfig, glob: dict, x):
     x = rms_norm(x, glob["final_norm"], cfg.norm_eps)
     if cfg.tie_embeddings:
-        return x @ glob["embed"].T
-    return x @ glob["lm_head"]
+        logits = x @ glob["embed"].T
+    else:
+        logits = x @ glob["lm_head"]
+    return shard(logits, "batch", None, "vocab")
 
 
 def forward_full(cfg: ModelConfig, params: dict, inputs,

@@ -23,6 +23,9 @@ from typing import Any, NamedTuple
 
 import torch
 
+from repro_torch.distributed.sharding import is_dtensor
+from repro_torch.models.common import ParamSpec, spec_tree_map
+
 
 @dataclasses.dataclass(frozen=True)
 class AdamWConfig:
@@ -37,6 +40,22 @@ class AdamWState(NamedTuple):
     step: Any            # 0-d int32 tensor
     m: Any               # fp32 dict like params
     v: Any               # fp32 dict like params
+
+
+def adamw_init_specs(param_specs) -> AdamWState:
+    """Spec tree for the optimizer state: an int32 0-d step and fp32 zero
+    moments shaped like the parameters. Moment axes rename ``fsdp`` ->
+    ``opt_shard``: under the default rules both map to the data axis
+    (ZeRO-3), but the ``train_zero1`` rule set replicates params over data
+    while keeping moments sharded (ZeRO-1)."""
+    def mom(s: ParamSpec) -> ParamSpec:
+        axes = tuple("opt_shard" if a == "fsdp" else a for a in s.axes)
+        return ParamSpec(s.shape, "float32", "zeros", axes=axes)
+    return AdamWState(
+        step=ParamSpec((), "int32", "zeros", axes=()),
+        m=spec_tree_map(mom, param_specs),
+        v=spec_tree_map(mom, param_specs),
+    )
 
 
 def adamw_init(params: dict) -> AdamWState:
@@ -60,6 +79,16 @@ def global_norm(tree: dict) -> torch.Tensor:
         return torch.sqrt(torch.sum(torch.stack(leaves)))
 
 
+def _placed_like(g, p):
+    """A DTensor gradient placed as its parameter is (reduced onto the
+    parameter's shards, ZeRO-style), so the update runs on the
+    parameter's shards whatever placement the backward left; a plain
+    gradient as it is."""
+    if not is_dtensor(p) or tuple(g.placements) == tuple(p.placements):
+        return g
+    return g.redistribute(p.device_mesh, p.placements)
+
+
 def adamw_update(cfg: AdamWConfig, grads: dict, state: AdamWState,
                  params: dict, lr: torch.Tensor):
     """One AdamW step. ``lr`` is a 0-d fp32 tensor on the parameters'
@@ -69,6 +98,7 @@ def adamw_update(cfg: AdamWConfig, grads: dict, state: AdamWState,
     device: CUDA divides by a host scalar by multiplying with its
     reciprocal."""
     with torch.no_grad():
+        grads = {k: _placed_like(g, params[k]) for k, g in grads.items()}
         gnorm = global_norm(grads)
         scale = torch.clamp(gnorm.new_tensor(cfg.clip_norm) / (gnorm + 1e-9),
                             max=1.0)

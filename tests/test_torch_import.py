@@ -39,7 +39,11 @@ def test_port_imports_no_jax_no_ml_dtypes_no_reference_package():
                  "configs.phi3_medium_14b", "configs.mistral_nemo_12b",
                  "configs.pixtral_12b", "configs.musicgen_medium",
                  "optim", "optim.adamw", "optim.schedules", "data",
-                 "data.pipeline", "launch.train", "launch.serve"):
+                 "data.pipeline", "launch.train", "launch.serve",
+                 "distributed", "distributed.sharding",
+                 "distributed.collectives", "distributed.pipeline",
+                 "launch.mesh", "launch.dryrun", "launch.roofline",
+                 "launch.report", "launch.cost"):
         assert "repro_torch." + name in modules
     code = (
         "import importlib, sys\n"
