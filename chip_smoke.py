@@ -211,12 +211,30 @@ Phases, each printing one JSON line with its times:
      checkpoint's and the in-memory weights answer the same greedy tokens
      through two ``ServingEngine``s, 28 ``flash_attention`` a prefill),
      and the card-only training test (``tests/test_torch_train_gpu.py``);
-  7c. distribution and the dry run (before the card-only tests): the dry
-     run's cells start first, each ``python -m repro_torch.launch.dryrun``
-     in a process of its own with no card visible (qwen2-1.5b x
-     train_4k, prefill_32k and decode_32k over the fake 256-rank mesh,
-     moonshot-v1-16b-a3b x train_4k over the 512-rank one, hymba-1.5b x
-     long_500k, and qwen2-1.5b x train_4k again in ``--mode full``); on a
+  7c. every LM architecture no phase above serves (``slice_arches``; the dry
+     run's cells started before the training phases, each ``python -m
+     repro_torch.launch.dryrun`` in a process of its own with no card visible:
+     qwen2-1.5b x train_4k, prefill_32k and decode_32k over the fake 256-rank
+     mesh, moonshot-v1-16b-a3b x train_4k over the 512-rank one, hymba-1.5b x
+     long_500k, qwen2-1.5b x train_4k again in ``--mode full``, pixtral-12b x
+     prefill_32k, musicgen-medium x decode_32k and rwkv6-1.6b x train_4k):
+     qwen3-14b (qk-norm), phi3-medium-14b, mistral-nemo-12b, arctic-480b (128
+     experts top-2 beside a dense residual MLP, 2 layers) and the vlm and audio
+     backbones pixtral-12b and musicgen-medium on their frontend stubs'
+     embeddings, each drawn at full width on the card and freed before the
+     next: at 2 fp32 layers (arctic 1) the prefill and the first decode step on
+     the kernels against the plain versions (5e-4), and the decode step against
+     a full forward over S + 1 (2e-3, in fp64; arctic's in fp32 at a capacity
+     that drops nothing); then at the served depth in bf16, the token configs
+     through ``ServingEngine`` (the engine cell's six prompts, 4 slots of 640
+     rows, the decode step one CUDA graph: the streams equal an eager-step
+     engine's bit for bit), pixtral and musicgen through ``make_prefill_step``
+     on a (1, 512, d) stub and 32 decode steps, each replay of
+     ``CompiledDecodeStep`` equal to the eager step bit for bit; one
+     ``flash_attention`` a layer a prefill, every call against its plain
+     version; peak memory, a prefill's host wall and device busy, the decode
+     step's p50 beside its bytes bound, tokens/s;
+  7d. distribution and the dry run (before the card-only tests): on a
      NCCL group of one rank, ``distributed`` (``compressed_psum``'s three
      methods bit for bit against their plain formulas, ``pipeline_forward``
      at one stage against the stacked forward), ``dp_train_step``
@@ -451,7 +469,13 @@ def device_breakdown(torch, fn, top: int = 12) -> dict:
 # the served paths: model name -> (B, S, H, Hkv, D) of its attention
 ATTENTION_SHAPES = {"qwen2-1.5b": (1, SEQ, 12, 2, 128),
                     "hymba-1.5b": (1, SEQ, 25, 5, 64),
-                    "moonshot-v1-16b-a3b": (1, SEQ, 16, 16, 128)}
+                    "moonshot-v1-16b-a3b": (1, SEQ, 16, 16, 128),
+                    # slice_arches' (pixtral-12b's is mistral-nemo's)
+                    "qwen3-14b": (1, SEQ, 40, 8, 128),
+                    "phi3-medium-14b": (1, SEQ, 40, 10, 128),
+                    "mistral-nemo-12b": (1, SEQ, 32, 8, 128),
+                    "arctic-480b": (1, SEQ, 56, 8, 128),
+                    "musicgen-medium": (1, SEQ, 24, 24, 64)}
 SSM_SHAPE = (1, SEQ, 1600, 16)          # hymba-1.5B's SSM_SCAN, fp32
 WKV_SHAPE = (1, SEQ, 32, 64)            # rwkv6-1.6B's WKV6 (B, T, H, K), fp32
 
@@ -501,6 +525,10 @@ def phase_attention(torch, seed: int) -> dict:
                   (1, 100, 300, 12, 2, 128, dtype, False),
                   (1, 300, 100, 12, 2, 128, dtype, True),   # Sk < S
                   (1, 300, 100, 12, 2, 128, dtype, False)]
+    # slice_arches' prefill shapes
+    cases += [(b, s, s, h, hkv, d, "bfloat16", True)
+              for model, (b, s, h, hkv, d) in ATTENTION_SHAPES.items()
+              if model in dict(ARCH_MODELS)]
     # the serving engine's prefill shapes (qwen2-1.5B), and B = 2 as a
     # grouped prefill would give them
     cases += [(b, n, n, 12, 2, 128, "bfloat16", True)
@@ -1408,8 +1436,9 @@ def phase_autotune(torch, seed: int) -> dict:
 def router_gaps(torch, log: list):
     """A wrapper of ``mlp.moe_ffn`` that records into ``log``, per call,
     the worst token's gap between its K-th and (K+1)-th router
-    probabilities (where a rounding could flip the routing) and how many
-    (token, choice) slots its capacity dropped."""
+    probabilities (where a rounding could flip the routing), how many
+    (token, choice) slots its capacity dropped and the most slots one
+    expert was routed in one group."""
     from repro_torch.models import mlp
     inner = mlp.moe_ffn
 
@@ -1421,6 +1450,8 @@ def router_gaps(torch, log: list):
         log.append({"min_gap": gap.min().item(),
                     "p_k": top[..., k - 1].flatten()[gap.argmin()].item(),
                     "dropped": int((r["keep"] == 0).sum().item()),
+                    "max_load": int(r["onehot_e"].sum(dim=(1, 2)).max()
+                                    .item()),
                     "slots": r["keep"].numel(), "capacity": r["cap"]})
         return inner(cfg_, p, x, group_size)
     return moe_ffn
@@ -1429,12 +1460,12 @@ def router_gaps(torch, log: list):
 def decode_bytes_bound(cfg, params: dict, cache: dict, pos) -> dict:
     """The least bytes one decode step at ``pos`` (B,) must move, and the
     time they take at HBM_BYTES_PER_S: every weight once (the dense MoE
-    reads every expert), the embedding's B rows instead of its table, each
-    lane's K and V rows up to its position, and the new rows written."""
+    reads every expert), the embedding's B rows instead of its table (a
+    vlm or audio config's B input embeddings), each lane's K and V rows up
+    to its position, and the new rows written."""
     weights = sum(v.numel() * v.element_size() for k, v in params.items()
                   if k != "embed")
-    emb = params["embed"]
-    rows = emb.shape[1] * emb.element_size() * len(pos)
+    rows = cfg.d_model * params["final_norm"].element_size() * len(pos)
     k = cache["k"]
     row_bytes = k.shape[0] * k.shape[3] * k.shape[4] * k.element_size()
     kv = 2 * row_bytes * (sum(int(p) for p in pos) + len(pos))
@@ -5286,6 +5317,412 @@ def phase_slice_engine_paged_moe(torch, seed: int, keep: dict) -> dict:
     return {phase: launches}
 
 
+# ---------------------------------------------------------------------------
+# Every LM architecture on the card: the configs no earlier phase serves, at
+# full width, one after another, each drawn from the seed and freed before
+# the next
+# ---------------------------------------------------------------------------
+
+# (model, layers served in bf16: None for the config's own depth; arctic's
+# 957 GB of weights fit no card, its 2 layers 55.56 GB do)
+ARCH_MODELS = (("qwen3-14b", None), ("phi3-medium-14b", None),
+               ("mistral-nemo-12b", None), ("arctic-480b", 2),
+               ("pixtral-12b", None), ("musicgen-medium", None))
+ARCH_FP32_LAYERS = {"arctic-480b": 1}       # 56.5 GB in fp32; the rest 2
+# the decode consistency check runs in fp64, but in fp32 where the fp64
+# copy fits no card
+ARCH_FP32_CONSISTENCY = ("arctic-480b",)    # one fp64 layer: 113 GB
+ARCH_DECODE_TOL = 2e-3                      # test_models.py:97
+ARCH_EMBED_STEPS = 32                       # decode steps on stub embeddings
+
+
+def arch_inputs(torch, cfg, seed: int, seq: int):
+    """(1, seq) prompt tokens, or a vlm or audio config's (1, seq, d)
+    frontend stub embeddings (``patch_embed_stub``, ``frame_embed_stub``),
+    fp32, on the card."""
+    from repro_torch.models import frontends
+    if cfg.input_kind == "tokens":
+        tokens = engine_prompts(seed, cfg.vocab_size, (seq,))[0]
+        return torch.as_tensor(tokens[None], device="cuda")
+    stub = frontends.patch_embed_stub if cfg.family == "vlm" \
+        else frontends.frame_embed_stub
+    return torch.as_tensor(stub(cfg, 1, seq, seed), device="cuda")
+
+
+def decode_cache(torch, cfg, batch: int, rows: int) -> dict:
+    """A zero decode cache (``cache_specs``) of ``rows`` KV rows on the
+    card (every config of this phase attends over its whole sequence: K
+    and V are its whole decode state)."""
+    from repro_torch.dtypes import torch_dtype
+    from repro_torch.models import transformer as tf
+    return {k: torch.zeros(s.shape, dtype=torch_dtype(s.dtype),
+                           device="cuda")
+            for k, s in tf.cache_specs(cfg, batch, rows).items()}
+
+
+def splice(cache: dict, prefill: dict) -> dict:
+    """``cache`` with a prefill's cache written into its first rows."""
+    for k, c in cache.items():
+        c[:, :, :prefill[k].shape[2]] = prefill[k]
+    return cache
+
+
+def spliced_cache(torch, cfg, cache: dict, rows: int) -> dict:
+    """A decode cache of ``rows`` KV rows with a prefill's cache in its
+    first rows."""
+    return splice(decode_cache(torch, cfg, cache["k"].shape[1], rows),
+                  cache)
+
+
+def dropless_capacity(torch, cfg, params: dict, x) -> tuple:
+    """A capacity factor under which ``forward_full`` on ``x`` drops no
+    (token, choice) slot: the most slots any expert's buffer takes in a
+    run at the config's own factor, plus one, over the mean load of a
+    group of SEQ tokens. (The reference's dropless factor, the expert
+    count, would give every expert a buffer of all the group's slots:
+    some 20 GB of fp32 activations beside arctic's 56.5 GB of weights.)
+    Returns (the factor, the run's ``router_gaps`` log at it)."""
+    from repro_torch.models import transformer as tf
+
+    def routed(c):
+        log, inner = [], tf.moe_ffn
+        tf.moe_ffn = router_gaps(torch, log)
+        try:
+            tf.forward_full(c, params, x)
+        finally:
+            tf.moe_ffn = inner
+        return log
+    load = max(e["max_load"] for e in routed(cfg))
+    factor = (load + 1) * cfg.num_experts / (SEQ * cfg.experts_per_token)
+    log = routed(dataclasses.replace(cfg, moe_capacity_factor=factor))
+    if any(e["dropped"] for e in log):
+        raise AssertionError(f"{cfg.name}: capacity factor {factor} still "
+                             f"drops slots: {log}")
+    return factor, log
+
+
+def fp64_decode_and_full(torch, cfg, params: dict, x, pos) -> tuple:
+    """The decode step at S after a prefill over S, and the full forward's
+    logits at S over S + 1, both on the plain versions with the parameters
+    and inputs in fp64 and every fp32 cast of the port's code taken to
+    fp64 for the call (``fp64_train_grads``' way; RoPE's inverse
+    frequencies stay fp32)."""
+    from repro_torch.models import transformer as tf
+    cfg64 = dataclasses.replace(cfg, dtype="float64")
+    cast = torch.Tensor.float
+    torch.Tensor.float = torch.Tensor.double
+    try:
+        p64 = {k: v.double() for k, v in params.items()}
+        x64 = x if cfg.input_kind == "tokens" else x.double()
+        full = tf.forward_full(cfg64, p64, x64, impl="ref")[0][:, -1]
+        _, cache, _ = tf.forward_full(cfg64, p64, x64[:, :SEQ],
+                                      want_cache=True, impl="ref")
+        step = tf.forward_decode(
+            cfg64, p64, x64[:, SEQ:], pos,
+            spliced_cache(torch, cfg64, cache, SEQ + 8))[0][:, 0]
+    finally:
+        torch.Tensor.float = cast
+    return step, full
+
+
+def arch_fp32_checks(torch, seed: int, model: str) -> dict:
+    """``model`` at full width cut to 2 fp32 layers (1 for arctic-480b),
+    weights from ``seed``, on tokens or the frontend stub's embeddings.
+    Gates: ``forward_full`` over S = SEQ on the kernels against the same
+    call with ``impl="ref"`` (max |err| of the logits within PROGRAM_ATOL),
+    the first decode step after each of the two prefills (the same), and
+    the decode step at S against a full forward over S + 1 at the
+    reference's own ``tests/test_models.py`` tolerance (rtol = atol =
+    ARCH_DECODE_TOL), taken in fp64 (``fp64_decode_and_full``). In fp32
+    the two orders of arithmetic cannot be held there at this init: on
+    phi3-medium-14b each lies up to 4.3e-3 from its fp64 value on an H100
+    (the ``fp32_*_vs_fp64`` fields), so the fp32 distances are printed
+    beside it, ungated.
+    arctic-480b's one fp64 layer (113 GB) fits no card: its check stays in
+    fp32, run at ``dropless_capacity``, since a full forward routes token
+    S in one group with the prompt, where the capacity may drop it, and a
+    decode step routes it alone, where it never is."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tf
+    cfg = dataclasses.replace(get_config(model), dtype="float32",
+                              num_layers=ARCH_FP32_LAYERS.get(model, 2))
+    t0 = time.perf_counter()
+    params = tf.init_params(cfg, seed)
+    x = arch_inputs(torch, cfg, seed, SEQ + 1)
+    pos = torch.full((1,), SEQ, dtype=torch.int32, device="cuda")
+    prompt, nxt = x[:, :SEQ], x[:, SEQ:]
+    out = {"layers": cfg.num_layers, "weight_bytes": sum(
+        v.numel() * v.element_size() for v in params.values())}
+
+    def prefill_decode(c, impl=None):
+        """The prefill's logits over S and the decode step at S after it."""
+        logits, cache, _ = tf.forward_full(c, params, prompt,
+                                           want_cache=True, impl=impl)
+        step, _ = tf.forward_decode(c, params, nxt, pos,
+                                    spliced_cache(torch, c, cache, SEQ + 8))
+        return logits, step
+
+    def err(a, b):
+        return (a.double() - b.double()).abs().max().item()
+    logits, step = prefill_decode(cfg)
+    plain, plain_step = prefill_decode(cfg, "ref")
+    out["prefill_logits_max_abs_err"] = err(logits, plain)
+    out["decode_logits_max_abs_err"] = err(step, plain_step)
+    out["max_abs_logit"] = plain.abs().max().item()
+    full_cfg, full_step = cfg, step
+    if cfg.num_experts:
+        factor, log = dropless_capacity(torch, cfg, params, x)
+        full_cfg = dataclasses.replace(cfg, moe_capacity_factor=factor)
+        full_step = prefill_decode(full_cfg)[1]
+        out["consistency_capacity_factor"] = factor
+        out["router_by_layer"] = log
+    full = tf.forward_full(full_cfg, params, x)[0][:, -1]
+    out["fp32_decode_vs_full_max_abs_err"] = err(full_step[:, 0], full)
+    finite = all(bool(torch.isfinite(t).all())
+                 for t in (logits, step, full_step, full))
+    want_step, want_full = full_step[:, 0], full
+    if model not in ARCH_FP32_CONSISTENCY:
+        want_step, want_full = fp64_decode_and_full(torch, cfg, params, x,
+                                                    pos)
+        out["fp64_decode_vs_full_max_abs_err"] = err(want_step, want_full)
+        out["fp32_decode_vs_fp64_max_abs_err"] = err(step[:, 0], want_step)
+        out["fp32_full_vs_fp64_max_abs_err"] = err(full, want_full)
+    out["consistency_dtype"] = str(want_step.dtype).removeprefix("torch.")
+    consistent = bool(torch.allclose(want_step, want_full,
+                                     rtol=ARCH_DECODE_TOL,
+                                     atol=ARCH_DECODE_TOL))
+    out["seconds"] = time.perf_counter() - t0
+    del params, logits, step, plain, plain_step, full_step, full
+    del want_step, want_full
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not (finite and out["prefill_logits_max_abs_err"] <= PROGRAM_ATOL
+            and out["decode_logits_max_abs_err"] <= PROGRAM_ATOL
+            and consistent):
+        raise AssertionError(f"{model} at {cfg.num_layers} fp32 layers: "
+                             f"{out} (finite {finite}; kernels against "
+                             f"plain within {PROGRAM_ATOL}, decode against "
+                             f"the full forward within {ARCH_DECODE_TOL})")
+    return out
+
+
+def arch_prefill(torch, cfg, params: dict, inputs) -> dict:
+    """One B = 1 prefill of ``inputs`` on the served route: its host wall
+    and device busy (``device_breakdown``), and every ``flash_attention``
+    call in it against the plain version on the same operands
+    (``kernels_in_model``, ENGINE_TOL of max |plain|): one a layer, or
+    the phase fails."""
+    from repro_torch.launch.steps import make_prefill_step
+    prefill = make_prefill_step(cfg)
+
+    def run():
+        return prefill(params, {"inputs": inputs})
+    checks = kernels_in_model(torch, run)
+    summary = kernel_check_summary(checks)
+    if [c["kernel"] for c in checks] != ["flash_attention"] * cfg.num_layers \
+            or not all(c["ok"] for c in checks):
+        raise AssertionError(f"{cfg.name}: the prefill's kernel calls "
+                             f"{summary}, not {cfg.num_layers} within "
+                             f"{ENGINE_TOL} of the plain version")
+    timed = device_breakdown(torch, run, top=6)
+    timed.pop("host_top", None)
+    return {"kernel_calls_checked": summary, "prefill_1x512": timed}
+
+
+def arch_serve_tokens(torch, cfg, params: dict, seed: int) -> tuple:
+    """A token config through ``ServingEngine`` (ENGINE_SLOTS slots of
+    ENGINE_MAX_SEQ rows, the decode step one CUDA graph): the engine
+    cell's six prompts, ENGINE_MAX_NEW new tokens each, each prompt
+    prefilled alone; then a second engine over the same weights on the
+    eager decode step. Gates: the streams equal bit for bit, each prefill
+    launches ``flash_attention`` once a layer, no decode step a hand
+    kernel. Returns (the line's fields, the main path's launches: the
+    graph engine's run, counted from 0, and the first prompt as a (1, S)
+    tensor)."""
+    from repro_torch.launch.steps import make_decode_step
+    from repro_torch.serving.engine import Request, ServingEngine
+    prompts = engine_prompts(seed, cfg.vocab_size)
+
+    def serve(eager: bool):
+        eng = ServingEngine(cfg, params, max_batch=ENGINE_SLOTS,
+                            max_seq=ENGINE_MAX_SEQ)
+        if eager:
+            eng._decode = make_decode_step(cfg)
+        log = instrument_engine(torch, eng)
+        reqs = [Request(rid=i, prompt=p, max_new=ENGINE_MAX_NEW)
+                for i, p in enumerate(prompts)]
+        t0 = time.perf_counter()
+        for r in reqs:
+            eng.submit(r)
+        eng.run_until_drained()
+        wall = time.perf_counter() - t0
+        engine_launch_check(log, cfg, f"{cfg.name} engine"
+                            + (" eager" if eager else ""))
+        return eng, log, [r.out_tokens for r in reqs], wall
+
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()                         # the main path starts here
+    eng, log, tokens, wall = serve(eager=False)
+    launches = launches_now()
+    peak = torch.cuda.max_memory_allocated()
+    pos = [len(p) for p in prompts[:ENGINE_SLOTS]]
+    bound = decode_bytes_bound(cfg, params, eng._cache, pos)
+    del eng
+    _, eager_log, eager_tokens, eager_wall = serve(eager=True)
+    same = [a == b for a, b in zip(tokens, eager_tokens)]
+    if not all(same) or any(len(t) != ENGINE_MAX_NEW + 1 for t in tokens):
+        raise AssertionError(f"{cfg.name}: the graph engine's streams "
+                             f"differ from the eager step's: {same}")
+    steps = sorted(e["wall_s"] for e in log if e["step"] == "decode")
+    eager_steps = sorted(e["wall_s"] for e in eager_log
+                         if e["step"] == "decode")
+    generated = len(prompts) * (ENGINE_MAX_NEW + 1)
+    fields = {
+        "route": "ServingEngine", "slots": ENGINE_SLOTS,
+        "max_seq": ENGINE_MAX_SEQ, "prompts": list(ENGINE_PROMPTS),
+        "max_new": ENGINE_MAX_NEW, "peak_memory_allocated": peak,
+        "prefill_groups": prefill_groups(log),
+        "prefill_launches": [e["launches"]["flash_attention"] for e in log
+                             if e["step"] == "prefill"],
+        "served_prefill_wall_s": [e["wall_s"] for e in log
+                                  if e["step"] == "prefill"],
+        "decode_steps": len(steps), "decode_step_p50_s":
+        steps[len(steps) // 2], "decode_step_max_s": steps[-1],
+        "eager_decode_step_p50_s": eager_steps[len(eager_steps) // 2],
+        "decode_bound_4_slots": bound, "request_wall_s": wall,
+        "tokens_per_s": generated / wall,
+        "eager_tokens_per_s": generated / eager_wall,
+        "tokens_equal_eager_step_engine": same}
+    return fields, launches, torch.as_tensor(prompts[0][None],
+                                             device="cuda")
+
+
+def arch_steps_embeddings(torch, cfg, params: dict, seed: int) -> tuple:
+    """A vlm or audio config through the steps the reference runs it by:
+    ``make_prefill_step`` on a (1, SEQ, d) frontend stub, then
+    ARCH_EMBED_STEPS decode steps on the stub's next rows, each through
+    ``CompiledDecodeStep`` (one CUDA graph, its static (1, 1, d) buffer
+    in the config's dtype) and through the eager ``make_decode_step``
+    from a copy of the same cache. Gates: each replay's logits equal the
+    eager step's bit for bit, and the caches after the last step; the
+    prefill launches ``flash_attention`` once a layer, the steps none.
+    Returns (the line's fields, the main path's launches: the prefill and
+    the replays, counted from 0, and the prefill's inputs)."""
+    from repro_torch.dtypes import torch_dtype
+    from repro_torch.launch.steps import (CompiledDecodeStep,
+                                          make_decode_step,
+                                          make_prefill_step)
+    x = arch_inputs(torch, cfg, seed, SEQ + ARCH_EMBED_STEPS).to(
+        torch_dtype(cfg.dtype))
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()                         # the main path starts here
+    t0 = time.perf_counter()
+    last, cache = make_prefill_step(cfg)(params, {"inputs": x[:, :SEQ]})
+    torch.cuda.synchronize()
+    prefill_wall = time.perf_counter() - t0
+    prefill_launches_ = launches_now()
+    # captured over a free cache, as the engine captures its step: the
+    # warm-up run writes row 0; the prefill's rows go in after it
+    held = decode_cache(torch, cfg, 1, ENGINE_MAX_SEQ)
+    compiled = CompiledDecodeStep(cfg, params, held, 1)
+    splice(held, cache)
+    mirror = {k: v.clone() for k, v in held.items()}
+    del cache
+    eager = make_decode_step(cfg)
+    walls, eager_walls, differ = [], [], []
+    for t in range(ARCH_EMBED_STEPS):
+        batch = {"inputs": x[:, SEQ + t:SEQ + t + 1],
+                 "pos": torch.full((1,), SEQ + t, dtype=torch.int32,
+                                   device="cuda")}
+        t1 = time.perf_counter()
+        got, _ = compiled(params, held, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t1)
+        t1 = time.perf_counter()
+        ref, _ = eager(params, mirror, batch)
+        torch.cuda.synchronize()
+        eager_walls.append(time.perf_counter() - t1)
+        if not (torch.equal(got, ref) and bool(torch.isfinite(got).all())):
+            differ.append(t)
+    launches = launches_now()
+    peak = torch.cuda.max_memory_allocated()
+    cache_differ = [k for k in held if not torch.equal(held[k], mirror[k])]
+    want = dict.fromkeys(launches, 0) | {"flash_attention": cfg.num_layers}
+    if differ or cache_differ or launches != want \
+            or prefill_launches_ != want \
+            or not bool(torch.isfinite(last).all()):
+        raise AssertionError(f"{cfg.name}: replays differ from the eager "
+                             f"step at steps {differ}, cache {cache_differ}; "
+                             f"launches {launches} (prefill "
+                             f"{prefill_launches_}), not {want}")
+    bound = decode_bytes_bound(cfg, params, held, [SEQ])
+    del held, mirror, compiled
+    walls.sort()
+    eager_walls.sort()
+    fields = {
+        "route": "make_prefill_step, CompiledDecodeStep and "
+                 "make_decode_step on frontend stub embeddings",
+        "input": [1, SEQ, cfg.d_model], "decode_steps": ARCH_EMBED_STEPS,
+        "max_seq": ENGINE_MAX_SEQ, "peak_memory_allocated": peak,
+        "prefill_wall_s": prefill_wall,
+        "prefill_launches": prefill_launches_["flash_attention"],
+        "decode_step_p50_s": walls[len(walls) // 2],
+        "decode_step_max_s": walls[-1],
+        "eager_decode_step_p50_s": eager_walls[len(eager_walls) // 2],
+        "decode_bound_1_slot": bound, "replays_equal_eager_step": True}
+    return fields, launches, x[:, :SEQ]
+
+
+def phase_slice_arches(torch, seed: int) -> dict:
+    """Every LM architecture no earlier phase serves, at full width with
+    weights drawn on the card from ``seed``, one after another
+    (``ARCH_MODELS``): qwen3-14b (qk-norm), phi3-medium-14b,
+    mistral-nemo-12b, arctic-480b (128 experts top-2 beside a dense
+    residual MLP; 2 layers, the one config no card holds whole), and the
+    vlm and audio backbones, pixtral-12b and musicgen-medium, on their
+    frontend stubs' embeddings. Each first at 2 fp32 layers (1 for
+    arctic: ``arch_fp32_checks``), then at the depth it is served in bf16:
+    the token configs through ``ServingEngine`` (``arch_serve_tokens``),
+    the embeddings configs through the prefill and decode steps
+    (``arch_steps_embeddings``); then one 1 x 512 prefill's time and
+    kernel calls (``arch_prefill``). One ``slice_arches`` line a config;
+    returns each config's main-path launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tf
+    by_path = {}
+    for model, layers in ARCH_MODELS:
+        free_before = torch.cuda.mem_get_info()[0]
+        fp32 = arch_fp32_checks(torch, seed, model)
+        cfg = get_config(model)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+        t0 = time.perf_counter()
+        params = tf.init_params(cfg, seed)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        if cfg.input_kind == "tokens":
+            fields, launches, inputs = arch_serve_tokens(torch, cfg, params,
+                                                         seed)
+        else:
+            fields, launches, inputs = arch_steps_embeddings(torch, cfg,
+                                                             params, seed)
+        fields.update(arch_prefill(torch, cfg, params, inputs))
+        emit("slice_arches", model=model, family=cfg.family,
+             input_kind=cfg.input_kind, layers=cfg.num_layers,
+             config_layers=get_config(model).num_layers, dtype=cfg.dtype,
+             attention_shape=[1, SEQ, cfg.num_heads, cfg.num_kv_heads,
+                              cfg.head_dim],
+             weight_bytes=sum(v.numel() * v.element_size()
+                              for v in params.values()),
+             free_bytes_before=free_before, init_s=init_s,
+             fp32=fp32, launches=launches, **fields)
+        by_path[f"slice_arches-{model}"] = launches
+        del params, inputs
+        gc.collect()
+        torch.cuda.empty_cache()
+    return by_path
+
+
 GPU_TESTS = {"graphs_gpu_tests": "tests/test_torch_graphs_gpu.py",
              "engine_gpu_tests": "tests/test_torch_engine_gpu.py",
              "paged_gpu_tests": "tests/test_torch_paged_gpu.py",
@@ -5313,7 +5750,10 @@ DRYRUN_CELLS = (("qwen2-1.5b", "train_4k", False, "extrapolate"),
                 ("qwen2-1.5b", "decode_32k", False, "extrapolate"),
                 ("moonshot-v1-16b-a3b", "train_4k", True, "extrapolate"),
                 ("hymba-1.5b", "long_500k", False, "extrapolate"),
-                ("qwen2-1.5b", "train_4k", False, "full"))
+                ("qwen2-1.5b", "train_4k", False, "full"),
+                ("pixtral-12b", "prefill_32k", False, "extrapolate"),
+                ("musicgen-medium", "decode_32k", False, "extrapolate"),
+                ("rwkv6-1.6b", "train_4k", False, "extrapolate"))
 DRYRUN_TIMEOUT = 600
 
 
@@ -5674,13 +6114,19 @@ def phase_roofline_check(torch, seed: int) -> dict:
     return {"roofline-check": launched}
 
 
-def phases_distribution(torch, seed: int) -> dict:
-    """The distribution and dry-run phases: the dry run's cells start in
-    their own processes first and are read last; the card's phases run
-    between, on a NCCL group of one rank that ends with them."""
+def stop_all(procs) -> None:
+    """Kill every process of ``procs`` and reap it."""
+    for proc in procs:
+        proc.kill()
+        proc.communicate()
+
+
+def phases_distribution(torch, seed: int, procs: dict,
+                        t_start: float) -> dict:
+    """The distribution and dry-run phases: the card's phases run on a
+    NCCL group of one rank that ends with them, then the dry run's cells
+    (``procs``, started at ``t_start`` by ``start_dryrun``) are read."""
     import torch.distributed as dist
-    t_start = time.perf_counter()
-    procs = start_dryrun()
     by_path: dict = {}
     try:
         dist.init_process_group(
@@ -5694,9 +6140,7 @@ def phases_distribution(torch, seed: int) -> dict:
             dist.destroy_process_group()
         by_path.update(phase_roofline_check(torch, seed))
     except BaseException:
-        for proc in procs.values():
-            proc.kill()
-            proc.communicate()
+        stop_all(procs.values())
         raise
     phase_dryrun(procs, t_start)
     return by_path
@@ -5905,18 +6349,26 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # training: one full-width fp32 step against the CPU, then qwen2-1.5B
-    # trained through the entry point, restarted from its step-20
-    # checkpoint, and served from its step-30 checkpoint
-    phase_train_two_layer_fp32(torch, args.seed)
-    trained: dict = {}
-    by_path.update(phase_slice_train(torch, args.seed, trained))
-    by_path.update(phase_serve_trained(torch, args.seed, trained))
-
-    # distribution and the dry run: compressed all-reduce, the pipeline,
-    # the data-parallel step, the LM service on DTensors, the dry run's
-    # cells and the roofline's FLOP count on the card
-    by_path.update(phases_distribution(torch, args.seed))
+    # the dry run's cells start in CPU-only processes beside the card's
+    # last phases and are read last. Training: one full-width fp32 step
+    # against the CPU, then qwen2-1.5B trained through the entry point,
+    # restarted from its step-20 checkpoint, and served from its step-30
+    # checkpoint; every LM architecture no phase above serves, at full
+    # width; then distribution (compressed all-reduce, the pipeline, the
+    # data-parallel step, the LM service on DTensors, the roofline's FLOP
+    # count on the card)
+    t_dry = time.perf_counter()
+    dry = start_dryrun()
+    try:
+        phase_train_two_layer_fp32(torch, args.seed)
+        trained: dict = {}
+        by_path.update(phase_slice_train(torch, args.seed, trained))
+        by_path.update(phase_serve_trained(torch, args.seed, trained))
+        by_path.update(phase_slice_arches(torch, args.seed))
+    except BaseException:
+        stop_all(dry.values())
+        raise
+    by_path.update(phases_distribution(torch, args.seed, dry, t_dry))
 
     # the card-only tests of the fused and batched graphs and of the
     # engine's compiled steps

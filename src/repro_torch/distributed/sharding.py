@@ -391,6 +391,20 @@ def sharded_dims(x) -> set:
     return {p.dim for p in x.placements if p.is_shard()}
 
 
+def low_rank_operands(a, w):
+    """The operands of a low-rank up-projection ``a @ w`` (a's last dim a
+    rank of 64 or less, w's last dim split along "fsdp"), as they are,
+    but where DTensor splits w's last dim over two mesh dims (the 512-rank
+    mesh's ("pod", "data")): then both made whole along their last dims
+    (both small), since with a's rank split over "model" the product's
+    backward asks for strided splits that DTensor cannot redistribute
+    into. Plain tensors as they are."""
+    if not is_dtensor(w) or sum(p.is_shard() and p.dim == w.ndim - 1
+                                for p in w.placements) < 2:
+        return a, w
+    return replicate_dims(a, (a.ndim - 1,)), replicate_dims(w, (w.ndim - 1,))
+
+
 def replicate_dims(x, dims):
     """A DTensor made whole along ``dims`` (each mesh dim that split one
     of them replicates); a plain tensor as it is."""
@@ -400,6 +414,28 @@ def replicate_dims(x, dims):
     placements = tuple(Replicate() if p.is_shard() and p.dim in dims else p
                        for p in x.placements)
     return redistribute(x, x.device_mesh, placements)
+
+
+def grad_placed_as(x):
+    """``x`` itself, whose gradient, on a DTensor, comes back placed as
+    ``x`` is (a plain tensor as it is). torch 2.11's DTensor (the card's)
+    cannot fold a split dim that is not a product's first batch dim: an
+    output computed whole along some dim may get back a gradient split
+    along it, which its product's backward would have to fold."""
+    if not is_dtensor(x):
+        return x
+    return redistribute(x, x.device_mesh, x.placements)
+
+
+def cumsum(x, dim: int):
+    """``torch.cumsum(x, dim)``; on a DTensor its gradient, the reverse
+    cumsum of g, is taken as ``sum(g) - cumsum(g) + g``: autograd's own
+    backward flips g, and torch 2.11's DTensor (the card's) has no rule
+    for ``aten.flip``."""
+    if not is_dtensor(x):
+        import torch
+        return torch.cumsum(x, dim)
+    return _autograd().Cumsum.apply(x, dim)
 
 
 def split_once(x):
@@ -488,6 +524,17 @@ def _autograd():
             g = g.redistribute(g.device_mesh, ctx.placements)
             return g.reshape(ctx.in_shape), None
 
+    class Cumsum(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, dim):
+            ctx.dim = dim
+            return torch.cumsum(x, dim)
+
+        @staticmethod
+        def backward(ctx, g):
+            return (g.sum(ctx.dim, keepdim=True) - torch.cumsum(g, ctx.dim)
+                    + g), None
+
     _FNS.append(types.SimpleNamespace(Redistribute=Redistribute,
-                                      Reshape=Reshape))
+                                      Reshape=Reshape, Cumsum=Cumsum))
     return _FNS[0]

@@ -92,13 +92,10 @@ def _trace_once(cfg, shape, mesh, rules, run: bool = True):
     return rec, mem, time.time() - t0
 
 
-def _skip_reason(cfg, shape_name: str, shape):
+def _skip_reason(cfg, shape_name: str):
     from repro_torch.configs import applicable_shapes
     if shape_name not in applicable_shapes(cfg):
         return "long_500k reserved for sub-quadratic archs"
-    if shape.kind != "train" and cfg.input_kind != "tokens":
-        return ("the port's prefill and decode steps take tokens only "
-                f"(not {cfg.input_kind})")
     return None
 
 
@@ -140,7 +137,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool = False,
     if num_layers is not None:
         cfg = dataclasses.replace(cfg, num_layers=num_layers)
     shape = SHAPES[shape_name]
-    reason = _skip_reason(cfg, shape_name, shape)
+    reason = _skip_reason(cfg, shape_name)
     if reason is not None:
         rec = {"arch": arch, "shape": shape_name, "mesh": mesh_tag,
                "skipped": True, "reason": reason}

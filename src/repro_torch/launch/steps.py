@@ -28,7 +28,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.executor import CapturedGraph
-from repro_torch.dtypes import as_tensor
+from repro_torch.dtypes import as_tensor, torch_dtype
 from repro_torch.models import transformer as tf
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.models.common import (AUTOGRAD, ParamSpec, shape_structs,
@@ -167,7 +167,7 @@ def make_train_step(cfg: ModelConfig, opt: AdamWConfig = AdamWConfig(),
 def make_prefill_step(cfg: ModelConfig):
     """``prefill_step(params, {"inputs": (B,S)}) -> (last-position logits
     (B,V), cache)``, the cache stacked by layer with ``tf.cache_specs``'
-    keys."""
+    keys; a vlm or audio config's inputs are (B,S,d) embeddings."""
     def prefill_step(params, batch):
         logits, cache, _ = tf.forward_full(cfg, params, batch["inputs"],
                                            want_cache=True)
@@ -177,7 +177,8 @@ def make_prefill_step(cfg: ModelConfig):
 
 def make_decode_step(cfg: ModelConfig):
     """``decode_step(params, cache, {"inputs": (B,1), "pos": (B,)}) ->
-    (logits (B,V), cache)``, the cache updated in place."""
+    (logits (B,V), cache)``, the cache updated in place; a vlm or audio
+    config's inputs are (B,1,d) embeddings."""
     def decode_step(params, cache, batch):
         logits, cache = tf.forward_decode(cfg, params, batch["inputs"],
                                           batch["pos"], cache)
@@ -190,9 +191,10 @@ class CompiledDecodeStep:
     ``cache`` (KV rows and recurrent states): the counterpart of the JAX
     package's ``jax.jit(make_decode_step(cfg), donate_argnums=(1,))``.
 
-    Tokens (B, 1) and positions (B,) enter through static int32 buffers on
-    the cache's device. On CUDA the step is captured once, here, as one
-    ``CapturedGraph`` that reads the weights and writes every cache tensor
+    Tokens (B, 1) and positions (B,) enter through static int32 buffers on the
+    cache's device (a vlm or audio config's (B, 1, d) embeddings through a
+    buffer in the config's dtype). On CUDA the step is captured once, here, as
+    one ``CapturedGraph`` that reads the weights and writes every cache tensor
     in place: the cache's addresses are baked in, so its owner allocates it
     once and never rebinds it (what donating it buys the JAX package). The
     warm-up run before the capture decodes token 0 at position 0 in every
@@ -204,17 +206,20 @@ class CompiledDecodeStep:
 
     It is called as the eager step is, ``step(params, cache, batch) ->
     (logits (B, V), cache)``, with the very ``params`` and ``cache`` it was
-    compiled for and ``batch`` values as int32 tensors; the logits are a
-    copy that the next call does not overwrite."""
+    compiled for and ``batch`` values as tensors of the buffers' dtypes;
+    the logits are a copy that the next call does not overwrite."""
 
     def __init__(self, cfg: ModelConfig, params: dict, cache: dict,
                  max_batch: int):
         dev = next(iter(cache.values())).device
         self.params, self.cache = params, cache
         self.step = make_decode_step(cfg)
+        inputs = torch.zeros((max_batch, 1), dtype=torch.int32, device=dev) \
+            if cfg.input_kind == "tokens" else \
+            torch.zeros((max_batch, 1, cfg.d_model),
+                        dtype=torch_dtype(cfg.dtype), device=dev)
         self.inputs = {
-            "inputs": torch.zeros((max_batch, 1), dtype=torch.int32,
-                                  device=dev),
+            "inputs": inputs,
             "pos": torch.zeros((max_batch,), dtype=torch.int32, device=dev)}
         self.graph = None
         if dev.type == "cuda":
@@ -242,7 +247,8 @@ def make_paged_prefill_step(cfg: ModelConfig):
     forward as ``make_prefill_step`` (the same last-token logits, hence the
     same first sampled token), then one in-place write through the batch's
     block tables. ``paged_prefill_step(params, pool_k, pool_v, {"inputs":
-    (B,S), "tables": (B,W)}) -> (last_logits (B,V), pool_k, pool_v)``."""
+    (B,S), "tables": (B,W)}) -> (last_logits (B,V), pool_k, pool_v)``; a
+    vlm or audio config's inputs are (B,S,d) embeddings."""
     def paged_prefill_step(params, pool_k, pool_v, batch):
         logits, cache, _ = tf.forward_full(cfg, params, batch["inputs"],
                                            want_cache=True)
@@ -263,7 +269,16 @@ def make_paged_decode_step(cfg: ModelConfig, window: int = 1,
     token (written at ``pos``), ``tables`` has lanes >= B rows (the rows
     past B null, ``tf.forward_decode_paged``) and row b of the output is
     lane b's ``window`` new tokens; sampling that is not greedy draws from
-    ``generator``."""
+    ``generator``. The window feeds its sampled tokens back as the next
+    inputs, so a vlm or audio config, whose inputs are embeddings, raises
+    (the JAX package's step fails on one too; the single steps,
+    ``tf.forward_decode_paged`` and ``make_paged_prefill_step``, take
+    embeddings)."""
+    if cfg.input_kind != "tokens":
+        raise NotImplementedError(
+            "the paged decode window feeds sampled tokens back: it takes "
+            f"token prompts, not {cfg.input_kind!r} input")
+
     def paged_decode_step(params, pool_k, pool_v, batch):
         tok, pos, tables = batch["tokens"], batch["pos"], batch["tables"]
         out = []

@@ -115,7 +115,9 @@ def draw_param(s: ParamSpec, gen: torch.Generator,
     ``SLICE_DRAW_BYTES`` (the experts of moonshot-v1-16b-a3b: 35.4 GB a
     spec), the spec is drawn slice by slice along its leading (layers)
     axis into a tensor of its own dtype, so the fp32 copy never exceeds
-    one slice. Every smaller spec is drawn whole, as before."""
+    one slice; a slice that still passes it (one layer of arctic-480b's
+    experts: 17.8 GB) is drawn along its next axis the same way. Every
+    smaller spec is drawn whole, as before."""
     dt = torch_dtype(s.dtype)
     if s.init == "zeros":
         return torch.zeros(s.shape, dtype=dt, device=dev)
@@ -124,9 +126,18 @@ def draw_param(s: ParamSpec, gen: torch.Generator,
     if len(s.shape) < 2 or math.prod(s.shape) * 4 <= SLICE_DRAW_BYTES:
         return _draw(s, s.shape, gen, dev).to(dt)
     out = torch.empty(s.shape, dtype=dt, device=dev)
-    for i in range(s.shape[0]):
-        out[i] = _draw(s, s.shape[1:], gen, dev)
+    for idx in _slices(s.shape):
+        out[idx] = _draw(s, s.shape[len(idx):], gen, dev)
     return out
+
+
+def _slices(shape: tuple):
+    """The leading indices that cut ``shape`` into slices whose fp32 bytes
+    are within ``SLICE_DRAW_BYTES``, in order: (i,) along the first axis,
+    or (i, j, ...) where a slice along it is still larger."""
+    if math.prod(shape[1:]) * 4 <= SLICE_DRAW_BYTES or len(shape) < 3:
+        return [(i,) for i in range(shape[0])]
+    return [(i, *rest) for i in range(shape[0]) for rest in _slices(shape[1:])]
 
 
 def _draw(s: ParamSpec, shape: tuple, gen: torch.Generator,

@@ -16,7 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.sharding import matmul, shard
+from repro_torch.distributed.sharding import low_rank_operands, matmul, shard
 from repro_torch.models.common import AUTOGRAD, ParamSpec
 
 DT_RANK = 32
@@ -55,7 +55,8 @@ def _ssm_inputs(cfg: ModelConfig, p: dict, x: torch.Tensor):
     u, z = torch.chunk(uz, 2, dim=-1)
     proj = torch.matmul(u, p["m_x"]).float()
     dtr, B_, C_ = torch.split(proj, [DT_RANK, N, N], dim=-1)
-    dt = F.softplus(torch.matmul(dtr, p["m_dt"].float()) + p["m_dt_b"])
+    dtr, w_dt = low_rank_operands(dtr, p["m_dt"])
+    dt = F.softplus(torch.matmul(dtr, w_dt.float()) + p["m_dt_b"])
     return u, z, dt, B_, C_
 
 

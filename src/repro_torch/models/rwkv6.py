@@ -19,7 +19,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.sharding import matmul, replicate_dims, shard
+from repro_torch.distributed.sharding import (cumsum, grad_placed_as,
+                                              low_rank_operands, matmul,
+                                              replicate_dims, shard)
 from repro_torch.models.common import AUTOGRAD, ParamSpec, group_norm
 
 LORA_DIM = 64
@@ -80,7 +82,8 @@ def _decay(p: dict, xw: torch.Tensor) -> torch.Tensor:
     """Data-dependent decay log-weights lw = -exp(w0 + lora(x)) (<= 0); the
     LoRA runs in fp32 and is clipped to [-12, 3]."""
     lora = torch.tanh(torch.matmul(xw.float(), p["tm_wa"].float()))
-    w_raw = p["tm_w0"].float() + torch.matmul(lora, p["tm_wb"].float())
+    lora, wb = low_rank_operands(lora, p["tm_wb"])
+    w_raw = p["tm_w0"].float() + torch.matmul(lora, wb.float())
     return -torch.exp(torch.clamp(w_raw, -12.0, 3.0))
 
 
@@ -143,7 +146,7 @@ def wkv_chunked(r, k, v, lw, u, s0, chunk: int = 16):
     S, ys = s0, []
     for c0 in range(0, Tp, C):
         r_, k_, v_, lw_ = (a[:, c0:c0 + C] for a in (r, k, v, lw))
-        p = torch.cumsum(lw_, dim=1)                        # inclusive
+        p = cumsum(lw_, 1)                                  # inclusive
         pprev = p - lw_                                     # exclusive
         diff = pprev[:, :, None] - p[:, None, :]            # (B,Ct,Cj,H,K)
         e = torch.exp(diff.masked_fill(~earlier, float("-inf")))
@@ -156,7 +159,10 @@ def wkv_chunked(r, k, v, lw, u, s0, chunk: int = 16):
         S = torch.exp(p[:, -1])[..., None] * S + torch.einsum(
             "bthi,btho->bhio", kd, v_)
         ys.append(y)
-    return torch.cat(ys, 1)[:, :T], S
+    # y, whole along heads, takes its gradient back whole along heads:
+    # each chunk's einsums fold (b, h) in their backward
+    y = replicate_dims(torch.cat(ys, 1)[:, :T], (2,))
+    return grad_placed_as(y), S
 
 
 def _whole_heads(r, k, v, lw, u, s0):

@@ -17,10 +17,12 @@ recurrent states included; an expert layer routes it as a group of one
 token, which drops nothing), and for the paged engine (full attention
 only) ``forward_decode_paged`` (one token against a KV block pool through
 block tables, written in place) and ``scatter_prefill_cache`` (a dense
-prefill cache into the pool). The reference scans its layers with
-``lax.scan``; here they run in a Python loop, which computes the same
-thing; what the layers share (RoPE's table, decode's per-step invariants)
-is built once a pass, before it. Every spec carries the reference's
+prefill cache into the pool). Every forward pass takes tokens or, for a vlm or
+audio config, the frontend stub's embeddings, as the reference's do; only the
+serving engines refuse embeddings. The reference scans its layers with
+``lax.scan``; here they run in a Python loop, which computes the same thing;
+what the layers share (RoPE's table, decode's per-step invariants) is built
+once a pass, before it. Every spec carries the reference's
 logical sharding axes; inside an ``axis_rules`` binding the parameters
 are DTensors, the activations are placed at the reference's ``shard``
 sites and the residual stream after each sublayer (``_residual``).
@@ -49,8 +51,7 @@ from repro_torch.distributed.sharding import (carry_binding, is_dtensor,
                                               split_once)
 from repro_torch.dtypes import as_tensor, torch_dtype
 from repro_torch.models import attention as attn
-from repro_torch.models.common import (AUTOGRAD, ParamSpec, draw_param,
-                                       rms_norm)
+from repro_torch.models.common import ParamSpec, draw_param, rms_norm
 from repro_torch.models import mamba
 from repro_torch.models import rwkv6 as rwkv
 from repro_torch.models.mlp import mlp_specs, moe_ffn, moe_specs, swiglu
@@ -60,18 +61,13 @@ AUX_LOSS_WEIGHT = 0.01
 REMAT_POLICIES = ("full", "dots")
 
 
-def check_ported(cfg: ModelConfig, engine: bool = False) -> None:
-    """Refuse what the port lacks: families other than ``PORTED_FAMILIES``
-    everywhere; with ``engine`` (the forward passes of the serving engine),
-    also inputs other than tokens."""
+def check_ported(cfg: ModelConfig) -> None:
+    """Refuse what the port lacks: families other than
+    ``PORTED_FAMILIES``."""
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported to PyTorch yet "
             f"({', '.join(PORTED_FAMILIES)} only)")
-    if engine and cfg.input_kind != "tokens":
-        raise NotImplementedError(
-            f"the serving engine's forward passes take tokens only, not "
-            f"{cfg.input_kind!r} input")
 
 
 def model_specs(cfg: ModelConfig) -> dict:
@@ -172,8 +168,9 @@ def split_params(params: dict):
 
 def embed_inputs(cfg: ModelConfig, glob: dict, tokens) -> torch.Tensor:
     """tokens (B,S) -> hidden (B,S,d) on the embedding's device; a vlm or
-    audio config's (B,S,d) embeddings (the frontend stub's output) are
-    cast to the config's dtype on the final norm's device."""
+    audio config's (B,S,d) embeddings (the frontend stub's output; (B,1,d)
+    at decode) are cast to the config's dtype on the final norm's
+    device."""
     if cfg.input_kind != "tokens":
         dev = glob["final_norm"].device
         x = as_tensor(tokens, dev).to(torch_dtype(cfg.dtype))
@@ -196,7 +193,7 @@ def cache_specs(cfg: ModelConfig, batch: int, seq_len: int) -> dict:
     """Decode-state specs per family: the KV cache (a ring for a sliding
     window), plus the SSM state in the hybrid family; the WKV state and
     token-shift rows in the ssm family."""
-    check_ported(cfg, engine=True)
+    check_ported(cfg)
     if cfg.family == "ssm":
         return rwkv.state_specs(cfg, batch)
     c = attn.cache_specs(cfg, batch, seq_len)
@@ -249,6 +246,10 @@ def block_full(cfg: ModelConfig, p: dict, x, positions, want_cache: bool,
         h0 = torch.zeros((B, cfg.d_model, cfg.ssm_state),
                          dtype=torch.float32, device=x.device)
         ym, h1 = mamba.mamba_mix(cfg, p, h, h0, impl)
+        if is_dtensor(ya) and ya.placements != ym.placements:
+            # over the 512-rank mesh DTensor leaves the two branches'
+            # partial sums on different mesh dims, which it cannot add
+            ya, ym = _residual(ya), _residual(ym)
         x = _residual(x + 0.5 * (ya + ym))
         if want_cache:
             cache["ssm"] = h1
@@ -384,11 +385,10 @@ def forward_full(cfg: ModelConfig, params: dict, inputs,
                  want_cache: bool = False, impl=None, remat: bool = False,
                  remat_policy: str = "full"):
     """Prefill or training forward from zero recurrent states. inputs:
-    (B,S) int tokens (the engine's input: a vlm or audio config's
-    embeddings run through ``rctc.compile_transformer_block``'s program);
-    on the training route (``impl="autograd"``) also a vlm or audio
-    config's (B,S,d) embeddings, with ``remat`` and ``remat_policy``
-    (``"full"`` or ``"dots"``) as ``run_blocks_full`` takes them. Returns
+    (B,S) int tokens, or a vlm or audio config's (B,S,d) embeddings (the
+    frontend stub's output), on every route; on the training route
+    (``impl="autograd"``) with ``remat`` and ``remat_policy`` (``"full"``
+    or ``"dots"``) as ``run_blocks_full`` takes them. Returns
     (logits (B,S,V), cache, aux), the cache stacked by layer
     (``cache_specs``' keys; K/V (L,B,S',Hkv,D) with S' = min(S, W) in a
     sliding window) when ``want_cache``, aux the MoE load-balance loss
@@ -396,7 +396,7 @@ def forward_full(cfg: ModelConfig, params: dict, inputs,
     ``impl="ref"`` runs every kernel (attention, ``ssm_scan``, ``wkv6``) on
     its plain version: a check of the kernels inside the model, which the
     engine never asks for."""
-    check_ported(cfg, engine=impl != AUTOGRAD)
+    check_ported(cfg)
     glob, blocks = split_params(params)
     x = embed_inputs(cfg, glob, inputs)
     B, S = x.shape[:2]
@@ -408,10 +408,11 @@ def forward_full(cfg: ModelConfig, params: dict, inputs,
 
 
 def forward_decode(cfg: ModelConfig, params: dict, inputs, pos, cache: dict):
-    """One-token decode. inputs (B,1) tokens; pos (B,) int32, each lane's
-    position (below the KV cache's rows, unless it is a sliding window's
-    ring). Returns (logits (B,1,V), cache), the cache updated in place."""
-    check_ported(cfg, engine=True)
+    """One-token decode. inputs (B,1) tokens or (B,1,d) embeddings; pos
+    (B,) int32, each lane's position (below the KV cache's rows, unless it
+    is a sliding window's ring). Returns (logits (B,1,V), cache), the cache
+    updated in place."""
+    check_ported(cfg)
     glob, blocks = split_params(params)
     x = embed_inputs(cfg, glob, inputs)
     x, cache = run_blocks_decode(cfg, blocks, x, pos, cache)
@@ -447,8 +448,9 @@ def forward_decode_paged(cfg: ModelConfig, params: dict, inputs, pos,
                          pool_k, pool_v, tables):
     """One-token decode addressing a paged KV pool through block tables.
 
-    inputs (B,1) tokens; pos (B,) int32; pool_k/v (L, num_blocks+1,
-    block_size, Hkv, D), each layer's slice written in place; tables
+    inputs (B,1) tokens or (B,1,d) embeddings; pos (B,) int32; pool_k/v
+    (L, num_blocks+1, block_size, Hkv, D), each layer's slice written in
+    place; tables
     (lanes, W) int32, lanes >= B, the rows past B null lanes. Those lanes
     join the step as pad lanes (a zero hidden state at position 0, their
     K/V written to the null block), so that every op of every layer runs
@@ -460,7 +462,7 @@ def forward_decode_paged(cfg: ModelConfig, params: dict, inputs, pos,
     (the write index, mask, gather indices and RoPE) is built once, before
     the layers. Returns (logits (B,1,V), pool_k, pool_v)."""
     _check_paged_family(cfg)
-    check_ported(cfg, engine=True)
+    check_ported(cfg)
     glob, blocks = split_params(params)
     x = embed_inputs(cfg, glob, inputs)
     B, lanes = x.shape[0], tables.shape[0]

@@ -224,7 +224,8 @@ class ServingEngine(EngineBase):
     against a dense (L, B, max_seq, Hkv, D) cache on the device (a ring of
     min(max_seq, W) rows for a sliding window) — every slot holds
     worst-case sequence memory — plus each lane's recurrent states in the
-    hybrid and ssm families.
+    hybrid and ssm families. It takes token prompts only, as the JAX
+    package's engines do: a vlm or audio config raises.
 
     The cache is allocated once and never rebound: the compiled decode step
     (one CUDA graph on the card, captured here while every slot is free)
@@ -234,6 +235,8 @@ class ServingEngine(EngineBase):
                  max_seq: int = 256, greedy: bool = True, scheduler=None,
                  temperature: float = 1.0, seed: int = 0, device="cuda",
                  mesh: Optional[TileMesh] = None):
+        if cfg.input_kind != "tokens":
+            raise NotImplementedError("dense serving takes token prompts")
         super().__init__(cfg, params, max_batch, max_seq, greedy, scheduler,
                          temperature, seed, device, mesh)
         self._prefill = make_prefill_step(cfg)

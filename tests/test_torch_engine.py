@@ -29,6 +29,7 @@ from repro_torch.launch.steps import sample_tokens
 from repro_torch.models import attention as attn
 from repro_torch.models import transformer as tf
 from repro_torch.serving import engine
+from repro_torch.serving.paged_engine import PagedServingEngine
 from repro_torch.serving.scheduler import DeadlineScheduler
 from repro_torch.serving.server import Client, InferenceServer, ServerBusy
 
@@ -147,19 +148,32 @@ def test_forward_decode_after_prefill_matches_jax(rng):
 
 
 def test_engine_path_refuses_the_families_it_lacks():
-    """What the engine path still lacks raises: input that is not tokens
-    (the vlm and audio frontends) and a family the port does not have.
-    Experts are served (``tests/test_torch_moe.py``)."""
+    """What the engine path still lacks raises: a family the port does not
+    have, and in the serving engines input that is not tokens (the vlm and
+    audio frontends), as the JAX package's engines refuse it; under them
+    ``cache_specs`` and ``forward_full`` compute on embeddings. Experts are
+    served (``tests/test_torch_moe.py``)."""
     base = get_config(CFG)
     assert set(tf.cache_specs(dataclasses.replace(base, num_experts=4,
                                                   family="moe"), 1, 8)) \
         == {"k", "v"}
-    for cfg in (dataclasses.replace(base, family="encoder"),
-                dataclasses.replace(base, input_kind="embeddings")):
-        with pytest.raises(NotImplementedError, match="not ported|tokens"):
-            tf.cache_specs(cfg, 1, 8)
-        with pytest.raises(NotImplementedError, match="not ported|tokens"):
-            tf.forward_full(cfg, {}, np.zeros((1, 4), np.int32))
+    encoder = dataclasses.replace(base, family="encoder")
+    with pytest.raises(NotImplementedError, match="not ported"):
+        tf.cache_specs(encoder, 1, 8)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        tf.forward_full(encoder, {}, np.zeros((1, 4), np.int32))
+    emb = dataclasses.replace(base, input_kind="embeddings",
+                              tie_embeddings=False)
+    assert set(tf.cache_specs(emb, 1, 8)) == {"k", "v"}
+    params = tf.init_params(emb, 0, device="cpu")
+    x = np.random.RandomState(0).randn(1, 4, emb.d_model).astype(np.float32)
+    logits, cache, _ = tf.forward_full(emb, params, x, want_cache=True)
+    assert tuple(logits.shape) == (1, 4, emb.vocab_size)
+    assert bool(torch.isfinite(logits).all())
+    assert tuple(cache["k"].shape[:3]) == (emb.num_layers, 1, 4)
+    for engine_cls in (engine.ServingEngine, PagedServingEngine):
+        with pytest.raises(NotImplementedError, match="token prompts"):
+            engine_cls(emb, params, max_batch=1, max_seq=16, device="cpu")
 
 
 @pytest.mark.parametrize("S", [4, 7])

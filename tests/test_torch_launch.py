@@ -173,6 +173,39 @@ def test_run_cell_modes_agree_on_a_small_mesh(num_layers, tmp_path):
             "qwen2-1.5b-smoke__train_4k__full.json").exists()
 
 
+@pytest.mark.parametrize("arch", ["pixtral-12b-smoke",
+                                  "musicgen-medium-smoke"])
+def test_embeddings_cells_are_priced_like_their_tokens_twin(arch, tmp_path):
+    """A vlm or audio config's prefill and decode cells on a fake 2 x 4
+    mesh: each record is priced (not skipped) on its (B, S, d) and (B, 1,
+    d) embeddings, and its FLOPs a device equal those of the same config
+    on tokens (the lookup is a gather: no arithmetic), its bytes fewer
+    (no index and table rows to read)."""
+    out = _run(f"""
+    import dataclasses, json
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch.mesh import make_test_mesh
+    mesh = make_test_mesh((2, 4))
+    recs = []
+    for shape in ("prefill_32k", "decode_32k"):
+        rec = dryrun.run_cell({arch!r}, shape, mesh=mesh,
+                              results={str(tmp_path)!r}, num_layers=2)
+        twin = dataclasses.replace(get_config({arch!r}), num_layers=2,
+                                   input_kind="tokens")
+        rules = dryrun._RULES_BY_KIND[SHAPES[shape].kind]
+        cost, _, _ = dryrun._trace_once(twin, SHAPES[shape], mesh, rules)
+        recs.append([rec, cost["flops"], cost["bytes"]])
+    print(json.dumps(recs))
+    """, timeout=180)
+    for (rec, twin_flops, twin_bytes), kind in zip(json.loads(out[-1]),
+                                                   ("prefill", "decode")):
+        assert "skipped" not in rec
+        assert rec["kind"] == kind and rec["devices"] == 8
+        assert rec["flops_per_device"] == twin_flops > 0
+        # the twin's lookup reads its index and the table's rows
+        assert 0 < rec["bytes_per_device"] < twin_bytes
+
+
 def _write(root, mesh, name, rec):
     d = root / "dryrun" / mesh
     d.mkdir(parents=True, exist_ok=True)

@@ -434,6 +434,25 @@ def test_a_spec_past_the_threshold_is_drawn_slice_by_slice(init,
         assert abs(sliced.float().std() / ref.std() - 1) < 0.2
 
 
+def test_a_slice_past_the_threshold_is_drawn_along_its_next_axis(
+        monkeypatch):
+    """A spec whose one-layer slice still passes the threshold (arctic's
+    experts at full width) is drawn (layer, expert) by (layer, expert),
+    into its own dtype, with the whole spec's fan-in."""
+    arctic = tf.model_specs(get_config("arctic-480b"))
+    assert common._slices(arctic["we_up"].shape)[:2] == [(0, 0), (0, 1)]
+    assert len(common._slices(arctic["we_up"].shape)) == 35 * 128
+    spec = common.ParamSpec((2, 3, 4, 5), "bfloat16", "normal", 0.5)
+    monkeypatch.setattr(common, "SLICE_DRAW_BYTES", 4 * 4 * 5)
+    gen = torch.Generator().manual_seed(12)
+    sliced = common.draw_param(spec, gen, torch.device("cpu"))
+    gen = torch.Generator().manual_seed(12)
+    want = torch.stack([torch.stack([
+        common._draw(spec, spec.shape[2:], gen, torch.device("cpu"))
+        for _ in range(3)]) for _ in range(2)]).to(torch.bfloat16)
+    assert sliced.dtype == torch.bfloat16 and torch.equal(sliced, want)
+
+
 def test_moonshot_experts_pass_the_threshold_and_qwen2_does_not():
     moon = tf.model_specs(get_config("moonshot-v1-16b-a3b"))
     big = sorted(k for k, s in moon.items()

@@ -159,6 +159,25 @@ def test_shard_noop_outside_context():
         assert shard(x, "batch", None) is x
 
 
+def test_cumsum_backward_is_the_reverse_cumsum():
+    """The DTensor route's cumsum (``sharding.cumsum``: its backward a
+    total less a cumsum, no flip) gives autograd's own gradient; on a
+    plain tensor the helper is ``torch.cumsum`` itself."""
+    from repro_torch.distributed import sharding
+    x = torch.randn((3, 16, 5), dtype=torch.float64, requires_grad=True)
+    g = torch.randn((3, 16, 5), dtype=torch.float64)
+    want = torch.autograd.grad(torch.cumsum(x, 1), x, g)[0]
+    y = sharding._autograd().Cumsum.apply(x, 1)
+    assert torch.equal(y, torch.cumsum(x, 1))
+    torch.testing.assert_close(torch.autograd.grad(y, x, g)[0], want,
+                               rtol=1e-12, atol=1e-12)
+    assert torch.equal(sharding.cumsum(x, 1), torch.cumsum(x, 1))
+    w = torch.ones((4, 6))
+    a, b = sharding.low_rank_operands(x, w)
+    assert a is x and b is w
+    assert sharding.grad_placed_as(x) is x
+
+
 def _in_thread(fn):
     out = []
     t = threading.Thread(target=lambda: out.append(fn()))

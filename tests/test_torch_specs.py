@@ -19,7 +19,6 @@ from repro_torch.distributed.sharding import (AbstractMesh, axis_rules,
                                               to_placements)
 from repro_torch.dtypes import torch_dtype
 from repro_torch.launch.steps import input_specs
-from repro_torch.models import attention as attn
 from repro_torch.models import transformer as tf
 from repro_torch.models.common import (param_bytes, param_count,
                                        param_shardings, shape_structs,
@@ -55,13 +54,9 @@ def test_model_specs_axes_bytes_and_count(arch):
 
 @pytest.mark.parametrize("arch", ARCHES)
 def test_cache_specs_axes(arch):
-    """The decode state's specs at a batch of 4 and 64 rows. The port's
-    engine takes tokens only, so a vlm or audio config's KV cache is
-    attention's own ``cache_specs`` (its family has no other state)."""
+    """The decode state's specs at a batch of 4 and 64 rows."""
     cfg, ref = get_config(arch), jax_config(arch)
-    ours = tf.cache_specs(cfg, 4, 64) if cfg.input_kind == "tokens" \
-        else attn.cache_specs(cfg, 4, 64)
-    _same_specs(ours, jax_tf.cache_specs(ref, 4, 64))
+    _same_specs(tf.cache_specs(cfg, 4, 64), jax_tf.cache_specs(ref, 4, 64))
 
 
 @pytest.mark.parametrize("arch", ARCHES)

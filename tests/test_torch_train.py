@@ -25,6 +25,7 @@ from repro_torch.configs import get_config
 from repro_torch.data.pipeline import SyntheticLM
 from repro_torch.launch import steps
 from repro_torch.models import attention as attn
+from repro_torch.models.common import AUTOGRAD
 from repro_torch.models import transformer as tf
 from repro_torch.optim.adamw import adamw_init
 
@@ -116,8 +117,9 @@ def test_step_one_loss_and_grads_match_jax(name):
 
 def test_vlm_on_embeddings_matches_jax():
     """pixtral-12b-smoke trains on (B, S, d) embeddings, as the JAX
-    ``make_loss_fn`` takes them; the serving engine's forward keeps its
-    refusal of them."""
+    ``make_loss_fn`` takes them; the served route's forward takes them
+    too and gives the training route's logits (1e-5: two attention
+    routes)."""
     name = "pixtral-12b-smoke"
     jcfg, cfg = jax_get_config(name), get_config(name)
     assert cfg.input_kind == "embeddings"
@@ -126,8 +128,13 @@ def test_vlm_on_embeddings_matches_jax():
     loss, _, got = _port_grads(cfg, _port_params(name), batch)
     assert abs(loss - want_loss) <= LOSS_TOL * abs(want_loss)
     _check_grads(got, want)
-    with pytest.raises(NotImplementedError, match="tokens only"):
-        tf.forward_full(cfg, _port_params(name), batch["inputs"])
+    params = _port_params(name)
+    served = tf.forward_full(cfg, params, batch["inputs"])[0]
+    trained = tf.forward_full(cfg, params, batch["inputs"],
+                              impl=AUTOGRAD)[0]
+    np.testing.assert_allclose(served.detach().numpy(),
+                               trained.detach().numpy(), rtol=1e-5,
+                               atol=1e-5)
 
 
 @pytest.mark.parametrize("name", FAMILIES)
