@@ -9,7 +9,8 @@ provides:
     (completion, error, heartbeat, preemption) fan out to registered
     handlers from a single queue.
   * ``Telemetry``       — per-step latency ring buffer; mean / percentile /
-    CV (the paper's headline determinism metric).
+    CV (the paper's headline determinism metric); with ``tracing`` on, a
+    ring of spans on one clock, mirrored into ``torch.profiler``.
   * ``HeartbeatMonitor``— worker liveness with an injectable clock; a
     deadline policy yields failure + straggler verdicts (the 1000-node
     fault-tolerance hook; tests drive it with a fake clock).
@@ -29,12 +30,15 @@ dispatcher lock so they may re-post without deadlocking).
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import queue as queue_mod
 import statistics
 import threading
 import time
 from typing import Any, Callable, Optional
+
+import torch
 
 from repro_torch.core import rbl as rbl_mod
 from repro_torch.core import rhal as rhal_mod
@@ -83,7 +87,60 @@ class EventDispatcher:
 # Telemetry
 # ---------------------------------------------------------------------------
 
+# One span of a ``Telemetry`` ring: ``t0``/``t1`` in ns of
+# ``Telemetry.clock``, ``key`` the request id (None for a step's span),
+# ``attrs`` a dict of integers or None.
+Span = collections.namedtuple("Span", "name key t0 t1 attrs")
+
+# What a span site enters with tracing off:
+# ``with tel.span(...) if tel.tracing else NOSPAN:``
+NOSPAN = contextlib.nullcontext()
+
+
+class _HostSpan:
+    """A span of host work (``Telemetry.span``): stamped on entry and exit,
+    and mirrored as a ``torch.profiler.record_function`` of its name."""
+    __slots__ = ("tel", "name", "key", "attrs", "t0", "_mirror")
+
+    def __init__(self, tel: "Telemetry", name: str, key, attrs):
+        self.tel, self.name, self.key, self.attrs = tel, name, key, attrs
+
+    def __enter__(self) -> "_HostSpan":
+        self.t0 = Telemetry.clock()
+        self._mirror = torch.profiler.record_function(self.name)
+        self._mirror.__enter__()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self._mirror.__exit__(*exc)
+        self.tel.record_span(self.name, self.t0, Telemetry.clock(), self.key,
+                             **self.attrs)
+        return False
+
+
 class Telemetry:
+    """Latency rings, counters and, with ``tracing`` on, spans.
+
+    Spans: ``span(name, key, **attrs)`` is a context manager around host
+    work, mirrored as a ``torch.profiler.record_function`` of its name;
+    ``record_span(name, t0, t1, key, **attrs)`` records one from two stamps
+    already taken (a wait; not mirrored). Both go into a bounded ring
+    (``spans()``); ``spans_dropped`` counts what it overwrote. A site tests
+    ``tracing`` first and enters ``NOSPAN`` when it is off, so tracing off
+    costs one attribute test: no clock read, no allocation, no mirror.
+
+    One clock: every stamp of a span, and of the rings that share a span's
+    stamps, is ``Telemetry.clock()`` (``time.perf_counter_ns``, the clock
+    of ``time.perf_counter`` in ns). Onto a ``torch.profiler`` trace's
+    timeline (microseconds from the trace's start, as
+    ``prof.events()[i].time_range`` gives it) a stamp ``t`` goes as
+    ``(t + offset - trace_start_ns) / 1e3``, with ``offset =
+    Telemetry.profiler_offset_ns()`` taken once when the profiler starts
+    and ``trace_start_ns = prof.profiler.kineto_results.trace_start_ns()``
+    (the profiler stamps events on the Unix epoch's clock)."""
+
+    clock = staticmethod(time.perf_counter_ns)
+
     def __init__(self, capacity: int = 65536):
         self._lat: collections.deque = collections.deque(maxlen=capacity)
         self._metrics: collections.deque = collections.deque(maxlen=capacity)
@@ -91,6 +148,34 @@ class Telemetry:
         self.bytes_moved = 0
         self.bytes_overlapped = 0
         self._counters: dict = collections.defaultdict(int)
+        self.tracing = False
+        self._spans: collections.deque = collections.deque(maxlen=capacity)
+        self.spans_dropped = 0
+
+    # ---------------------------------------------------------------- spans
+    def span(self, name: str, key=None, **attrs) -> _HostSpan:
+        """A span of host work around a ``with`` block (tracing on)."""
+        return _HostSpan(self, name, key, attrs)
+
+    def record_span(self, name: str, t0: int, t1: int, key=None,
+                    **attrs) -> None:
+        """A span from two stamps of ``clock`` already taken."""
+        s = Span(name, key, t0, t1, attrs or None)
+        with self._lock:
+            if len(self._spans) == self._spans.maxlen:
+                self.spans_dropped += 1
+            self._spans.append(s)
+
+    def spans(self) -> list:
+        """The ring's spans, oldest recorded first."""
+        with self._lock:
+            return list(self._spans)
+
+    @staticmethod
+    def profiler_offset_ns() -> int:
+        """The Unix epoch's clock less ``clock``, now: take it when the
+        profiler starts (see the class's docstring)."""
+        return time.time_ns() - Telemetry.clock()
 
     def incr(self, name: str, n: int = 1) -> None:
         """Monotonic fault/recovery counters (the integrity plane's
@@ -340,7 +425,10 @@ class ServiceLoop:
     and, when it reports progress by returning True, between queue pops —
     which is how the serving engine's continuous-batching decode steps
     interleave with request intake. Queue-wait and handler latency land
-    in two ``Telemetry`` rings for the TELEMETRY wire message.
+    in two ``Telemetry`` rings for the TELEMETRY wire message, stamped on
+    ``Telemetry.clock``; the item the handler runs was enqueued at
+    ``t_enqueued`` and taken off the queue at ``t_dequeued``, the stamps of
+    its queue wait, so a handler's span of that wait reuses them.
     """
 
     def __init__(self, platform: "Platform", handler: Callable[[Any], None],
@@ -368,6 +456,7 @@ class ServiceLoop:
         self._drain_on_exit = True
         self._step = 0
         self._current: Any = None             # in-flight item (worker-owned)
+        self.t_enqueued = self.t_dequeued = 0  # its stamps (worker-owned)
         self.watchdog: Optional[Watchdog] = None
         if watchdog_budget is not None and on_hang is not None:
             self.watchdog = Watchdog(watchdog_budget, on_hang,
@@ -388,7 +477,7 @@ class ServiceLoop:
         with self._submit_lock:
             if not self._draining.is_set():
                 try:
-                    self._q.put_nowait((time.monotonic(), item))
+                    self._q.put_nowait((Telemetry.clock(), item))
                     return True
                 except queue_mod.Full:
                     pass
@@ -442,11 +531,13 @@ class ServiceLoop:
             t_enq, item = got
             self._step += 1
             hb.beat(self.name, self._step)
-            self.queue_wait.record_latency(time.monotonic() - t_enq)
+            t_deq = Telemetry.clock()
+            self.queue_wait.record_latency((t_deq - t_enq) * 1e-9)
+            self.t_enqueued, self.t_dequeued = t_enq, t_deq
             self._current = item
             if self.watchdog is not None:
                 self.watchdog.arm(item)
-            t0 = time.perf_counter()
+            t0 = Telemetry.clock()
             try:
                 self.handler(item)
             except Exception as e:      # handler owns replies; never die
@@ -458,7 +549,8 @@ class ServiceLoop:
                     self.watchdog.disarm()
                 self._current = None
             self.stats["processed"] += 1
-            self.dispatch_latency.record_latency(time.perf_counter() - t0)
+            self.dispatch_latency.record_latency(
+                (Telemetry.clock() - t0) * 1e-9)
 
     # ------------------------------------------------------------ lifecycle
     def close(self, drain: bool = True, timeout: float = 30.0) -> None:

@@ -25,7 +25,6 @@ its primary group's arena and the mesh rides on the engine as
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Optional
 
 import numpy as np
@@ -37,7 +36,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import rctc
 from repro_torch.core import rimfs as rimfs_mod
 from repro_torch.core.rhal import TileMesh
-from repro_torch.core.rtpm import Telemetry
+from repro_torch.core.rtpm import NOSPAN, Telemetry
 from repro_torch.dtypes import as_tensor, torch_dtype
 from repro_torch.launch.steps import (CompiledDecodeStep, make_prefill_step,
                                       sample_tokens)
@@ -89,12 +88,24 @@ class Request:
     verdict: str = ""             # admission outcome ("admitted"/"shed: ...")
     verdict_kind: str = ""        # machine-readable shed kind
                                   # (scheduler.VERDICT_KINDS)
+    t_submit: int = 0             # Telemetry.clock stamps, tracing on:
+    t_slot: int = 0               # submitted; placed in a slot
 
 
 class EngineBase:
     """Shared continuous-batching scaffolding: submission queue / scheduler
     admission, token sampling, and the drain loop. Subclasses own the cache layout and the
-    prefill/decode steps."""
+    prefill/decode steps.
+
+    With ``telemetry.tracing`` on, ``ServingEngine`` records each request's
+    spans under its ``rid``: ``engine.wait`` (submitted to placed in a
+    slot), ``engine.slot`` (placed to freed; ``prompt``, ``max_new``),
+    ``engine.admit`` (its prefill call to its first token on the host;
+    ``prompt``, ``lanes_waiting``: the slots other requests hold). The
+    host work inside is only mirrored into ``torch.profiler``, unrecorded:
+    ``engine.prefill``, ``engine.splice`` and ``engine.sample`` inside
+    ``engine.admit``, and each decode step's ``engine.decode`` (the replay
+    to the sync) and its ``engine.sample``."""
 
     def __init__(self, cfg: ModelConfig, params: dict, max_batch: int = 4,
                  max_seq: int = 256, greedy: bool = True, scheduler=None,
@@ -144,6 +155,8 @@ class EngineBase:
         if not 0 < len(req.prompt) < self.max_seq:
             raise ValueError(f"prompt of {len(req.prompt)} tokens: the "
                              f"engine takes 1 to {self.max_seq - 1}")
+        if self.telemetry.tracing:
+            req.t_submit = Telemetry.clock()
         if self.scheduler is not None:
             self.scheduler.submit(ScheduledRequest(
                 rid=req.rid, tokens_needed=req.max_new,
@@ -265,24 +278,44 @@ class ServingEngine(EngineBase):
         # prompt would be answered otherwise than the same prompt admitted
         # alone. A B = 1 dispatch is the one sequential admission runs, so
         # what a prompt is answered never depends on what arrived with it.
+        tel = self.telemetry
         for i, req in placed:
             plen = len(req.prompt)
-            logits, cache = self._prefill(
-                self.params, {"inputs": as_tensor(req.prompt[None],
-                                                  self.device)})
-            self._slots[i] = req
-            # splice the prompt's state into slot i: its KV rows over [0,
-            # min(plen, ring)), already in ring order (the tail keeps the
-            # last occupant's rows, masked until decode writes them); each
-            # recurrent state whole, so nothing of the last occupant stays
-            for key, c in self._cache.items():
-                src = cache[key][:, 0]
-                if key in ("k", "v"):
-                    c[:, i, :src.shape[1]].copy_(src)
-                else:
-                    c[:, i].copy_(src)
-            self._pos[i] = plen
-            req.out_tokens.append(int(self._sample(logits)[0]))
+            with self._admit_span(req) if tel.tracing else NOSPAN:
+                with torch.profiler.record_function("engine.prefill") \
+                        if tel.tracing else NOSPAN:
+                    logits, cache = self._prefill(
+                        self.params, {"inputs": as_tensor(req.prompt[None],
+                                                          self.device)})
+                self._slots[i] = req
+                # splice the prompt's state into slot i: its KV rows over
+                # [0, min(plen, ring)), already in ring order (the tail
+                # keeps the last occupant's rows, masked until decode
+                # writes them); each recurrent state whole, so nothing of
+                # the last occupant stays
+                with torch.profiler.record_function("engine.splice") \
+                        if tel.tracing else NOSPAN:
+                    for key, c in self._cache.items():
+                        src = cache[key][:, 0]
+                        if key in ("k", "v"):
+                            c[:, i, :src.shape[1]].copy_(src)
+                        else:
+                            c[:, i].copy_(src)
+                self._pos[i] = plen
+                with torch.profiler.record_function("engine.sample") \
+                        if tel.tracing else NOSPAN:
+                    req.out_tokens.append(int(self._sample(logits)[0]))
+
+    def _admit_span(self, req: Request):
+        """(tracing on) Close ``req``'s wait, open its slot, and return the
+        span of its admission."""
+        tel = self.telemetry
+        req.t_slot = Telemetry.clock()
+        if req.t_submit:
+            tel.record_span("engine.wait", req.t_submit, req.t_slot, req.rid)
+        return tel.span("engine.admit", req.rid, prompt=len(req.prompt),
+                        lanes_waiting=sum(r is not None
+                                          for r in self._slots))
 
     def step(self) -> int:
         """One decode step across all live slots. Returns #live."""
@@ -295,19 +328,25 @@ class ServingEngine(EngineBase):
         for i in live:
             toks[i, 0] = self._slots[i].out_tokens[-1]
             pos[i] = self._pos[i]
-        t0 = time.perf_counter()
-        logits, _ = self._decode(
-            self.params, self._cache,
-            {"inputs": as_tensor(toks, self.device),
-             "pos": as_tensor(pos, self.device)})
-        device_mod.synchronize(self.device)
-        dt = time.perf_counter() - t0
-        self.telemetry.record_latency(dt)
+        tel = self.telemetry
+        t0 = Telemetry.clock()
+        with torch.profiler.record_function("engine.decode") if tel.tracing \
+                else NOSPAN:
+            logits, _ = self._decode(
+                self.params, self._cache,
+                {"inputs": as_tensor(toks, self.device),
+                 "pos": as_tensor(pos, self.device)})
+            device_mod.synchronize(self.device)
+        dt = (Telemetry.clock() - t0) * 1e-9
+        tel.record_latency(dt)
         if self.scheduler is not None:
             # feed the admission policy's EWMA with the measured decode
             # latency, not the constructor default
             self.scheduler.observe_step_latency(dt)
-        nxt = self._sample(logits)
+        with torch.profiler.record_function("engine.sample") if tel.tracing \
+                else NOSPAN:
+            nxt = self._sample(logits)
+        t_free = 0
         for i in live:
             r = self._slots[i]
             r.out_tokens.append(int(nxt[i]))
@@ -315,4 +354,8 @@ class ServingEngine(EngineBase):
             if self._finish(i, r):
                 r.done = True
                 self._slots[i] = None
+                if tel.tracing and r.t_slot:
+                    t_free = t_free or Telemetry.clock()
+                    tel.record_span("engine.slot", r.t_slot, t_free, r.rid,
+                                    prompt=len(r.prompt), max_new=r.max_new)
         return len(live)

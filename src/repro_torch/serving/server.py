@@ -49,6 +49,14 @@ instead: the program binds to host views and each group pins its own
 tile's weights on its first stage; a backlog never coalesces; and the
 watchdog kills the group of the stage that hangs (``mesh.active_gid``),
 whose stage then fails over to a survivor.
+
+With ``platform.telemetry.tracing`` on, the LM route records each
+request's ``server.queue`` under its engine id (the INFER frame parsed
+and enqueued on its handler thread, to ``_infer_lm`` on the dispatcher;
+the stamps of the dispatcher's queue-wait ring), and mirrors each reply
+(the finished request seen in ``_pump_engine``, to its frame sent) into
+``torch.profiler`` as ``server.reply``. The engine's own spans go into
+``engine.telemetry``.
 """
 from __future__ import annotations
 
@@ -63,13 +71,14 @@ import time
 from typing import Any, Optional
 
 import numpy as np
+import torch
 
 from repro_torch.core import linker as linker_mod
 from repro_torch.core import rbl as rbl_mod
 from repro_torch.core.executor import Executor
 from repro_torch.core.integrity import IntegrityError
 from repro_torch.core.rhal import TileFailure
-from repro_torch.core.rtpm import Platform, ServiceLoop
+from repro_torch.core.rtpm import NOSPAN, Platform, ServiceLoop
 from repro_torch.dtypes import to_host
 from repro_torch.serving import protocol as proto
 from repro_torch.serving.scheduler import (RETRYABLE_KINDS, DeadlineScheduler,
@@ -704,6 +713,10 @@ class InferenceServer:
                 f"prompt ({prompt.size} tokens) + max_new ({max_new}) "
                 f"exceeds engine max_seq {self.engine.max_seq}")
         iid = next(self._iid)
+        tel = self.platform.telemetry
+        if tel.tracing:
+            tel.record_span("server.queue", self._loop.t_enqueued,
+                            self._loop.t_dequeued, iid)
         req = Request(rid=iid, prompt=prompt, max_new=max_new,
                       priority=work.meta["priority"],
                       deadline=work.meta["deadline"])
@@ -732,26 +745,30 @@ class InferenceServer:
                            rid=rid, version=ver)
             self._inflight.clear()
             raise
+        tel = self.platform.telemetry
         for iid, (req, route, rid, ver) in list(self._inflight.items()):
             if not req.done:
                 continue
             del self._inflight[iid]
-            if req.shed:
-                # an LM request that already sampled tokens is NOT safe to
-                # retry blindly (a re-run would draw fresh samples);
-                # admission-time sheds always are
-                kind = req.verdict_kind
-                retryable = kind in RETRYABLE_KINDS and not req.out_tokens
-                route.send(proto.Msg.ERROR,
-                           self._shed_payload(kind, req.verdict,
-                                              retryable=retryable),
-                           rid=rid, flags=proto.F_SHED, version=ver)
-            else:
-                route.send(proto.Msg.INFER_RESPONSE,
-                           proto.pack_tensors(
-                               {"tokens": np.asarray(req.out_tokens,
-                                                     np.int32)}),
-                           rid=rid, version=ver)
+            with torch.profiler.record_function("server.reply") \
+                    if tel.tracing else NOSPAN:
+                if req.shed:
+                    # an LM request that already sampled tokens is NOT safe
+                    # to retry blindly (a re-run would draw fresh samples);
+                    # admission-time sheds always are
+                    kind = req.verdict_kind
+                    retryable = kind in RETRYABLE_KINDS and \
+                        not req.out_tokens
+                    route.send(proto.Msg.ERROR,
+                               self._shed_payload(kind, req.verdict,
+                                                  retryable=retryable),
+                               rid=rid, flags=proto.F_SHED, version=ver)
+                else:
+                    route.send(proto.Msg.INFER_RESPONSE,
+                               proto.pack_tensors(
+                                   {"tokens": np.asarray(req.out_tokens,
+                                                         np.int32)}),
+                               rid=rid, version=ver)
         return bool(self._inflight)
 
     def _drop_work(self, work: _Work) -> None:
