@@ -19,7 +19,13 @@ Phases, each printing one JSON line with its times:
      its states and output kernels' device times apart, the scratch and the
      bytes its plan moves beside the bound's, and the in-block build of the
      entering states timed against the carry kernel at T = 512 to 4096;
-     then ``int8_matmul``, bit for bit);
+     then ``int8_matmul``, bit for bit; then ``decode_attention`` at
+     mistral-nemo-12b's decode filled as the benchmark's chat and rag mixes
+     fill it, full and ragged, through block tables too, and at every
+     other config's group, head dim, dtype and window, gated on each
+     lane's error over its largest output, with its time and device time
+     beside its bytes bound over the valid rows, the plain version's and
+     SDPA's, and every split length's time);
   2b. the kernel autotune cache (``autotune``): every tunable kernel swept
      at its served shapes (``int8_matmul`` at 512 x 1536 x 8960 and every
      ResNet-18 INT8 convolution's GEMM, ``ssm_scan`` at hymba's shape,
@@ -146,7 +152,8 @@ Phases, each printing one JSON line with its times:
      same prompts again not held and each admitted alone (the same
      streams), every hand-kernel call of each prefill against its plain
      version on the same operands, 28 ``flash_attention`` launches a
-     prefill and none a decode step; the capture's seconds, the host wall
+     prefill and one ``decode_attention`` a layer a decode step; the
+     capture's seconds, the host wall
      and device time of a replayed and an eager decode step and of each
      prefill shape. Then the recurrent families the same way: hymba-1.5B
      (an ``engine_reduced_depth`` line at 1 fp32 layer with 1280 rows, so
@@ -185,7 +192,8 @@ Phases, each printing one JSON line with its times:
      serves them, 48 ``flash_attention`` launches a prefill, the decode
      step's p50 beside its bytes bound; then ``slice_engine_paged_moe``:
      the paged-KV engine over the same 48 layers' tensors, the six prompts
-     served (48 ``flash_attention`` a prefill, none in a window), its
+     served (48 ``flash_attention`` a prefill, 48 ``decode_attention`` a
+     step of a window), its
      streams equal to the dense engine's bit for bit. Then the card-only tests of the fused and batched graphs
      (``tests/test_torch_graphs_gpu.py``), of the engine's compiled steps
      (``tests/test_torch_engine_gpu.py``, with the per-op diagnosis of a
@@ -195,6 +203,7 @@ Phases, each printing one JSON line with its times:
      streams (``tests/test_torch_partition_gpu.py``), of the fleet's
      flips and releases (``tests/test_torch_fleet_gpu.py``) and of the
      autotune cache's sweep and reload (``tests/test_torch_autotune_gpu.py``),
+     and every kernel's own card tests (``tests/test_torch_kernels_gpu.py``),
      each in a process of its own, and beside them the serving entry
      point's CLI (``serve_cli``: ``python -m repro_torch.launch.serve
      --requests 16 --batch 1 --clients 4 --pipeline 2`` on the card, exit
@@ -1117,6 +1126,244 @@ def phase_int8_matmul(torch, seed: int) -> dict:
             "by_shape": timed, "tiles_device_ms": tiles}
 
 
+# decode_attention: the served decode shapes, (B, S, Hkv, G, D, dtype);
+# mistral-nemo-12b's is the benchmark's (32 lanes x 4,096 rows), the others
+# slice_arches' and the engines' (4 lanes x 640 rows)
+DECODE_NEMO = (32, 4096, 8, 4, 128, "bfloat16")
+DECODE_SHAPES = {"qwen2-1.5b": (4, 640, 2, 6, 128, "bfloat16"),
+                 "qwen3-14b": (4, 640, 8, 5, 128, "bfloat16"),
+                 "phi3-medium-14b": (4, 640, 10, 4, 128, "bfloat16"),
+                 "arctic-480b": (4, 640, 8, 7, 128, "bfloat16"),
+                 "moonshot-v1-16b-a3b": (4, 640, 16, 1, 128, "bfloat16"),
+                 "hymba-1.5b": (4, 640, 5, 5, 64, "bfloat16"),
+                 "musicgen-medium": (4, 640, 24, 1, 64, "float16"),
+                 "smoke": (4, 64, 2, 2, 16, "bfloat16"),
+                 "fp32": (4, 600, 8, 4, 128, "float32"),
+                 "fp32-smoke": (3, 64, 2, 2, 16, "float32")}
+DECODE_SPLITS = (64, 128, 256, 512, 1024, 2048, 4096)
+# the gate: each lane's max |kernel - plain| over that lane's max |plain|.
+# Both round the output once to its dtype, from fp32 sums taken in another
+# order (and the plain version's weights rounded to the value dtype first),
+# so they may differ by an ulp of the output: 2^-7 of its largest value in
+# bf16, 2^-10 in f16.
+DECODE_REL_TOL = {"bfloat16": 2 ** -7, "float16": 2 ** -10,
+                  "float32": 1e-4}
+
+
+def decode_bound_ms(b, h, hkv, d, rows: int, dtype: str) -> float:
+    """Least time (ms) for one decode attention call: q read and o written
+    once, and each lane's valid K/V rows (``rows`` in all) read once, over
+    the memory rate (a decode call is far below the ridge)."""
+    esize = 4 if dtype == "float32" else 2
+    return (2 * b * h * d + 2 * rows * hkv * d) * esize / HBM_BYTES_PER_S * 1e3
+
+
+def decode_fillings(rng, b: int, s: int) -> dict:
+    """Each lane's position in mistral-nemo's pool: nemo.chat's mix
+    (prompts log-uniform 256 to 3,800 plus up to 138 decoded, a third of
+    the pool), nemo.rag's (uniform 1,024 to 3,072 plus up to 64, a half),
+    a full cache, and a ragged one with 0, S - 1 and free lanes at 0."""
+    import numpy as np
+    chat = np.exp(rng.uniform(np.log(256), np.log(3800), b)) + \
+        rng.uniform(0, 138, b)
+    rag = rng.uniform(1024, 3072, b) + rng.uniform(0, 64, b)
+    return {"chat": chat.astype(np.int32), "rag": rag.astype(np.int32),
+            "full": np.full(b, s - 1, np.int32),
+            "ragged": decode_ragged(rng, b, s)}
+
+
+def decode_ragged(rng, b: int, s: int):
+    """Positions 0, S - 1, 1, S // 3, the last three lanes free (at 0),
+    the rest drawn."""
+    import numpy as np
+    pos = rng.randint(0, s, b)
+    special = (0, s - 1, 1, s // 3)[:b]
+    pos[:len(special)] = special
+    if b >= 8:
+        pos[-3:] = 0
+    return pos.astype(np.int32)
+
+
+def decode_lane_err(got, want) -> float:
+    """The widest lane's max |got - want| over that lane's max |want|."""
+    diff = (got.float() - want.float()).abs().flatten(1).amax(1)
+    return (diff / want.float().abs().flatten(1).amax(1)).max().item()
+
+
+def phase_decode_attention(torch, seed: int) -> dict:
+    """Phase 2e: decode_attention against its plain version on the card:
+    mistral-nemo's decode (32 lanes x 4,096 rows, 32/8 heads x 128, bf16)
+    filled as nemo.chat's and nemo.rag's mixes fill it, full and ragged,
+    once with q scaled by 30, once read through block tables of 16-row
+    blocks (bit for bit the dense call); every other config's group, head
+    dim and dtype; a sliding ring before and after it wraps. Each case is
+    gated on ``decode_lane_err`` and reports it with the fp64 truth's
+    error of the kernel and of the plain version. Then, at each nemo
+    filling, the kernel's time (CUDA events and the profiler's device
+    time) beside its bytes bound over the valid rows, the plain version's
+    and SDPA's (every row read, masked: the library's yardstick, never on
+    the port's path), and the kernel at every split length."""
+    import numpy as np
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import ops
+    from repro_torch.kernels.decode_attention.ref import (
+        decode_attention_ref, valid_rows)
+    rng = np.random.RandomState(seed)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+
+    def inputs(b, s, hkv, g, d, dtype, q_scale=1.0):
+        dt = getattr(torch, dtype)
+        q, k, v = [torch.randn(shape, generator=gen, device="cuda")
+                   for shape in ((b, 1, hkv * g, d), (b, s, hkv, d),
+                                 (b, s, hkv, d))]
+        return (q * q_scale).to(dt), k.to(dt), v.to(dt)
+
+    def paged(k, v, bs=16):
+        b, s, hkv, d = k.shape
+        w = s // bs
+        order = torch.randperm(b * w, generator=gen, device="cuda")
+        pools = []
+        for a in (k, v):
+            pool = torch.zeros((b * w + 1, bs, hkv, d), dtype=a.dtype,
+                               device="cuda")
+            pool[order] = a.reshape(b * w, bs, hkv, d)
+            pools.append(pool)
+        return pools[0], pools[1], order.reshape(b, w).int()
+
+    def exact(q, k, v, pos):
+        """The dense call in fp64 throughout."""
+        bq, _, h, dq = q.shape
+        sk, hk = k.shape[1], k.shape[2]
+        sc = torch.einsum("bqhgd,bkhd->bhgqk",
+                          q.double().reshape(bq, 1, hk, h // hk, dq),
+                          k.double()) / dq ** 0.5
+        valid = (torch.arange(sk, device="cuda")[None, :]
+                 < valid_rows(pos, sk)[:, None])[:, None, None, None, :]
+        a = torch.softmax(torch.where(valid, sc, float("-inf")), dim=-1)
+        return torch.einsum("bhgqk,bkhd->bqhgd", a, v.double()).reshape(
+            bq, 1, h, dq)
+
+    results, worst = [], 0.0
+
+    def check(name, shape, q, k, v, pos, paged_kv=None):
+        """One case; ``paged_kv`` = (pool k, pool v, tables) holding k and
+        v's rows, read in place of them."""
+        nonlocal worst
+        dtype = str(q.dtype).split(".")[-1]
+        call = (q, k, v, pos) if paged_kv is None else (q, *paged_kv[:2],
+                                                        pos, paged_kv[2])
+        before = ops.decode_attention.launches
+        got = ops.decode_attention(*call)
+        torch.cuda.synchronize()
+        launched = ops.decode_attention.launches - before
+        want = decode_attention_ref(*call)
+        truth = exact(q, k, v, pos)
+        err = decode_lane_err(got, want)
+        case = {"case": name, "shape": list(shape), "dtype": dtype,
+                "paged": paged_kv is not None,
+                "valid_share": valid_rows(pos, k.shape[1]).sum().item()
+                / (pos.shape[0] * k.shape[1]),
+                "lane_err": err,
+                "max_abs_err": (got.float() - want.float()).abs().max().item(),
+                "lane_err_vs_fp64": decode_lane_err(got, truth),
+                "plain_lane_err_vs_fp64": decode_lane_err(want, truth)}
+        results.append(case)
+        if launched != 1 or err > DECODE_REL_TOL[dtype]:
+            raise AssertionError(f"decode_attention {case}: {launched} "
+                                 f"launches; lane error beyond "
+                                 f"{DECODE_REL_TOL[dtype]}")
+        worst = max(worst, case["max_abs_err"])
+        return got
+
+    b, s, hkv, g, d, dtype = DECODE_NEMO
+    q, k, v = inputs(b, s, hkv, g, d, dtype)
+    fills = {name: torch.from_numpy(p).cuda()
+             for name, p in decode_fillings(rng, b, s).items()}
+    for name, pos in fills.items():
+        dense = check(f"mistral-nemo-12b {name}", DECODE_NEMO, q, k, v, pos)
+        if name == "rag":
+            if not torch.equal(check("mistral-nemo-12b rag, paged",
+                                     DECODE_NEMO, q, k, v, pos, paged(k, v)),
+                               dense):
+                raise AssertionError("decode_attention: the paged call is "
+                                     "not the dense call's bits")
+    q30 = (q.float() * 30).to(q.dtype)
+    check("mistral-nemo-12b chat, q x 30", DECODE_NEMO, q30, k, v,
+          fills["chat"])
+    del q30
+    for model, shape in DECODE_SHAPES.items():
+        qs, ks, vs = inputs(*shape)
+        pos = torch.from_numpy(decode_ragged(rng, shape[0], shape[1])).cuda()
+        check(model, shape, qs, ks, vs, pos)
+    for ring_dtype in ("bfloat16", "float32"):   # hymba's window of 1,024
+        shape = (6, 1024, 5, 5, 64, ring_dtype)
+        qs, ks, vs = inputs(*shape)
+        pos = torch.tensor([0, 1023, 1024, 5000, 300, 2047],
+                           dtype=torch.int32, device="cuda")
+        check("ring", shape, qs, ks, vs, pos)
+
+    # times at nemo's fillings: "ms" and "library_ms" CUDA events around
+    # 50 calls, "device_ms" and "library_device_ms" the profiler's device
+    # time over 50 calls (both of the kernel's launches; every kernel SDPA
+    # launches); the plain version over 5 calls
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    split_len, n_splits = ops.plan(s, b, hkv, sms)
+    qs, ks, vs = (q.transpose(1, 2), k.transpose(1, 2).contiguous(),
+                  v.transpose(1, 2).contiguous())      # SDPA's layout
+    timed, splits = {}, {}
+    for name in ("chat", "rag", "full"):
+        pos = fills[name]
+        rows = int(valid_rows(pos, s).sum())
+        mask = (torch.arange(s, device="cuda")[None, :]
+                < valid_rows(pos, s)[:, None])[:, None, None, :]
+
+        def kernel():
+            return ops.decode_attention(q, k, v, pos)
+
+        def library():
+            return F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
+                                                  enable_gqa=True)
+        library_device_ms, library_kernels = profiled_device_ms(torch,
+                                                                library)
+        timed[name] = {
+            "shape": list(DECODE_NEMO), "valid_share": rows / (b * s),
+            "split_len": split_len, "n_splits": n_splits,
+            "ms": cuda_ms(torch, kernel),
+            "device_ms": profiled_device_ms(torch, kernel)[0],
+            "plain_ms": cuda_ms(torch, lambda: decode_attention_ref(
+                q, k, v, pos), iters=5, warmup=1),
+            "library_ms": cuda_ms(torch, library),
+            "library_device_ms": library_device_ms,
+            "library_kernels": library_kernels,
+            "library_lane_err": decode_lane_err(
+                library().transpose(1, 2), decode_attention_ref(q, k, v,
+                                                                pos)),
+            "bound_ms": decode_bound_ms(b, hkv * g, hkv, d, rows, dtype),
+            "bound_by": "bytes"}
+        timed[name]["bound_share"] = (timed[name]["bound_ms"]
+                                      / timed[name]["device_ms"])
+        splits[name] = {
+            sl: cuda_ms(torch, lambda: ops._decode_attention_op(
+                q, k, v, pos, None, sl)) for sl in DECODE_SPLITS}
+    emit("kernels_vs_plain", kernel="decode_attention", cases=results,
+         timed=timed, split_ms=splits, sms=sms)
+    first = timed["chat"]
+    return {"name": "decode_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/decode_attention/csrc/"
+                      "decode_attention.cu",
+            "replaces": "none: the JAX package's decode is plain jnp "
+                        "(src/repro/models/attention.py decode_attention)",
+            "design": "split-KV on the CUDA cores, cp.async ring, fp32 "
+                      "softmax and sums, an ordered combine",
+            "max_abs_err": worst, "ms": first["ms"],
+            "device_ms": first["device_ms"], "plain_ms": first["plain_ms"],
+            "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
+            "library_ms": first["library_ms"],
+            "library_device_ms": first["library_device_ms"],
+            "timed_shape": first["shape"], "by_filling": timed}
+
+
 def with_plain_kernels(prog):
     """The same program with ``impl="ref"`` on every kernel op (ATTENTION,
     SSM_SCAN, WKV6), its GRAPH_EXEC artifacts attached."""
@@ -1786,7 +2033,8 @@ def phase_slice(torch, cfg, seed: int, phase: str,
     launches = served["launches"]
     per_layer = {"flash_attention": int(cfg.family != "ssm"),
                  "ssm_scan": int(cfg.family == "hybrid"),
-                 "wkv6": int(cfg.family == "ssm"), "int8_matmul": 0}
+                 "wkv6": int(cfg.family == "ssm"), "int8_matmul": 0,
+                 "decode_attention": 0}
     per_request = {k: v * cfg.num_layers for k, v in per_layer.items()}
     for name, n in launches.items():
         want = per_request[name] * N_REQUESTS
@@ -3548,12 +3796,36 @@ def prefill_launches(cfg, seq: int) -> dict:
         "wkv6": layers if cfg.family == "ssm" else 0}
 
 
-def engine_launch_check(log: list, cfg, what: str) -> None:
-    """Each prefill dispatch launches ``prefill_launches`` and no decode
-    step launches a hand kernel."""
+def decode_launches(cfg, steps: int) -> dict:
+    """Each hand kernel's launches in ``steps`` decode steps: one
+    ``decode_attention`` a layer a step where the model attends; none of
+    any other."""
+    return {name: 0 for name in kernel_counters()} | {
+        "decode_attention": cfg.num_layers * steps
+        if cfg.family != "ssm" else 0}
+
+
+def dispatch_launches(e: dict, cfg) -> dict:
+    """What one logged dispatch launches: a prefill ``prefill_launches``,
+    a decode step (a paged window: its steps) ``decode_launches``."""
+    if e["step"] == "prefill":
+        return prefill_launches(cfg, e["shape"][1])
+    return decode_launches(cfg, e["shape"][1] if "batch" in e else 1)
+
+
+def logged_launches(log: list, cfg) -> dict:
+    """``dispatch_launches`` summed over a log's dispatches."""
+    want = dict.fromkeys(kernel_counters(), 0)
     for e in log:
-        want = (prefill_launches(cfg, e["shape"][1])
-                if e["step"] == "prefill" else dict.fromkeys(e["launches"], 0))
+        for name, n in dispatch_launches(e, cfg).items():
+            want[name] += n
+    return want
+
+
+def engine_launch_check(log: list, cfg, what: str) -> None:
+    """Each logged dispatch launches ``dispatch_launches``."""
+    for e in log:
+        want = dispatch_launches(e, cfg)
         if e["launches"] != want:
             raise AssertionError(f"{what}: a {e['step']} of {e['shape']} "
                                  f"launched {e['launches']}, not {want}")
@@ -3818,7 +4090,8 @@ def phase_slice_engine(torch, seed: int, phase: str,
     (``kernels_in_model``); each prefill dispatch launches one
     ``flash_attention`` a layer where the model attends (28 qwen2, 32
     hymba), one ``ssm_scan`` a layer in hymba (32), one ``wkv6`` a layer
-    in rwkv6 (24), and no decode step launches any.
+    in rwkv6 (24), and each decode step one ``decode_attention`` a layer
+    where the model attends (none in rwkv6).
 
     Reported, not gated: each group's last-position logits against the
     same forward on the plain kernels, each stream against a greedy
@@ -3889,6 +4162,8 @@ def phase_slice_engine(torch, seed: int, phase: str,
     eng = engine()
     torch.cuda.synchronize()
     pin_s = time.perf_counter() - t1
+    for wrapper in counters.values():    # the decode graph's warm-up ran
+        wrapper.launches = 0
     served_log = instrument_engine(torch, eng)
     server = InferenceServer(engine=eng)
     server.start()
@@ -3911,10 +4186,7 @@ def phase_slice_engine(torch, seed: int, phase: str,
     held_pass, free_pass = passes
     groups = prefill_groups(held_pass["log"])
     n_prefills = len(groups)
-    want = dict.fromkeys(launches, 0)
-    for _, seq in groups:
-        for name, n in prefill_launches(cfg, seq).items():
-            want[name] += n
+    want = logged_launches(held_pass["log"], cfg)
     if n_prefills != n_req or launches != want:
         raise AssertionError(f"{phase}: the held burst launched {launches}, "
                              f"not {want} ({n_prefills} prefills for "
@@ -3997,7 +4269,9 @@ def phase_slice_engine(torch, seed: int, phase: str,
                                             {"inputs": e["tokens"]}))
     summary = kernel_check_summary(checks)
     calls = {name: s["calls"] for name, s in summary.items()}
-    want_calls = {name: n for name, n in want.items()
+    prefills = [e for e in local_log if e["step"] == "prefill"]
+    want_calls = {name: n for name, n in logged_launches(prefills,
+                                                          cfg).items()
                   if n and name != "int8_matmul"}
     if calls != want_calls or not all(c["ok"] for c in checks):
         raise AssertionError(f"{phase}: kernels in the model {summary}, "
@@ -4067,7 +4341,7 @@ def phase_slice_engine(torch, seed: int, phase: str,
          prefill_groups=groups, launches=launches,
          launches_per_prefill={f"1x{s}": prefill_launches(cfg, s)
                                for s in sorted(set(ENGINE_PROMPTS))},
-         launches_per_decode_step=0,
+         launches_per_decode_step=decode_launches(cfg, 1),
          replay_hand_kernel_launches=served_step.graph.launches,
          request_wall_s=held_pass["walls"], latency_p50_s=walls[n_req // 2],
          latency_max_s=walls[-1], burst_s=held_pass["burst_s"],
@@ -4241,9 +4515,9 @@ def phase_engine_paged_reduced_depth(torch, seed: int, prompts: list) -> None:
         "shed_tokens": [len(r.out_tokens) for r in shed],
         "prefills": len(prefill_groups(short_log)), "launches": spent,
         "shed_count": short.scheduler.shed_count}
-    want = {name: 0 for name in spent} | {
-        "flash_attention": 2 * cfg.num_layers}
+    want = logged_launches(short_log, cfg)
     if not (len(served) == 2 and len(shed) == 2 and spent == want
+            and want["flash_attention"] == 2 * cfg.num_layers
             and short_line["prefills"] == 2
             and all("out of KV blocks" in r.verdict
                     and r.verdict_kind == "out_of_blocks"
@@ -4315,6 +4589,8 @@ def phase_slice_engine_paged(torch, seed: int, keep: dict) -> dict:
                                         block_size=PAGED_BLOCK)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t1
+    for wrapper in counters.values():    # the rungs' warm-ups ran
+        wrapper.launches = 0
     compiled = eng.program.artifacts["paged_decode"]
     rungs_built = list(compiled.captured)
     prefill_step = eng._prefill
@@ -4335,10 +4611,7 @@ def phase_slice_engine_paged(torch, seed: int, keep: dict) -> dict:
         served["burst_s"]
     engine_launch_check(log, cfg, f"{phase} served")
     groups = prefill_groups(log)
-    want = dict.fromkeys(launches, 0)
-    for _, seq in groups:
-        for name, n in prefill_launches(cfg, seq).items():
-            want[name] += n
+    want = logged_launches(log, cfg)
     if len(groups) != n_req or launches != want:
         raise AssertionError(f"{phase}: the held burst launched {launches}, "
                              f"not {want} ({len(groups)} prefills for "
@@ -4442,7 +4715,7 @@ def phase_slice_engine_paged(torch, seed: int, keep: dict) -> dict:
          prefill_groups=groups, launches=launches,
          launches_per_prefill={f"1x{s}": prefill_launches(cfg, s)
                                for s in sorted(set(ENGINE_PROMPTS))},
-         launches_per_window=0,
+         launches_per_window_step=decode_launches(cfg, 1),
          windows=[e["shape"] for e in windows],
          window_wall_s=[e["wall_s"] for e in windows],
          served_prefills=[{k: e[k] for k in ("shape", "wall_s")}
@@ -4878,8 +5151,8 @@ def phase_serve_trained(torch, seed: int, keep: dict) -> dict:
     provisioned into a ``ServingEngine``; the same TRAINED_PROMPTS
     (``SyntheticLM`` rows the training never drew) decoded greedily for
     TRAINED_MAX_NEW tokens by each. Gates: the two engines' tokens equal
-    bit for bit; each prefill launches 28 ``flash_attention`` and no decode
-    step a kernel. Prints how many generated tokens follow the data's
+    bit for bit; each prefill launches 28 ``flash_attention`` and each
+    decode step 28 ``decode_attention``. Prints how many generated tokens follow the data's
     hidden chain (``structure_hits``). Removes the checkpoints."""
     import shutil
     import numpy as np
@@ -5042,7 +5315,8 @@ def phase_serve_lm(torch, seed: int) -> dict:
     random weights from ``seed``): SERVE_LM_PROMPTS prompts of 16 tokens
     through ``ServingEngine`` (4 slots of 128 rows, the decode step one
     CUDA graph) under a ``DeadlineScheduler``, 8 new tokens each. Gates:
-    28 ``flash_attention`` launches a prefill and none a decode step, no
+    28 ``flash_attention`` launches a prefill and 28 ``decode_attention`` a
+    decode step (the decode graph's uncaptured warm-up step included), no
     shed, and the tokens equal a local engine's over the same weights on
     the eager decode step, bit for bit."""
     from repro_torch.configs import get_config
@@ -5056,8 +5330,13 @@ def phase_serve_lm(torch, seed: int) -> dict:
     zero_launches()                         # the main path starts here
     got = serve_mod.serve_lm(SERVE_LM_PROMPTS, cfg=cfg, params=params)
     launches = launches_now()
+    # the decode steps the engine took: those its telemetry summarised
+    # and the 2 it left out as warm-up; building the engine's decode graph
+    # ran one step uncaptured before the capture
+    steps = got["decode_step"]["n"] + 2
     want = {name: 0 for name in launches} | {
-        "flash_attention": cfg.num_layers * SERVE_LM_PROMPTS}
+        "flash_attention": cfg.num_layers * SERVE_LM_PROMPTS,
+        "decode_attention": cfg.num_layers * (steps + 1)}
     if launches != want or got["shed"]:
         raise AssertionError(f"serve_lm: launched {launches}, not {want}; "
                              f"shed {got['shed']}")
@@ -5257,6 +5536,7 @@ def phase_slice_engine_paged_moe(torch, seed: int, keep: dict) -> dict:
                              max_seq=ENGINE_MAX_SEQ, block_size=PAGED_BLOCK)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
+    zero_launches()                         # the rungs' warm-ups ran
     rungs = list(eng.program.artifacts["paged_decode"].captured)
     log = instrument_engine(torch, eng)
     server = InferenceServer(engine=eng)
@@ -5273,8 +5553,7 @@ def phase_slice_engine_paged_moe(torch, seed: int, keep: dict) -> dict:
         server.stop()
     engine_launch_check(log, cfg, f"{phase} served")
     groups = prefill_groups(log)
-    want = {name: 0 for name in launches} | {
-        "flash_attention": cfg.num_layers * n_req}
+    want = logged_launches(log, cfg)
     if len(groups) != n_req or launches != want:
         raise AssertionError(f"{phase}: the held burst launched {launches}, "
                              f"not {want} ({len(groups)} prefills)")
@@ -5419,7 +5698,7 @@ def fp64_decode_and_full(torch, cfg, params: dict, x, pos) -> tuple:
                                       want_cache=True, impl="ref")
         step = tf.forward_decode(
             cfg64, p64, x64[:, SEQ:], pos,
-            spliced_cache(torch, cfg64, cache, SEQ + 8))[0][:, 0]
+            spliced_cache(torch, cfg64, cache, SEQ + 8), impl="ref")[0][:, 0]
     finally:
         torch.Tensor.float = cast
     return step, full
@@ -5430,7 +5709,8 @@ def arch_fp32_checks(torch, seed: int, model: str) -> dict:
     weights from ``seed``, on tokens or the frontend stub's embeddings.
     Gates: ``forward_full`` over S = SEQ on the kernels against the same
     call with ``impl="ref"`` (max |err| of the logits within PROGRAM_ATOL),
-    the first decode step after each of the two prefills (the same), and
+    the first decode step after each of the two prefills, on the kernels
+    and on their plain versions (the same), and
     the decode step at S against a full forward over S + 1 at the
     reference's own ``tests/test_models.py`` tolerance (rtol = atol =
     ARCH_DECODE_TOL), taken in fp64 (``fp64_decode_and_full``). In fp32
@@ -5459,7 +5739,8 @@ def arch_fp32_checks(torch, seed: int, model: str) -> dict:
         logits, cache, _ = tf.forward_full(c, params, prompt,
                                            want_cache=True, impl=impl)
         step, _ = tf.forward_decode(c, params, nxt, pos,
-                                    spliced_cache(torch, c, cache, SEQ + 8))
+                                    spliced_cache(torch, c, cache, SEQ + 8),
+                                    impl=impl)
         return logits, step
 
     def err(a, b):
@@ -5535,10 +5816,10 @@ def arch_serve_tokens(torch, cfg, params: dict, seed: int) -> tuple:
     cell's six prompts, ENGINE_MAX_NEW new tokens each, each prompt
     prefilled alone; then a second engine over the same weights on the
     eager decode step. Gates: the streams equal bit for bit, each prefill
-    launches ``flash_attention`` once a layer, no decode step a hand
-    kernel. Returns (the line's fields, the main path's launches: the
-    graph engine's run, counted from 0, and the first prompt as a (1, S)
-    tensor)."""
+    launches ``flash_attention`` once a layer, each decode step
+    ``decode_attention`` once a layer. Returns (the line's fields, the main
+    path's launches: the graph engine's run, counted from 0, and the first
+    prompt as a (1, S) tensor)."""
     from repro_torch.launch.steps import make_decode_step
     from repro_torch.serving.engine import Request, ServingEngine
     prompts = engine_prompts(seed, cfg.vocab_size)
@@ -5605,7 +5886,8 @@ def arch_steps_embeddings(torch, cfg, params: dict, seed: int) -> tuple:
     in the config's dtype) and through the eager ``make_decode_step``
     from a copy of the same cache. Gates: each replay's logits equal the
     eager step's bit for bit, and the caches after the last step; the
-    prefill launches ``flash_attention`` once a layer, the steps none.
+    prefill launches ``flash_attention`` once a layer, each step (and the
+    capture's warm-up) ``decode_attention`` once a layer.
     Returns (the line's fields, the main path's launches: the prefill and
     the replays, counted from 0, and the prefill's inputs)."""
     from repro_torch.dtypes import torch_dtype
@@ -5647,9 +5929,12 @@ def arch_steps_embeddings(torch, cfg, params: dict, seed: int) -> tuple:
     launches = launches_now()
     peak = torch.cuda.max_memory_allocated()
     cache_differ = [k for k in held if not torch.equal(held[k], mirror[k])]
-    want = dict.fromkeys(launches, 0) | {"flash_attention": cfg.num_layers}
+    want_prefill = dict.fromkeys(launches, 0) | {
+        "flash_attention": cfg.num_layers}
+    want = want_prefill | {
+        "decode_attention": cfg.num_layers * (1 + 2 * ARCH_EMBED_STEPS)}
     if differ or cache_differ or launches != want \
-            or prefill_launches_ != want \
+            or prefill_launches_ != want_prefill \
             or not bool(torch.isfinite(last).all()):
         raise AssertionError(f"{cfg.name}: replays differ from the eager "
                              f"step at steps {differ}, cache {cache_differ}; "
@@ -5729,7 +6014,8 @@ GPU_TESTS = {"graphs_gpu_tests": "tests/test_torch_graphs_gpu.py",
              "partition_gpu_tests": "tests/test_torch_partition_gpu.py",
              "fleet_gpu_tests": "tests/test_torch_fleet_gpu.py",
              "autotune_gpu_tests": "tests/test_torch_autotune_gpu.py",
-             "train_gpu_tests": "tests/test_torch_train_gpu.py"}
+             "train_gpu_tests": "tests/test_torch_train_gpu.py",
+             "kernels_gpu_tests": "tests/test_torch_kernels_gpu.py"}
 
 
 # ---------------------------------------------------------------------------
@@ -5969,8 +6255,11 @@ def phase_sharded_lm_service(torch, seed: int) -> dict:
     placement, and the program's prefill and decode artifacts on DTensors
     (a prefill of B = SHARDED_B prompts of SHARDED_S tokens, then
     SHARDED_NEW greedy decode steps). Gates: logits and tokens equal, bit
-    for bit, the same steps on plain tensors; 28 ``flash_attention``
-    launches a prefill, through the kernel's sharding rule."""
+    for bit, the same steps on plain tensors (their decode attention on
+    the plain version, ``impl="ref"``: a sharded cache attends on those
+    stock ops, plain tensors on the ``decode_attention`` kernel); 28
+    ``flash_attention`` launches a prefill, through the kernel's sharding
+    rule."""
     from torch.distributed.tensor import DTensor
     from repro_torch.configs import get_config
     from repro_torch.core import rctc
@@ -6020,7 +6309,13 @@ def phase_sharded_lm_service(torch, seed: int) -> dict:
             batch = {"inputs": place(nxt, sharding_for(nxt.shape,
                                                        ("batch", None))),
                      "pos": place(pos, sharding_for(pos.shape, ("batch",)))}
-            lg, cache = prog.artifacts["decode"](p, cache, batch)
+            if sharded:
+                lg, cache = prog.artifacts["decode"](p, cache, batch)
+            else:
+                lg, cache = tf.forward_decode(cfg, p, batch["inputs"],
+                                              batch["pos"], cache,
+                                              impl="ref")
+                lg = lg[:, 0]
             steps.append(local(lg))
             tokens.append(torch.argmax(local(lg), -1).to(torch.int32))
         torch.cuda.synchronize()
@@ -6250,7 +6545,8 @@ def main() -> int:
     rows = [phase_attention(torch, args.seed),
             phase_ssm_scan(torch, args.seed, info["ptxas"]),
             phase_wkv6(torch, args.seed),
-            phase_int8_matmul(torch, args.seed)]
+            phase_int8_matmul(torch, args.seed),
+            phase_decode_attention(torch, args.seed)]
     # the kernel autotune cache: swept, reloaded at provision, served
     by_path = phase_autotune(torch, args.seed)
 

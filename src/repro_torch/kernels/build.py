@@ -28,6 +28,7 @@ BUILD_DIR = REPO_ROOT / "build" / "kernels"
 LIB_NAME = "libaeg_kernels.so"
 SOURCES = (_PKG / "common" / "csrc" / "common.cu",
            _PKG / "flash_attention" / "csrc" / "flash_attention.cu",
+           _PKG / "decode_attention" / "csrc" / "decode_attention.cu",
            _PKG / "ssm_scan" / "csrc" / "ssm_scan.cu",
            _PKG / "wkv6" / "csrc" / "wkv6.cu",
            _PKG / "int8_matmul" / "csrc" / "int8_matmul.cu")
@@ -117,6 +118,8 @@ def library() -> ctypes.CDLL:
                                         i32, i32, i32, ctypes.c_float, i32,
                                         vp]
     lib.aeg_flash_attention.restype = i32
+    lib.aeg_decode_attention.argtypes = [vp] * 8 + [i32] * 10 + [vp]
+    lib.aeg_decode_attention.restype = i32
     lib.aeg_ssm_scan_ring.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32,
                                       i32, i32, i32, i32, vp]
     lib.aeg_ssm_scan_ring.restype = i32

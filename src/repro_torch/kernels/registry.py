@@ -46,6 +46,7 @@ import torch
 from repro_torch.core import rimfs as rimfs_mod
 from repro_torch.dtypes import name_of, torch_dtype
 from repro_torch.kernels.common import sm_count
+from repro_torch.kernels.decode_attention import ops as da_ops
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ref import attention_ref_bshd
 from repro_torch.kernels.int8_matmul import ops as im_ops
@@ -333,7 +334,8 @@ def launch_counters() -> dict:
     its wrappers)."""
     return {"flash_attention": fa_ops.flash_attention,
             "ssm_scan": ss_ops.ssm_scan, "wkv6": wk_ops.wkv6,
-            "int8_matmul": im_ops.int8_matmul}
+            "int8_matmul": im_ops.int8_matmul,
+            "decode_attention": da_ops.decode_attention}
 
 
 def linked_handler(name: str, attrs) -> Callable:

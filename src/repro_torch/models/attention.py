@@ -18,19 +18,21 @@ rows: prefill keeps the last W keys rolled so that token t sits at row
 t % W, the row decode writes token t to (the JAX package keeps them
 unrolled at rows 0 to W-1, so its decode after a prompt longer than W,
 and not a multiple of it, reads the wrong keys). Decode is plain ``jnp``
-in the JAX package and stays on stock torch ops here, with its K/V
-written into the cache in place. Paged decode (``decode_attention_paged``)
-writes the new K/V into a block pool through block tables and gathers each
-lane's blocks back into a contiguous span: the same scores, mask, softmax
-and P.V as dense decode (one shared tail, ``_attend_decode``), over the
-gathered rows. What every layer of a pass shares (RoPE's cos and sin; in
-decode also the rows or blocks written, the slots in them, the valid-row
-mask and the scale; in paged decode the gather index) is built once a
-pass by ``rope_for``, ``decode_consts`` and ``paged_decode_consts`` and
-handed to each layer. Inside an ``axis_rules`` binding the activations
-are placed by logical axes (``shard``), the kernel runs on each rank's
-shard through its DTensor rule, and decode writes a sharded cache with a
-masked insert.
+in the JAX package; here it writes the new token's K/V into the cache in
+place and attends through the ``decode_attention`` op: on the card a
+hand-written kernel that reads each lane's valid rows once, on the CPU the
+plain version (scores in fp32 over every row, masked, softmax in fp32).
+Paged decode (``decode_attention_paged``) writes the new K/V into a block
+pool through block tables, and the op reads the rows through the same
+tables. What every layer of a pass shares (RoPE's cos and sin; in decode
+also the rows or blocks written, the slots in them, the valid-row mask
+and the scale) is built once a pass by ``rope_for``, ``decode_consts``
+and ``paged_decode_consts`` and handed to each layer. Inside an
+``axis_rules`` binding the activations are placed by logical axes
+(``shard``), the kernel runs on each rank's shard through its DTensor
+rule, and decode writes a sharded cache with a masked insert and attends
+on stock ops (``_grouped_scores``, ``_attend_decode``): its rows are
+split across ranks, and no rank holds a whole softmax.
 """
 from __future__ import annotations
 
@@ -43,12 +45,18 @@ from repro_torch.core.oplib import f32_scalar
 from repro_torch.distributed.sharding import (is_dtensor, matmul,
                                               replicate_dims, reshape, shard,
                                               shard_reshape, sharded_dims)
+from repro_torch.kernels.decode_attention.ops import \
+    decode_attention as decode_attention_op
+from repro_torch.kernels.decode_attention.ref import (NEG_INF,
+                                                      decode_attention_ref,
+                                                      decode_weights,
+                                                      grouped_scores,
+                                                      grouped_values)
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import attention_ref_bshd
 from repro_torch.models.common import (AUTOGRAD, ParamSpec, apply_rope,
                                        rms_norm, rope_table)
 
-NEG_INF = -1e30
 CHUNKED_FROM = 16384          # _attend_windowed splits the queries from here
 QUERY_CHUNK = 8192            # on, into S // QUERY_CHUNK chunks
 
@@ -102,17 +110,15 @@ class DecodeConsts(NamedTuple):
     the device tensors ``pos`` (and, paged, ``tables``; no host read): the
     new K/V's write index, ``cache[rows, slot]`` (dense: the lanes' row
     indices and cache slots, ``pos`` or ``pos % S`` in a ring; paged: the
-    lanes' physical blocks and the offsets in them), the (B, 1, 1, 1, S)
-    valid-row mask (``idx <= pos``; in a ring every row once ``pos >=
-    S``), the 0-d fp32 sqrt(D) the scores are divided by, RoPE's table at
-    ``pos`` and, paged only, the (lanes, W) int64 block table the keys and
-    values are gathered through (``paged_decode_consts``)."""
+    lanes' physical blocks and the offsets in them), RoPE's table at
+    ``pos`` and, dense only, for a sharded cache's stock ops, the (B, 1,
+    1, 1, S) valid-row mask (``idx <= pos``; in a ring every row once
+    ``pos >= S``) and the 0-d fp32 sqrt(D) the scores are divided by."""
     rows: torch.Tensor
     slot: torch.Tensor
-    valid: torch.Tensor
-    scale: torch.Tensor
     rope: Optional[tuple]
-    blocks: Optional[torch.Tensor] = None
+    valid: Optional[torch.Tensor] = None
+    scale: Optional[torch.Tensor] = None
 
 
 def decode_consts(cfg: ModelConfig, pos, seq_len: int) -> DecodeConsts:
@@ -126,9 +132,9 @@ def decode_consts(cfg: ModelConfig, pos, seq_len: int) -> DecodeConsts:
         slot = torch.remainder(p, seq_len)
         valid = valid | (p[:, None] >= seq_len)
     return DecodeConsts(rows=torch.arange(pos.shape[0], device=dev),
-                        slot=slot, valid=valid[:, None, None, None, :],
-                        scale=f32_scalar(cfg.head_dim ** 0.5, pos),
-                        rope=rope_for(cfg, pos[:, None]))
+                        slot=slot, rope=rope_for(cfg, pos[:, None]),
+                        valid=valid[:, None, None, None, :],
+                        scale=f32_scalar(cfg.head_dim ** 0.5, pos))
 
 
 def paged_decode_consts(cfg: ModelConfig, pos, tables,
@@ -136,24 +142,16 @@ def paged_decode_consts(cfg: ModelConfig, pos, tables,
     """The step's ``DecodeConsts`` for pos (B,) against a block pool of
     ``block_size`` rows a block, addressed through tables (lanes, W),
     lanes >= B: logical position t of lane b lives at (tables[b, t //
-    block_size], t % block_size), and the W gathered blocks give W *
-    block_size rows. The new token's block is ``tables[b, (pos // bs) %
-    W]`` (a pad lane, all null, writes the null block). Rows of ``tables``
-    past B are null lanes that only the scores see
-    (``decode_attention_paged``)."""
+    block_size], t % block_size). The new token's block is ``tables[b,
+    (pos // bs) % W]`` (a pad lane, all null, writes the null block)."""
     _check_ported(cfg)
     p = pos.long()
     blocks = tables.long()
     B, W = p.shape[0], blocks.shape[1]
     blk = torch.gather(blocks[:B], 1, torch.remainder(
         torch.div(p, block_size, rounding_mode="floor"), W)[:, None])[:, 0]
-    valid = torch.arange(W * block_size, device=pos.device)[None, :] \
-        <= p[:, None]
-    return DecodeConsts(
-        rows=blk, slot=torch.remainder(p, block_size),
-        valid=valid[:, None, None, None, :],
-        scale=f32_scalar(cfg.head_dim ** 0.5, pos),
-        rope=rope_for(cfg, pos[:, None]), blocks=blocks)
+    return DecodeConsts(rows=blk, slot=torch.remainder(p, block_size),
+                        rope=rope_for(cfg, pos[:, None]))
 
 
 def _qkv(cfg: ModelConfig, p: dict, x, positions, rope=None):
@@ -179,7 +177,7 @@ def _grouped_scores(q, k):
         qp = replicate_dims(q, (2, 3)).float().permute(0, 2, 3, 1, 4)
         kp = replicate_dims(k, (2,)).float().permute(0, 2, 3, 1)
         return torch.matmul(qp, kp[:, :, None])
-    return torch.einsum("bqhgd,bkhd->bhgqk", q.float(), k.float())
+    return grouped_scores(q, k)
 
 
 def _grouped_values(a, v):
@@ -188,7 +186,7 @@ def _grouped_values(a, v):
         ap = replicate_dims(a, (1, 2))
         vp = replicate_dims(v, (2,)).permute(0, 2, 1, 3)
         return torch.matmul(ap, vp[:, :, None]).permute(0, 3, 1, 2, 4)
-    return torch.einsum("bhgqk,bkhd->bqhgd", a, v)
+    return grouped_values(a, v)
 
 
 def _split_past_batch(a, b) -> bool:
@@ -294,25 +292,34 @@ def _roll_rows(t, s: int):
 
 
 def decode_attention(cfg: ModelConfig, p: dict, x, pos, k_cache, v_cache,
-                     consts: Optional[DecodeConsts] = None):
+                     consts: Optional[DecodeConsts] = None, impl=None):
     """One-token decode: x (B,1,d), pos (B,), caches (B,S,Hkv,D) holding
     ``pos`` valid tokens each (0 <= pos < S), or in a sliding window's ring
     the last min(pos, S) tokens, token t at row t % S; ``consts`` is
     ``decode_consts(cfg, pos, S)`` when the caller has it.
 
-    The new token's K/V is written at its slot in place; scores in fp32
-    over every cache row, masked to the valid rows with NEG_INF, softmax
-    in fp32, cast to x's dtype before the product with V. Returns (out
-    (B,1,d), k_cache, v_cache)."""
+    The new token's K/V is written at its slot in place, then attended
+    over each lane's min(pos + 1, S) valid rows by the ``decode_attention``
+    op (a sharded cache: ``_attend_decode`` on stock ops; ``impl="ref"``:
+    the op's plain version whatever the device). Returns (out (B,1,d),
+    k_cache, v_cache)."""
     _check_ported(cfg)
+    if impl not in (None, "ref"):
+        raise ValueError(f"unknown decode attention impl {impl!r} (None or "
+                         f"'ref')")
     c = consts if consts is not None else decode_consts(cfg, pos,
                                                         k_cache.shape[1])
     q = _write_new_kv(cfg, p, x, pos, k_cache, v_cache, c)
-    kc = shard(k_cache, "batch", "seq", "kv_heads", None)
-    vc = shard(v_cache, "batch", "seq", "kv_heads", None)
-    scores = _grouped_scores(_group(q, kc.shape[2]), kc)
-    return (_attend_decode(cfg, p, scores, vc, c, x.dtype),
-            k_cache, v_cache)
+    if is_dtensor(k_cache):
+        kc = shard(k_cache, "batch", "seq", "kv_heads", None)
+        vc = shard(v_cache, "batch", "seq", "kv_heads", None)
+        scores = _grouped_scores(_group(q, kc.shape[2]), kc)
+        o = _attend_decode(cfg, scores, vc, c, x.dtype)
+    elif impl == "ref":
+        o = decode_attention_ref(q, k_cache, v_cache, pos)
+    else:
+        o = decode_attention_op(q, k_cache, v_cache, pos)
+    return _out_proj(o, p["wo"]), k_cache, v_cache
 
 
 def decode_attention_paged(cfg: ModelConfig, p: dict, x, pos, pool_k,
@@ -329,28 +336,21 @@ def decode_attention_paged(cfg: ModelConfig, p: dict, x, pos, pool_k,
     The new token's K/V is written at its (block, offset) in place: live
     lanes hold disjoint blocks, so their writes never collide; pad lanes
     all write the null row (duplicate indices, so which write lands there
-    is unspecified), which is only ever gathered back behind the mask.
-    Then the W blocks of each of the ``lanes`` rows are gathered into W *
-    block_size rows and attended exactly as dense decode attends its cache
-    rows: the valid rows carry the same scores, and the masked ones a
-    weight of exactly 0. The scores q.k run over all ``lanes`` rows, q
-    padded with zero lanes, and are cut back to the B live ones: on an
-    H100 their batched GEMM rounds by its shape, so the paged engine passes
-    tables of its dense counterpart's shape (max_batch lanes, max_seq rows;
-    tests/test_torch_paged_gpu.py finds the op), and its streams equal the
-    dense engine's. Returns (out (B,1,d), pool_k, pool_v)."""
-    _, bs, Hkv, D = pool_k.shape
-    B = x.shape[0]
+    is unspecified), which is only ever read back behind the mask. Then
+    the ``decode_attention`` op attends each lane's valid rows through the
+    tables exactly as dense decode attends its cache rows. Its split of
+    the rows, and on the CPU the shape of the plain version's scores (q
+    padded with zero lanes to every lane of the tables), follow the
+    tables' shape: the paged engine passes tables of its dense
+    counterpart's shape (max_batch lanes, max_seq rows), and its streams
+    equal the dense engine's (tests/test_torch_paged_gpu.py). Returns (out
+    (B,1,d), pool_k, pool_v)."""
+    bs = pool_k.shape[1]
     c = consts if consts is not None else paged_decode_consts(cfg, pos,
                                                               tables, bs)
-    lanes, W = c.blocks.shape
     q = _write_new_kv(cfg, p, x, pos, pool_k, pool_v, c)
-    kg = pool_k[c.blocks].reshape(lanes, W * bs, Hkv, D)  # gather blocks
-    vg = pool_v[c.blocks[:B]].reshape(B, W * bs, Hkv, D)
-    qd = torch.cat([q, q.new_zeros((lanes - B,) + tuple(q.shape[1:]))])
-    scores = _grouped_scores(_group(qd, Hkv), kg)[:B]
-    return (_attend_decode(cfg, p, scores, vg, c, x.dtype), pool_k,
-            pool_v)
+    o = decode_attention_op(q, pool_k, pool_v, pos, tables)
+    return _out_proj(o, p["wo"]), pool_k, pool_v
 
 
 def _write_new_kv(cfg: ModelConfig, p: dict, x, pos, k_store, v_store,
@@ -382,15 +382,14 @@ def _group(q, Hkv: int):
                          "batch", None, "kv_heads", None, None)
 
 
-def _attend_decode(cfg: ModelConfig, p: dict, scores, values,
-                   c: DecodeConsts, out_dtype):
-    """The fp32 scores q.k (B,Hkv,G,1,S) over every row of values
-    (B,S,Hkv,D): divided by sqrt(D), masked to ``c.valid`` with NEG_INF,
-    softmax in fp32, cast to ``out_dtype`` before the product with V, then
-    the output projection."""
+def _attend_decode(cfg: ModelConfig, scores, values, c: DecodeConsts,
+                   out_dtype):
+    """A sharded cache's decode attention on stock ops: the fp32 scores
+    q.k (B,Hkv,G,1,S) over every row of values (B,S,Hkv,D), divided by
+    sqrt(D), masked to ``c.valid`` with NEG_INF, softmax in fp32, cast to
+    ``out_dtype`` before the product with V: the plain version's steps
+    (``decode_weights``), with the products placed for the shards.
+    Returns (B,1,H,D)."""
     B, _, _, D = values.shape
-    s_ = torch.where(c.valid, scores / c.scale, NEG_INF)
-    a = torch.softmax(s_, dim=-1).to(out_dtype)
-    o = _grouped_values(a, values).reshape(
-        B, 1, cfg.num_heads, D)
-    return _out_proj(o, p["wo"])
+    a = decode_weights(scores, c.valid, c.scale, out_dtype)
+    return _grouped_values(a, values).reshape(B, 1, cfg.num_heads, D)

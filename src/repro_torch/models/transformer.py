@@ -261,11 +261,12 @@ def block_full(cfg: ModelConfig, p: dict, x, positions, want_cache: bool,
 
 
 def block_decode(cfg: ModelConfig, p: dict, x, pos, cache: dict,
-                 consts=None):
+                 consts=None, impl=None):
     """One-token block. x (B,1,d); cache entries are per-layer slices,
     every one written in place (the KV rows at their slots, the
     recurrent states whole); ``consts`` the step's
-    ``attn.DecodeConsts``."""
+    ``attn.DecodeConsts``; ``impl="ref"`` attends on the kernel's plain
+    version."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     if cfg.family == "ssm":
         y, ts_tm, s1 = rwkv.time_mix_step(cfg, p, h, cache["ts_tm"],
@@ -278,7 +279,7 @@ def block_decode(cfg: ModelConfig, p: dict, x, pos, cache: dict,
         cache["ts_cm"].copy_(ts_cm)
         return _residual(x + y2), cache
     ya, _, _ = attn.decode_attention(cfg, p, h, pos, cache["k"], cache["v"],
-                                     consts)
+                                     consts, impl)
     if cfg.family == "hybrid":
         ym, h1 = mamba.mamba_step(cfg, p, h, cache["ssm"])
         cache["ssm"].copy_(h1)
@@ -356,7 +357,8 @@ def run_blocks_full(cfg: ModelConfig, blocks: dict, x, positions,
         aux
 
 
-def run_blocks_decode(cfg: ModelConfig, blocks: dict, x, pos, cache: dict):
+def run_blocks_decode(cfg: ModelConfig, blocks: dict, x, pos, cache: dict,
+                      impl=None):
     """Every layer against its slice of ``cache``, which is updated in
     place; returns (x, cache). The step's attention invariants are built
     once, for every layer, where the family has attention."""
@@ -364,7 +366,7 @@ def run_blocks_decode(cfg: ModelConfig, blocks: dict, x, pos, cache: dict):
         if "k" in cache else None
     for i in range(cfg.num_layers):
         x, _ = block_decode(cfg, _slice_layer(blocks, i), x, pos,
-                            _slice_layer(cache, i), consts)
+                            _slice_layer(cache, i), consts, impl)
     return x, cache
 
 
@@ -407,15 +409,19 @@ def forward_full(cfg: ModelConfig, params: dict, inputs,
     return logits_head(cfg, glob, x), cache, aux
 
 
-def forward_decode(cfg: ModelConfig, params: dict, inputs, pos, cache: dict):
+def forward_decode(cfg: ModelConfig, params: dict, inputs, pos, cache: dict,
+                   impl=None):
     """One-token decode. inputs (B,1) tokens or (B,1,d) embeddings; pos
     (B,) int32, each lane's position (below the KV cache's rows, unless it
     is a sliding window's ring). Returns (logits (B,1,V), cache), the cache
-    updated in place."""
+    updated in place. ``impl="ref"`` runs the decode attention's plain
+    version whatever the device (a check of the kernel inside the model,
+    and the route of a dtype the kernel does not take), as
+    ``forward_full``'s does."""
     check_ported(cfg)
     glob, blocks = split_params(params)
     x = embed_inputs(cfg, glob, inputs)
-    x, cache = run_blocks_decode(cfg, blocks, x, pos, cache)
+    x, cache = run_blocks_decode(cfg, blocks, x, pos, cache, impl)
     return logits_head(cfg, glob, x), cache
 
 
@@ -456,11 +462,11 @@ def forward_decode_paged(cfg: ModelConfig, params: dict, inputs, pos,
     K/V written to the null block), so that every op of every layer runs
     at ``lanes`` rows: the engine passes tables of its dense counterpart's
     shape (max_batch lanes), and on an H100 several of a layer's ops
-    round by their row count (the attention scores' batched GEMM, the
-    RMSNorm's mean, the MoE router's fp32 GEMM), so only that shape gives
-    each live lane the dense step's bits. What every layer shares
-    (the write index, mask, gather indices and RoPE) is built once, before
-    the layers. Returns (logits (B,1,V), pool_k, pool_v)."""
+    round by their row count (the RMSNorm's mean, the MoE router's fp32
+    GEMM; the decode attention splits its rows by the tables' shape), so
+    only that shape gives each live lane the dense step's bits. What every
+    layer shares (the write index and RoPE) is built once, before the
+    layers. Returns (logits (B,1,V), pool_k, pool_v)."""
     _check_paged_family(cfg)
     check_ported(cfg)
     glob, blocks = split_params(params)

@@ -329,6 +329,13 @@ class ServingEngine(EngineBase):
             toks[i, 0] = self._slots[i].out_tokens[-1]
             pos[i] = self._pos[i]
         tel = self.telemetry
+        if "k" in self._cache:
+            # the share of the KV cache the step's attention reads: each
+            # live lane's valid rows, of every slot's rows
+            S = self._cache["k"].shape[2]
+            tel.incr("decode.rows_attended",
+                     sum(min(int(pos[i]) + 1, S) for i in live))
+            tel.incr("decode.rows_held", self.max_batch * S)
         t0 = Telemetry.clock()
         with torch.profiler.record_function("engine.decode") if tel.tracing \
                 else NOSPAN:

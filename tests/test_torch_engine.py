@@ -308,6 +308,30 @@ def test_engine_sheds_through_its_scheduler_and_feeds_the_ewma(rng):
     assert eng.telemetry.summary()["n"] == 3    # one latency a decode step
 
 
+def test_engine_counts_the_kv_rows_its_decode_attends(rng):
+    """``decode.rows_attended`` adds each live lane's min(pos + 1, S)
+    rows a decode step, and ``decode.rows_held`` every slot's S rows: 3
+    prompts over 2 slots, so a slot frees and refills."""
+    _, _, cfg, _ = _params()
+    eng = engine.ServingEngine(cfg, _port_params(), max_batch=2, max_seq=64,
+                               device="cpu")
+    inner, attended = eng._decode, []
+
+    def rec(params, cache, batch):
+        live = [i for i, r in enumerate(eng._slots) if r is not None]
+        attended.append(sorted(int(batch["pos"][i]) + 1 for i in live))
+        return inner(params, cache, batch)
+    eng._decode = rec
+    prompts = _prompts(rng, (5, 9, 3), cfg.vocab_size)
+    for i, (p, n) in enumerate(zip(prompts, (3, 6, 2))):
+        eng.submit(engine.Request(rid=i, prompt=p, max_new=n))
+    eng.run_until_drained()
+    assert attended[:4] == [[6, 10], [7, 11], [8, 12], [4, 13]]
+    tel = eng.telemetry
+    assert tel.counter("decode.rows_attended") == sum(map(sum, attended))
+    assert tel.counter("decode.rows_held") == len(attended) * 2 * 64
+
+
 def test_second_engine_from_rimfs_moves_zero_dma_bytes(rng):
     _, _, cfg, _ = _params()
     fs = rimfs.mount(engine.pack_params_image(_port_params()))

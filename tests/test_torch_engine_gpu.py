@@ -238,14 +238,18 @@ def test_decode_graph_replay_equals_the_eager_step(cuda, which):
     copies of one cache: logits and every cache tensor (KV rows, ring or
     not, and the recurrent states) bit for bit, over three replays whose
     positions take 0, max_seq - 1 and rows between (the static buffers
-    refresh on each)."""
+    refresh on each). The graph holds one ``decode_attention`` launch a
+    layer of the families with attention, and no other hand kernel."""
     cfg = CONFIGS[which]()
     B, max_seq = 4, 64
     params = tf.init_params(cfg, 1)
     cache = _random_cache(cfg, B, max_seq, 2)
     step = CompiledDecodeStep(cfg, params, cache, B)
     assert step.graph is not None
-    assert all(n == 0 for n in step.graph.launches.values())
+    attention_layers = cfg.num_layers if "k" in cache else 0
+    assert step.graph.launches == dict(
+        dict.fromkeys(step.graph.launches, 0),
+        decode_attention=attention_layers)
     mirror = {k: v.clone() for k, v in cache.items()}  # after the warm-up
     eager = make_decode_step(cfg)
     rng = np.random.RandomState(3)

@@ -11,6 +11,8 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels.decode_attention import ops as da_ops
+from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.flash_attention import ops
 from repro_torch.kernels.flash_attention.ref import attention_ref_bshd
 from repro_torch.kernels.int8_matmul import ops as i8_ops
@@ -24,6 +26,23 @@ from repro_torch.kernels.wkv6.ref import wkv6_ref_bthk
 TOL = {"float32": 2e-6, "bfloat16": 2e-2, "float16": 2e-2}
 SSM_TOL = {"float32": 2e-5, "bfloat16": 2e-2, "float16": 2e-2}
 WKV_TOL = {"float32": 5e-4, "bfloat16": 3e-2, "float16": 3e-2}
+# decode_attention: bf16/f16 as flash_attention's (the plain version rounds
+# its normalised weights to the value dtype before P.V, the kernel keeps
+# them in fp32, and each rounds its output once); fp32 at 1e-5, since the
+# kernel sums the products, the weights and the splits of up to 4,096 rows
+# in another order than the plain version's GEMMs and softmax
+DECODE_TOL = {"float32": 1e-5, "bfloat16": 2e-2, "float16": 2e-2}
+# with q scaled by 30 the fp32 scores reach +-100 and q.k before the scale
+# ~800: an ulp of q.k there (~6e-5), summed in another order than cuBLAS
+# sums it, moves a weight's exponent by ~1e-5, and an output by up to 2e-5
+# (measured on an H100)
+DECODE_TOL_SCALED = dict(DECODE_TOL, float32=5e-5)
+# and each lane's max |error| over its largest output: both round the
+# output once to its dtype from fp32 sums taken in another order, so they
+# may differ by an ulp of the output, 2^-7 of its largest value in bf16 and
+# 2^-10 in f16 (a lane over 4,096 rows has outputs near 0.03, where the
+# atol above alone would pass anything)
+DECODE_LANE_TOL = {"bfloat16": 2 ** -7, "float16": 2 ** -10}
 
 
 @pytest.fixture
@@ -648,3 +667,133 @@ def test_int8_matmul_kernel_split_k_is_deterministic(out_dtype, cuda, rng):
         want = int8_matmul_ref(x, w, scale)
     assert torch.equal(runs[0].view(torch.int32), runs[1].view(torch.int32))
     assert torch.equal(runs[0], want)
+
+
+def _decode_inputs(rng, b, s, hkv, g, d, dtype, cuda, q_scale=1.0):
+    t = lambda *shape: torch.from_numpy(rng.randn(*shape).astype(
+        np.float32)).to(cuda, getattr(torch, dtype))
+    q = (t(b, 1, hkv * g, d).float() * q_scale).to(getattr(torch, dtype))
+    return q, t(b, s, hkv, d), t(b, s, hkv, d)
+
+
+def _nemo_pos(rng, b, s):
+    """Ragged positions over mistral-nemo's 32 slots: 0, S - 1, a few free
+    lanes at 0 (a free lane decodes at row 0), the rest drawn."""
+    pos = rng.randint(0, s, b)
+    special = (0, s - 1, 1, s // 3)[:b]
+    pos[:len(special)] = special
+    if b >= 8:
+        pos[-3:] = 0
+    return pos.astype(np.int32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [
+    # mistral-nemo's decode: 32 lanes x 4,096 rows, 32/8 heads x 128, bf16
+    (32, 4096, 8, 4, 128, "bfloat16", 1.0),
+    (32, 4096, 8, 4, 128, "bfloat16", 30.0),   # scores near +-100
+    # the other configs' groups and head dims, and float16 / float32
+    (4, 640, 2, 6, 128, "bfloat16", 1.0),      # qwen2-1.5B
+    (3, 1000, 8, 7, 128, "bfloat16", 1.0),     # arctic
+    (5, 300, 5, 5, 64, "bfloat16", 1.0),       # hymba's attention
+    (2, 700, 24, 1, 64, "float16", 1.0),       # musicgen
+    (4, 64, 2, 2, 16, "bfloat16", 1.0),        # the smoke configs in bf16
+    (4, 600, 8, 4, 128, "float32", 1.0), (3, 64, 2, 2, 16, "float32", 1.0),
+    (2, 129, 4, 8, 64, "float32", 30.0)])
+def test_decode_attention_kernel_matches_plain_version(case, cuda, rng):
+    b, s, hkv, g, d, dtype, q_scale = case
+    q, k, v = _decode_inputs(rng, b, s, hkv, g, d, dtype, cuda, q_scale)
+    pos = torch.from_numpy(_nemo_pos(rng, b, s)).to(cuda)
+    before = da_ops.decode_attention.launches
+    got = da_ops.decode_attention(q, k, v, pos)
+    torch.cuda.synchronize()
+    assert da_ops.decode_attention.launches == before + 1
+    assert got.dtype == q.dtype and got.shape == q.shape
+    want = decode_attention_ref(q, k, v, pos)
+    tol = (DECODE_TOL if q_scale == 1.0 else DECODE_TOL_SCALED)[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    if dtype in DECODE_LANE_TOL:
+        diff = (got.float() - want.float()).abs().flatten(1).amax(1)
+        top = want.float().abs().flatten(1).amax(1)
+        assert (diff <= DECODE_LANE_TOL[dtype] * top).all(), diff / top
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_attention_kernel_in_a_sliding_ring(dtype, cuda, rng):
+    """A ring of 1,024 rows (hymba's window) before it wraps and after:
+    every row is valid once pos >= S, the rows in ring order."""
+    q, k, v = _decode_inputs(rng, 6, 1024, 5, 5, 64, dtype, cuda)
+    pos = torch.tensor([0, 1023, 1024, 5000, 300, 2047], dtype=torch.int32,
+                       device=cuda)
+    got = da_ops.decode_attention(q, k, v, pos)
+    want = decode_attention_ref(q, k, v, pos)
+    tol = DECODE_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lanes", [4, 6])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_attention_kernel_reads_block_tables_as_a_dense_cache(
+        dtype, lanes, cuda, rng):
+    """The same rows in a dense cache (4 lanes x 640 rows) and in a pool of
+    16-row blocks behind shuffled tables of 4 or 6 lanes (null past B):
+    the same bits at the dense cache's lane count, and within tolerance of
+    the plain version at any."""
+    b, s, hkv, g, d, bs = 4, 640, 2, 6, 128, 16
+    q, k, v = _decode_inputs(rng, b, s, hkv, g, d, dtype, cuda)
+    pos = torch.tensor([639, 0, 100, 333], dtype=torch.int32, device=cuda)
+    w = s // bs
+    order = torch.from_numpy(rng.permutation(b * w)).to(cuda)
+    pools = []
+    for a in (k, v):
+        pool = torch.zeros((b * w + 1, bs, hkv, d), dtype=a.dtype,
+                           device=cuda)
+        pool[order] = a.reshape(b * w, bs, hkv, d)
+        pools.append(pool)
+    tables = torch.full((lanes, w), b * w, dtype=torch.int32, device=cuda)
+    tables[:b] = order.reshape(b, w).int()
+    got = da_ops.decode_attention(q, pools[0], pools[1], pos, tables)
+    dense = da_ops.decode_attention(q, k, v, pos)
+    if lanes == b:
+        assert torch.equal(got, dense)
+    tol = DECODE_TOL[dtype]
+    torch.testing.assert_close(got.float(), decode_attention_ref(
+        q, k, v, pos).float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_decode_attention_kernel_is_deterministic(dtype, cuda, rng):
+    """Two launches on the same inputs give the same bits: the splits
+    combine in a fixed order, with no atomics."""
+    q, k, v = _decode_inputs(rng, 32, 4096, 8, 4, 128, dtype, cuda)
+    pos = torch.from_numpy(_nemo_pos(rng, 32, 4096)).to(cuda)
+    before = da_ops.decode_attention.launches
+    first = da_ops.decode_attention(q, k, v, pos)
+    second = da_ops.decode_attention(q, k, v, pos)
+    torch.cuda.synchronize()
+    assert da_ops.decode_attention.launches == before + 2
+    assert torch.equal(first, second)
+
+
+@pytest.mark.gpu
+def test_decode_attention_kernel_refuses_what_it_cannot_read(cuda):
+    q = torch.zeros(2, 1, 4, 16, device=cuda)
+    kv = torch.zeros(2, 8, 2, 16, device=cuda, dtype=torch.bfloat16)
+    pos = torch.zeros(2, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="one dtype"):
+        da_ops.decode_attention(q, kv, kv, pos)
+    kv32 = torch.zeros(2, 8, 2, 32, device=cuda)
+    with pytest.raises(ValueError, match="head_dim 32"):
+        da_ops.decode_attention(torch.zeros(2, 1, 4, 32, device=cuda), kv32,
+                                kv32, pos)
+    kvf = torch.zeros(2, 8, 2, 16, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        da_ops.decode_attention(q, kvf.transpose(1, 2).contiguous()
+                                .transpose(1, 2), kvf, pos)
+    with pytest.raises(ValueError, match="int32"):
+        da_ops.decode_attention(q, kvf, kvf, pos.long())
+    with pytest.raises(ValueError, match="unsupported dtype"):
+        da_ops.decode_attention(q.double(), kvf.double(), kvf.double(), pos)
